@@ -1,13 +1,18 @@
-"""Carry weights between the flax layout and the port's modules.
+"""Carry weights and training state between the JAX package's layout and
+the port's.
 
 Dense params travel as flat flax-named arrays (`Dense_0/kernel`,
 `MLP_0/Dense_2/bias`, ...), the content of an export's `dense_params.npz`.
-flax kernels are (in, out); the port's `Dense.weight` is (out, in).
+flax kernels are (in, out); the port's `Dense.weight` is (out, in). Dense
+optimizer slots travel as flat names `<param>/<slot>` (`Dense_0/kernel/accum`,
+the content of a checkpoint's `dense_slots.npz`) of (1, size) rows: a
+kernel's slot row is laid out like the flax kernel flattened, so it is
+transposed on the way like the kernel it belongs to.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -74,3 +79,111 @@ def tables_from_numpy(arrays: Mapping[str, np.ndarray], *, device
             t = torch.from_numpy(arr)
         out[name] = t.to(device).contiguous()
     return out
+
+
+def _flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """torch parameter name -> (flax param name, is a kernel)."""
+    path_of = {id(layer): path for path, layer in _flax_dense(module).items()}
+    out = {}
+    for mod_name, mod in module.named_modules():
+        path = path_of.get(id(mod))
+        if path is None or not mod.materialized:
+            continue
+        prefix = f"{mod_name}." if mod_name else ""
+        out[f"{prefix}weight"] = (f"{path}/kernel", True)
+        out[f"{prefix}bias"] = (f"{path}/bias", False)
+    return out
+
+
+def _relayout(row: np.ndarray, shape, is_kernel: bool, to_flax: bool
+              ) -> np.ndarray:
+    """A (1, size) slot row of a kernel with torch shape (out, in), between
+    the torch layout and the flax (in, out) one; 1-wide slots and biases
+    stay as they are."""
+    if not is_kernel or row.size != shape[0] * shape[1]:
+        return row
+    out_f, in_f = shape
+    grid = row.reshape(out_f, in_f) if to_flax else row.reshape(in_f, out_f)
+    return np.ascontiguousarray(grid.T).reshape(1, -1)
+
+
+def dense_slots_to_flax(module: nn.Module,
+                        slots: Mapping[str, Mapping[str, torch.Tensor]]
+                        ) -> Dict[str, np.ndarray]:
+    """{torch param name: {slot: (1, size)}} -> flat flax-named numpy rows."""
+    out = {}
+    for pname, (fname, is_kernel) in _flax_leaves(module).items():
+        shape = tuple(module.get_parameter(pname).shape)
+        for sname, row in slots[pname].items():
+            out[f"{fname}/{sname}"] = _relayout(
+                row.detach().cpu().numpy(), shape, is_kernel, to_flax=True)
+    return out
+
+
+def dense_slots_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module,
+                          *, device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Flat flax-named slot rows -> {torch param name: {slot: tensor}} for
+    every parameter of the (materialized) module."""
+    by_param: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in flat.items():
+        param, _, slot = key.rpartition("/")
+        by_param.setdefault(param, {})[slot] = np.asarray(value, np.float32)
+    out = {}
+    for pname, (fname, is_kernel) in _flax_leaves(module).items():
+        shape = tuple(module.get_parameter(pname).shape)
+        out[pname] = {
+            sname: torch.tensor(_relayout(row, shape, is_kernel,
+                                          to_flax=False), device=device)
+            for sname, row in by_param.get(fname, {}).items()}
+    return out
+
+
+def table_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A table on the host as the JAX package writes it: float32 as it is,
+    bfloat16 as its 2-byte words (numpy's "V2", what `np.save` of an
+    ml_dtypes bfloat16 array writes)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
+                         dense_params: Mapping[str, np.ndarray],
+                         dense_slots: Mapping[str, np.ndarray],
+                         step: int = 0, model_version: int = 0, device
+                         ):
+    """A `TrainState` on `device` from the JAX package's state as numpy:
+    `tables` {name: {"weights": (rows, dim), "slots": {slot: (rows, w)}}},
+    flat flax-named `dense_params` and `dense_slots`. The model's dense
+    module takes the parameters and becomes the state's."""
+    from .embedding import EmbeddingTableState
+    from .model import TrainState
+    module = model.module
+    dense_from_flax(dense_params, module)
+    module.to(device)
+    out_tables = {}
+    for name, t in tables.items():
+        weights = tables_from_numpy({"w": t["weights"]}, device=device)["w"]
+        slots = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                 for k, v in t["slots"].items()}
+        out_tables[name] = EmbeddingTableState(weights=weights, slots=slots)
+    return TrainState(
+        step=int(step), dense=module,
+        dense_slots=dense_slots_from_flax(dense_slots, module, device=device),
+        tables=out_tables, model_version=int(model_version))
+
+
+def train_state_to_jax(state) -> Dict:
+    """The state as numpy in the JAX package's layout: {"step",
+    "model_version", "tables": {name: {"weights", "slots"}},
+    "dense_params": flat flax names, "dense_slots": flat flax names}."""
+    return {
+        "step": int(state.step), "model_version": int(state.model_version),
+        "tables": {name: {"weights": table_to_numpy(t.weights),
+                          "slots": {k: v.detach().cpu().numpy()
+                                    for k, v in t.slots.items()}}
+                   for name, t in state.tables.items()},
+        "dense_params": dense_to_flax(state.dense),
+        "dense_slots": dense_slots_to_flax(state.dense, state.dense_slots),
+    }

@@ -1,11 +1,59 @@
-"""Host-side id helpers the serving layer needs (copies of `pad_ragged` and
-`is_ragged` from `openembedding_tpu/data/criteo.py`)."""
+"""Host-side data helpers: copies of `pad_ragged`, `is_ragged`,
+`hash_category` and `synthetic_criteo` from `openembedding_tpu/data/criteo.py`
+(int64 ids only: the split-pair id layout has no place in the port). All
+numpy; `tests/test_torch_trainer.py` pins the generator's batches
+byte-identical to the JAX package's."""
 
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+NUM_DENSE = 13
+NUM_SPARSE = 26
+
+_FNV_OFFSET = np.uint64(0xCBF29CE484222325)
+_FNV_PRIME = np.uint64(0x100000001B3)
+
+
+def hash_category(token_hash: np.ndarray, field: np.ndarray,
+                  id_space: int) -> np.ndarray:
+    """Map (token hash, field index) -> folded id in [0, id_space); the
+    field salt keeps distinct fields' tokens apart in the shared table."""
+    h = (token_hash.astype(np.uint64) ^ _FNV_OFFSET) * _FNV_PRIME
+    h ^= (field.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15))
+    h *= _FNV_PRIME
+    h &= np.uint64(0x7FFFFFFFFFFFFFFF)
+    return (h % np.uint64(id_space)).astype(np.int64)
+
+
+def synthetic_criteo(batch_size: int, *, id_space: int = 1 << 25,
+                     num_fields: int = NUM_SPARSE, dense_dim: int = NUM_DENSE,
+                     seed: int = 0, alpha: float = 1.05,
+                     steps: Optional[int] = None) -> Iterator[Dict]:
+    """Synthetic Criteo-like stream with Zipfian ids (the hot-key skew of real
+    CTR logs, which the dedup sees). Labels come from a fixed random linear
+    model so the loss decreases."""
+    rng = np.random.default_rng(seed)
+    w_dense = rng.normal(size=(dense_dim,)).astype(np.float32) * 0.3
+    it = itertools.count() if steps is None else range(steps)
+    for _ in it:
+        # Zipf via inverse-CDF on uniform: id = floor(u^(-1/(alpha-1)))
+        u = rng.random((batch_size, num_fields))
+        raw = np.floor(np.clip(u ** (-1.0 / (alpha - 1.0)), 1.0, 2.0 ** 62)
+                       ).astype(np.int64)
+        fields = np.broadcast_to(np.arange(num_fields, dtype=np.uint64),
+                                 (batch_size, num_fields))
+        ids64 = hash_category(raw.astype(np.uint64), fields, id_space)
+        dense = rng.normal(size=(batch_size, dense_dim)).astype(np.float32)
+        logit = (dense @ w_dense
+                 + 0.01 * (ids64 % 97 - 48).sum(axis=1) / num_fields)
+        labels = (rng.random(batch_size) < 1.0 / (1.0 + np.exp(-logit))
+                  ).astype(np.float32)
+        yield {"sparse": {"categorical": ids64}, "dense": dense,
+               "label": labels}
 
 
 def pad_ragged(seqs, width: Optional[int] = None, dtype=np.int64) -> np.ndarray:

@@ -1,9 +1,10 @@
-"""Embedding variable spec + the user-facing `Embedding` layer handle.
+"""Embedding variable spec, table state + the user-facing `Embedding` layer.
 
-Port of `openembedding_tpu/embedding.py` for slice 1 (serving): the spec, the
-array-table init and lookup, the validity masks and the combiner pooling. The
-hash-table device path, the training pull and `apply_gradients` come with
-training (ROADMAP.md).
+Port of `openembedding_tpu/embedding.py` for array tables: the spec, the
+table state (weights + optimizer slots) and its init, the serving lookup,
+the training pull (`lookup_train`) and push (`apply_gradients`), the
+validity masks and the combiner pooling. The device hash table and
+host-cached tables are not ported yet (ROADMAP.md).
 
 Ids are single-lane int64 tensors throughout the port: torch has int64 on
 every device, so the JAX package's split-pair uint32 id layout has no
@@ -13,14 +14,15 @@ counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from .initializers import Initializer, Uniform
 from .meta import DataType, EmbeddingVariableMeta, HASH_VOCABULARY_THRESHOLD
-from .ops.sparse import lookup_rows
+from .optimizers import SparseOptimizer
+from .ops.sparse import lookup_rows, sparse_apply_dense_table
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md)"
 
@@ -28,14 +30,14 @@ _NOT_PORTED = "is not ported yet (see ROADMAP.md)"
 @dataclasses.dataclass(frozen=True)
 class EmbeddingSpec:
     """Static description of one embedding variable (same fields and config
-    dict as the JAX spec). `optimizer` stays None until training is ported."""
+    dict as the JAX spec). `optimizer` None means the trainer's optimizer."""
 
     name: str
     input_dim: int                       # -1 -> hashed 63-bit id space
     output_dim: int
     datatype: str = "float32"
     initializer: Initializer = dataclasses.field(default_factory=Uniform)
-    optimizer: Optional[object] = None
+    optimizer: Optional[SparseOptimizer] = None
     num_shards: int = -1
     sparse_as_dense: bool = False
     capacity: int = 0
@@ -56,10 +58,6 @@ class EmbeddingSpec:
             raise ValueError(
                 f"embedding {self.name!r}: unknown combiner "
                 f"{self.combiner!r} (expected '', 'sum', 'mean' or 'sqrtn')")
-        if self.optimizer is not None:
-            raise NotImplementedError(
-                f"embedding {self.name!r}: per-variable optimizers come with "
-                f"training, which {_NOT_PORTED}")
 
     @property
     def use_hash_table(self) -> bool:
@@ -94,7 +92,8 @@ class EmbeddingSpec:
         return {
             "name": self.name, "input_dim": self.input_dim,
             "output_dim": self.output_dim, "datatype": self.datatype,
-            "initializer": self.initializer.to_config(), "optimizer": None,
+            "initializer": self.initializer.to_config(),
+            "optimizer": self.optimizer.to_config() if self.optimizer else None,
             "num_shards": self.num_shards,
             "sparse_as_dense": self.sparse_as_dense,
             "capacity": self.capacity, "storage": self.storage,
@@ -103,25 +102,69 @@ class EmbeddingSpec:
         }
 
 
-def init_table(spec: EmbeddingSpec, generator: torch.Generator
-               ) -> torch.Tensor:
-    """Materialize an array table's weights on the generator's device."""
+def _array_table_only(spec: EmbeddingSpec) -> None:
     if spec.use_hash_table:
         raise NotImplementedError(
             f"hash-table variable {spec.name!r}: the device hash table "
             f"{_NOT_PORTED}")
+
+
+def init_table(spec: EmbeddingSpec, generator: torch.Generator
+               ) -> torch.Tensor:
+    """Materialize an array table's weights on the generator's device."""
+    _array_table_only(spec)
     return spec.initializer(generator, (spec.rows_per_shard(1),
                                         spec.output_dim), spec.dtype)
+
+
+@dataclasses.dataclass
+class EmbeddingTableState:
+    """One array table's training storage: weights (rows, dim) and the
+    optimizer's slots {name: (rows, width) float32}. The train step updates
+    both in place."""
+
+    weights: torch.Tensor
+    slots: Dict[str, torch.Tensor]
+
+
+def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
+                     generator: torch.Generator) -> EmbeddingTableState:
+    """Weights from the spec's initializer (drawn from `generator`, on its
+    device) and the optimizer's slots at their initial values."""
+    if spec.storage != "hbm":
+        raise NotImplementedError(
+            f"variable {spec.name!r}: storage={spec.storage!r} {_NOT_PORTED}")
+    weights = init_table(spec, generator)
+    slots = optimizer.init_slots(weights.shape[0], spec.output_dim,
+                                 spec.dtype, device=weights.device)
+    return EmbeddingTableState(weights=weights, slots=slots)
 
 
 def lookup(spec: EmbeddingSpec, weights: torch.Tensor,
            ids: torch.Tensor) -> torch.Tensor:
     """Single-shard array-table pull: ids (any shape) -> ids.shape + (dim,)."""
-    if spec.use_hash_table:
-        raise NotImplementedError(
-            f"hash-table variable {spec.name!r}: the device hash lookup "
-            f"{_NOT_PORTED}")
+    _array_table_only(spec)
     return lookup_rows(weights, ids)
+
+
+def lookup_train(spec: EmbeddingSpec, state: EmbeddingTableState,
+                 ids: torch.Tensor):
+    """Training pull -> (state, rows). Array tables never change on a pull,
+    so this is `lookup`; the rows are a plain tensor, not a view of the
+    table (the caller makes them the leaf it differentiates against)."""
+    return state, lookup(spec, state.weights, ids)
+
+
+def apply_gradients(spec: EmbeddingSpec, state: EmbeddingTableState,
+                    optimizer: SparseOptimizer, ids: torch.Tensor,
+                    grads: torch.Tensor) -> EmbeddingTableState:
+    """Push + update, in place: duplicate ids' gradients summed, the
+    optimizer applied once per unique valid id; -1 pads and out-of-range
+    ids train nothing. Returns `state`."""
+    _array_table_only(spec)
+    sparse_apply_dense_table(optimizer, state.weights, state.slots,
+                             ids.reshape(-1), grads.reshape(-1, spec.output_dim))
+    return state
 
 
 def valid_mask(spec: EmbeddingSpec, ids: torch.Tensor) -> torch.Tensor:

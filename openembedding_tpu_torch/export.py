@@ -20,7 +20,7 @@ import json
 import os
 import time
 import uuid
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ from .convert import dense_from_flax, dense_to_flax, tables_from_numpy
 from .device import resolve_device
 from .embedding import serve_rows
 from .meta import ModelMeta, ModelVariableMeta
-from .model import EmbeddingModel, WeightsState, attach_ids
+from .model import EmbeddingModel, TrainState, WeightsState, attach_ids
 from .ops import gather
 
 MODEL_CONFIG_FILE = "model_config.json"
@@ -92,11 +92,13 @@ def load_model_config(path: str) -> Optional[EmbeddingModel]:
     return zoo.from_config(cfg, **cfg.get("serving_overrides", {}))
 
 
-def export_standalone(state: WeightsState, model: EmbeddingModel, path: str,
+def export_standalone(state: Union[WeightsState, TrainState],
+                      model: EmbeddingModel, path: str,
                       *, model_sign: str = "") -> ModelMeta:
     """Write every embedding variable and the dense module into a
-    self-contained directory. Weights only; array tables only (the port has
-    no device hash table yet)."""
+    self-contained directory, from fresh weights or from a training state.
+    Weights only (no optimizer slots); array tables only (the port has no
+    device hash table yet)."""
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
@@ -106,6 +108,8 @@ def export_standalone(state: WeightsState, model: EmbeddingModel, path: str,
                 f"variable {name!r}: exporting a hash table is not ported yet "
                 "(see ROADMAP.md)")
         weights = state.tables[name]
+        if isinstance(state, TrainState):
+            weights = weights.weights
         if weights.dtype != torch.float32:
             raise NotImplementedError(
                 f"variable {name!r}: the port exports float32 tables only, "

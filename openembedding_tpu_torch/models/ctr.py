@@ -102,14 +102,15 @@ class DeepFM(nn.Module):
 
 
 def _categorical_embedding(vocabulary: int, dim: int, *, hashed: bool,
-                           capacity: int, num_shards: int,
+                           capacity: int, num_shards: int, optimizer=None,
                            split: bool = False):
     """The categorical table(s): folded, one (dim+1)-wide table with column 0
     the first-order weight; split, a dim-wide latent table plus a 1-wide
     FIRST_ORDER table reading the same id feature. Latent vectors start
-    ~ N(0, 1e-4), first-order weights at 0."""
-    kw = dict(input_dim=-1 if hashed else vocabulary, num_shards=num_shards,
-              capacity=capacity)
+    ~ N(0, 1e-4), first-order weights at 0. `optimizer` goes into every
+    table's spec (None: the trainer's)."""
+    kw = dict(input_dim=-1 if hashed else vocabulary, optimizer=optimizer,
+              num_shards=num_shards, capacity=capacity)
     if not split:
         return [Embedding(output_dim=dim + 1, name=CATEGORICAL,
                           embeddings_initializer=CombinedFirstOrder(
@@ -152,14 +153,10 @@ def make_deepfm(vocabulary: int, dim: int = 9, *, hidden=(400, 400, 400),
                 hashed: bool = False, capacity: int = 0, num_shards: int = -1,
                 optimizer=None, compute_dtype=torch.bfloat16,
                 first_order: str = "auto") -> EmbeddingModel:
-    if optimizer is not None:
-        raise NotImplementedError(
-            "optimizers come with training, which is not ported yet "
-            "(see ROADMAP.md)")
     fo = _first_order_mode(first_order, dim)
     embs = _categorical_embedding(vocabulary, dim, hashed=hashed,
                                   capacity=capacity, num_shards=num_shards,
-                                  split=fo == "split")
+                                  optimizer=optimizer, split=fo == "split")
     return EmbeddingModel(
         DeepFM(hidden=hidden, compute_dtype=compute_dtype), embs,
         loss_fn=binary_logloss,

@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}  # one per kernel: builds run in parallel
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # name -> {"path", "seconds" (0.0 when a built library was reused), "log"}
 BUILD_INFO: Dict[str, dict] = {}
@@ -58,8 +59,11 @@ def _compile(source: str, out: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+    """Build (if needed) and load `csrc/<name>.cu`; cached per process.
+    Different kernels may build at the same time from different threads."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib

@@ -16,9 +16,10 @@ import jax
 import jax.numpy as jnp
 
 from openembedding_tpu.ops import pallas_sparse
+from openembedding_tpu.ops.sparse import _dedup_routed as jax_dedup_routed
 from openembedding_tpu.ops.sparse import lookup_rows as jax_lookup_rows
 from openembedding_tpu_torch.ops import gather
-from openembedding_tpu_torch.ops.sparse import lookup_rows
+from openembedding_tpu_torch.ops.sparse import _dedup_routed, lookup_rows
 
 DTYPES = {"float32": (torch.float32, jnp.float32, np.int32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, np.int16)}
@@ -126,6 +127,31 @@ def test_lookup_rows_any_id_shape_matches_jax():
     assert tuple(got.shape) == (6, 26, 10)
     np.testing.assert_array_equal(_bits_torch(got), _bits_jax(want,
                                                               "float32"))
+
+
+def test_gather_of_routed_training_rows_matches_jax():
+    """The training side: rows routed by `_dedup_routed`, whose invalid
+    unique slots i carry the distinct out-of-range rows n_rows + i; those
+    must gather zero rows, the valid ones their table rows."""
+    rng = np.random.default_rng(5)
+    n_rows, n = 40, 120
+    w, jw = _tables(rng, n_rows, 10, "float32")
+    ids = rng.integers(-1, n_rows + 6, n).astype(np.int64)
+    grads = np.zeros((n, 10), np.float32)
+    _, counts, idx = _dedup_routed(n_rows, torch.from_numpy(ids),
+                                   torch.from_numpy(grads), None)
+    _, _, jidx = jax_dedup_routed(n_rows, jnp.asarray(ids),
+                                  jnp.asarray(grads), None)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    invalid = idx >= n_rows
+    assert invalid.any() and (idx[invalid] >= n_rows).all()
+    got = gather.gather_rows(w, idx)
+    want = jax_lookup_rows(jw, jidx, sorted_unique=True)
+    np.testing.assert_array_equal(_bits_torch(got), _bits_jax(want,
+                                                              "float32"))
+    assert not got[invalid].any()
+    np.testing.assert_array_equal(got[~invalid].numpy(),
+                                  w[idx[~invalid]].numpy())
 
 
 def test_gather_cpu_runs_plain_version_and_counts_no_launch():

@@ -39,7 +39,10 @@ def _sources():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"openembedding_tpu_torch.serving", "openembedding_tpu_torch.ops.gather",
-            "openembedding_tpu_torch.models.ctr"} <= set(mods)
+            "openembedding_tpu_torch.models.ctr",
+            "openembedding_tpu_torch.optimizers",
+            "openembedding_tpu_torch.ops.apply",
+            "openembedding_tpu_torch.ops.dedup"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
