@@ -177,13 +177,20 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
 def train_state_to_jax(state) -> Dict:
     """The state as numpy in the JAX package's layout: {"step",
     "model_version", "tables": {name: {"weights", "slots"}},
-    "dense_params": flat flax names, "dense_slots": flat flax names}."""
+    "dense_params": flat flax names, "dense_slots": flat flax names}.
+    Every array is a copy: the train step updates the state's tensors in
+    place, and a CPU tensor's `.numpy()` shares its memory."""
+    def copies(flat):
+        return {k: np.array(v, copy=True) for k, v in flat.items()}
+
     return {
         "step": int(state.step), "model_version": int(state.model_version),
-        "tables": {name: {"weights": table_to_numpy(t.weights),
-                          "slots": {k: v.detach().cpu().numpy()
-                                    for k, v in t.slots.items()}}
+        "tables": {name: {"weights": np.array(table_to_numpy(t.weights),
+                                              copy=True),
+                          "slots": copies({k: v.detach().cpu().numpy()
+                                           for k, v in t.slots.items()})}
                    for name, t in state.tables.items()},
-        "dense_params": dense_to_flax(state.dense),
-        "dense_slots": dense_slots_to_flax(state.dense, state.dense_slots),
+        "dense_params": copies(dense_to_flax(state.dense)),
+        "dense_slots": copies(dense_slots_to_flax(state.dense,
+                                                  state.dense_slots)),
     }

@@ -1,6 +1,6 @@
 """Host-side data helpers: copies of `pad_ragged`, `is_ragged`,
 `hash_category` and `synthetic_criteo` from `openembedding_tpu/data/criteo.py`
-(int64 ids only: the split-pair id layout has no place in the port). All
+(int64 or int32 ids: the split-pair id layout has no place in the port). All
 numpy; `tests/test_torch_trainer.py` pins the generator's batches
 byte-identical to the JAX package's."""
 
@@ -32,10 +32,12 @@ def hash_category(token_hash: np.ndarray, field: np.ndarray,
 def synthetic_criteo(batch_size: int, *, id_space: int = 1 << 25,
                      num_fields: int = NUM_SPARSE, dense_dim: int = NUM_DENSE,
                      seed: int = 0, alpha: float = 1.05,
-                     steps: Optional[int] = None) -> Iterator[Dict]:
+                     steps: Optional[int] = None,
+                     ids_dtype=np.int64) -> Iterator[Dict]:
     """Synthetic Criteo-like stream with Zipfian ids (the hot-key skew of real
     CTR logs, which the dedup sees). Labels come from a fixed random linear
-    model so the loss decreases."""
+    model so the loss decreases. `ids_dtype` casts the ids (np.int32 for an
+    id space below 2^31)."""
     rng = np.random.default_rng(seed)
     w_dense = rng.normal(size=(dense_dim,)).astype(np.float32) * 0.3
     it = itertools.count() if steps is None else range(steps)
@@ -52,7 +54,8 @@ def synthetic_criteo(batch_size: int, *, id_space: int = 1 << 25,
                  + 0.01 * (ids64 % 97 - 48).sum(axis=1) / num_fields)
         labels = (rng.random(batch_size) < 1.0 / (1.0 + np.exp(-logit))
                   ).astype(np.float32)
-        yield {"sparse": {"categorical": ids64}, "dense": dense,
+        yield {"sparse": {"categorical": ids64.astype(ids_dtype)},
+               "dense": dense,
                "label": labels}
 
 

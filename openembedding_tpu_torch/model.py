@@ -3,7 +3,9 @@
 Port of `openembedding_tpu/model.py` for one device: `EmbeddingModel`,
 `binary_logloss`, `IDS_KEY`/`attach_ids`, `WeightsState` (the tables and
 dense module an export is written from), `TrainState`, the dense-path
-optimizer reuse (`init_dense_slots`, `dense_apply`) and `Trainer`.
+optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer` and its
+compiled steps (`CompiledStep`: a step or a `train_many` window as a CUDA
+graph).
 
 The dense module is a `torch.nn.Module` called as `module(embedded, dense)`
 where `embedded` maps variable name -> (B, ..., dim) pulled rows.
@@ -29,6 +31,8 @@ from .embedding import (Embedding, EmbeddingSpec, EmbeddingTableState,
                         apply_gradients, combine, init_table,
                         init_table_state, lookup, lookup_train)
 from .layers import materialize
+from .ops.sparse import (pack_table, packed_layout, sparse_apply_packed_table,
+                         unpack_table)
 from .optimizers import Adagrad, SparseOptimizer
 
 
@@ -53,11 +57,12 @@ IDS_KEY = "__ids__"
 def attach_ids(embedded: Dict[str, Any], model: "EmbeddingModel", batch,
                device=None) -> Dict[str, Any]:
     """Add `embedded[IDS_KEY]` ({variable name: its raw id batch}) iff the
-    module opted in via `takes_ids`."""
+    module opted in via `takes_ids`. Ids already on `device` are used as
+    they are (the train step passes its device batch, so nothing is copied
+    from the host inside a captured step)."""
     if getattr(model.module, "takes_ids", False):
         embedded[IDS_KEY] = {
-            name: torch.as_tensor(np.asarray(
-                batch["sparse"][spec.feature_name]), device=device)
+            name: _to_device(batch["sparse"][spec.feature_name], device)
             for name, spec in model.specs.items()}
     return embedded
 
@@ -184,14 +189,18 @@ def dense_apply(optimizer: SparseOptimizer, module: nn.Module,
     """The dense update from each parameter's `.grad`, in place: the
     parameter runs through the sparse rule as a 1-row table with count 1,
     in float32, and is cast back to its dtype. A parameter without a
-    gradient takes a zero gradient, as every leaf does in the JAX package."""
+    gradient takes a zero gradient, as every leaf does in the JAX package.
+    Parameters and slots keep their tensors (new values are copied in), so
+    a captured step that replays reads this step's values."""
     for name, p in module.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         ones = torch.ones(1, dtype=torch.int32, device=p.device)
-        new_p, slots[name] = optimizer.apply(
+        new_p, new_slots = optimizer.apply(
             p.reshape(1, -1).float(), slots[name],
             g.reshape(1, -1).float(), ones)
         p.copy_(new_p.reshape(p.shape))
+        for k, v in new_slots.items():
+            slots[name][k].copy_(v)
 
 
 def _batch_slice(tree, k: int):
@@ -199,6 +208,44 @@ def _batch_slice(tree, k: int):
     if isinstance(tree, dict):
         return {key: _batch_slice(v, k) for key, v in tree.items()}
     return None if tree is None else tree[k]
+
+
+def _batch_key(tree):
+    """What a captured graph's static inputs depend on: every leaf's key,
+    shape and dtype."""
+    if isinstance(tree, dict):
+        return tuple((key, _batch_key(v)) for key, v in sorted(tree.items()))
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), str(tree.dtype).rsplit(".", 1)[-1]
+    a = np.asarray(tree)
+    return a.shape, str(a.dtype)
+
+
+def _state_key(state: TrainState) -> tuple:
+    """Which tensors a captured graph reads and writes: the address of every
+    table, slot, dense parameter and dense slot of the state. Loading a
+    checkpoint rebinds some of them, and a graph would then update the old
+    ones."""
+    ptrs = []
+    for ts in state.tables.values():
+        ptrs += [ts.weights.data_ptr()] + [v.data_ptr()
+                                           for v in ts.slots.values()]
+    for name, p in state.dense.named_parameters():
+        ptrs += [p.data_ptr()] + [v.data_ptr()
+                                  for v in state.dense_slots[name].values()]
+    return tuple(ptrs)
+
+
+def _copy_batch(dst, src) -> None:
+    """Copy a batch into device buffers of the same structure, in place."""
+    if isinstance(dst, dict):
+        for key, v in dst.items():
+            _copy_batch(v, src[key])
+    elif dst is not None:
+        dst.copy_(src if isinstance(src, torch.Tensor)
+                  else torch.as_tensor(np.asarray(src)))
 
 
 class Trainer:
@@ -210,7 +257,11 @@ class Trainer:
     rows are the leaves the table gradients come from), updates the dense
     parameters with `dense_apply`, and pushes the row gradients through the
     dedup and the fused apply kernel (`embedding.apply_gradients`). Every
-    update happens in place."""
+    update happens in place.
+
+    `train_step` and `train_many` run eagerly; `jit_train_step()` and
+    `jit_train_many()` return callables that run them as CUDA graphs
+    (`CompiledStep`)."""
 
     def __init__(self, model: EmbeddingModel,
                  optimizer: Optional[SparseOptimizer] = None, seed: int = 0,
@@ -262,26 +313,59 @@ class Trainer:
                           dense_slots=init_dense_slots(self.optimizer, dense),
                           tables=tables, model_version=0)
 
-    def train_step(self, state: TrainState, batch
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One synchronous step: pull -> forward/backward -> dense apply +
-        sparse apply, in place. Returns (state, {"loss": (), "logits":
-        (B,)}); nothing is read back to the host. The four phases are
+    # -- the packed weights+slots layout of train_many ----------------------
+
+    def _packed_layouts(self, state: TrainState) -> Dict[str, tuple]:
+        """{name: column layout} of the tables `train_many` packs (see
+        `ops/sparse.packed_layout`)."""
+        out = {}
+        for name, spec in self.model.specs.items():
+            ts = state.tables[name]
+            lay = packed_layout(spec.output_dim, ts.slots, ts.weights.dtype)
+            if lay is not None:
+                out[name] = lay
+        return out
+
+    def _packed_pull(self, spec: EmbeddingSpec, table: EmbeddingTableState,
+                     ids: torch.Tensor) -> torch.Tensor:
+        """Pull from the packed layout: one gather of whole packed rows, of
+        which the weight columns are kept."""
+        return lookup(spec, table.weights, ids)[..., :spec.output_dim]
+
+    def _packed_apply(self, spec: EmbeddingSpec, table: EmbeddingTableState,
+                      ids: torch.Tensor, grads: torch.Tensor, layout) -> None:
+        sparse_apply_packed_table(
+            self.opt_for(spec), table.weights, layout, spec.output_dim,
+            ids.reshape(-1), grads.reshape(-1, spec.output_dim))
+
+    # -- steps ---------------------------------------------------------------
+
+    def _step(self, state: TrainState, b: Dict[str, Any],
+              packed: Dict[str, tuple]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step on a batch already on the device: pull -> forward/
+        backward -> dense apply + sparse apply, in place -> (loss, logits).
+        It copies nothing from the host and reads nothing back, so it can
+        be captured as a CUDA graph. `packed`: {name: column layout} of the
+        tables whose state holds the packed array. The four phases are
         `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
         `trainer.dense_apply`, `trainer.sparse_apply`)."""
         specs = self.model.specs
         with record_function("trainer.pull"):
-            b = self._device_batch(batch)
             ids = {name: b["sparse"][spec.feature_name]
                    for name, spec in specs.items()}
             pulled = {}
             for name, spec in specs.items():
-                _, rows = lookup_train(spec, state.tables[name], ids[name])
+                if name in packed:
+                    rows = self._packed_pull(spec, state.tables[name],
+                                             ids[name])
+                else:
+                    _, rows = lookup_train(spec, state.tables[name],
+                                           ids[name])
                 pulled[name] = rows.requires_grad_()
         with record_function("trainer.compute"):
             embedded = {name: combine(spec, ids[name], pulled[name])
                         for name, spec in specs.items()}
-            attach_ids(embedded, self.model, batch, self.device)
+            attach_ids(embedded, self.model, b, self.device)
             state.dense.zero_grad(set_to_none=True)
             logits = state.dense(embedded, b.get("dense"))
             loss = self._loss(logits, b)
@@ -290,11 +374,26 @@ class Trainer:
             dense_apply(self.optimizer, state.dense, state.dense_slots)
         with record_function("trainer.sparse_apply"), torch.no_grad():
             for name, spec in specs.items():
-                apply_gradients(spec, state.tables[name], self.opt_for(spec),
-                                ids[name], pulled[name].grad)
+                if name in packed:
+                    self._packed_apply(spec, state.tables[name], ids[name],
+                                       pulled[name].grad, packed[name])
+                else:
+                    apply_gradients(spec, state.tables[name],
+                                    self.opt_for(spec), ids[name],
+                                    pulled[name].grad)
+        return loss.detach(), logits.detach()
+
+    def train_step(self, state: TrainState, batch
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One synchronous step: the batch to the device (`trainer.h2d`),
+        then `_step`, in place. Returns (state, {"loss": (), "logits":
+        (B,)}); nothing is read back to the host."""
+        with record_function("trainer.h2d"):
+            b = self._device_batch(batch)
+        loss, logits = self._step(state, b, {})
         state.step += 1
         state.model_version += 1
-        return state, {"loss": loss.detach(), "logits": logits.detach()}
+        return state, {"loss": loss, "logits": logits}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -305,18 +404,166 @@ class Trainer:
             ids = b["sparse"][spec.feature_name]
             embedded[name] = combine(
                 spec, ids, lookup(spec, state.tables[name].weights, ids))
-        attach_ids(embedded, self.model, batch, self.device)
+        attach_ids(embedded, self.model, b, self.device)
         logits = state.dense(embedded, b.get("dense"))
         return {"logits": logits, "loss": self._loss(logits, b)}
 
+    def _many(self, state: TrainState, b: Dict[str, Any]) -> torch.Tensor:
+        """The K steps of `train_many` on a stacked batch already on the
+        device -> losses (K,). Packs at entry, runs the steps on the packed
+        arrays, copies the values back into the split tensors at exit; the
+        state's split table objects are back in place whatever happens."""
+        layouts = self._packed_layouts(state)
+        split = {name: state.tables[name] for name in layouts}
+        try:
+            for name, lay in layouts.items():
+                ts = split[name]
+                state.tables[name] = EmbeddingTableState(
+                    weights=pack_table(ts.weights, ts.slots, lay), slots={})
+            losses = [self._step(state, _batch_slice(b, k), layouts)[0]
+                      for k in range(b["label"].shape[0])]
+            for name, lay in layouts.items():
+                spec = self.model.specs[name]
+                w, slots = unpack_table(state.tables[name].weights, lay,
+                                        spec.output_dim, spec.dtype)
+                split[name].weights.copy_(w)
+                for k, v in slots.items():
+                    split[name].slots[k].copy_(v)
+        finally:
+            state.tables.update(split)
+        return torch.stack(losses)
+
     def train_many(self, state: TrainState, batches
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """K steps over stacked batches (every leaf has a leading K dim):
-        the semantics of the JAX package's scan, K `train_step` calls in
-        order. Returns (state, {"loss": (K,)})."""
-        k_steps = len(batches["label"])
-        losses = []
-        for k in range(k_steps):
-            state, metrics = self.train_step(state, _batch_slice(batches, k))
-            losses.append(metrics["loss"])
-        return state, {"loss": torch.stack(losses)}
+        """K steps over stacked batches (every leaf has a leading K dim): the
+        port of the JAX package's scan window. Tables that
+        `ops/sparse.packed_layout` accepts (none on the card, where packing
+        measured slower) run the K steps on the packed weights+slots array:
+        packed at entry, copied back into the state's own split tensors at
+        exit, so the state outside this function keeps the split layout.
+        Equal to K `train_step` calls, bit for bit.
+        Returns (state, {"loss": (K,), "overflow": ()}); "overflow" counts
+        exchange-bucket drops over the window, always 0 on one device."""
+        b = self._device_batch(batches)
+        losses = self._many(state, b)
+        k_steps = losses.shape[0]
+        state.step += k_steps
+        state.model_version += k_steps
+        return state, {"loss": losses,
+                       "overflow": torch.zeros((), dtype=torch.int32,
+                                               device=self.device)}
+
+    # -- compiled steps ------------------------------------------------------
+
+    def jit_train_step(self) -> "CompiledStep":
+        """`train_step` as a CUDA graph: `step(state, batch) -> (state,
+        metrics)`, the state updated in place (see `CompiledStep`)."""
+        return CompiledStep(self, many=False)
+
+    def jit_train_many(self) -> "CompiledStep":
+        """A whole `train_many` window (its K steps, and the pack and unpack
+        where the gate packs) as one CUDA graph, one dispatch per window:
+        the port's counterpart of the jitted scan (see `CompiledStep`)."""
+        return CompiledStep(self, many=True)
+
+
+class CompiledStep:
+    """`Trainer.train_step` or a `Trainer.train_many` window captured as a
+    CUDA graph. Called as `step(state, batch) -> (state, metrics)`, like the
+    JAX package's jitted step functions; the state is updated in place.
+
+    On the card:
+
+    - The first call for a state and a batch structure (keys, leaf shapes
+      and dtypes) runs the eager function once on a side stream (the
+      warm-up; it is that call's real step) and then captures it on the same
+      stream. A call with another state object, a state whose tensors were
+      replaced (`checkpoint.load_server_model` rebinds some), or other
+      shapes captures anew.
+    - Every later call copies the batch into the graph's static device
+      buffers (outside the graph), replays the graph (one dispatch) and
+      advances the state's step counters.
+    - `metrics` are the graph's static outputs ("loss" and "logits"; for a
+      window "loss" (K,) and "overflow"). The next call overwrites them: a
+      caller who keeps them across calls clones them.
+    - Every update of the captured function writes in place, so a replay
+      reads the state as the previous call left it. The graph holds the
+      state it was captured on, its buffers and the memory of its
+      intermediates until it is captured anew or this object is dropped.
+    - A capture that fails raises; nothing falls back to eager.
+    - Kernel wrappers count launches while the graph is captured, not when
+      it replays: `launches_per_replay` holds what one replay launches,
+      `replays` how many replays ran, `captures` how many captures.
+
+    On a Trainer made with device="cpu" a call runs the eager function."""
+
+    def __init__(self, trainer: Trainer, *, many: bool):
+        self.trainer = trainer
+        self.many = many
+        self.captures = 0
+        self.replays = 0
+        self.launches_per_replay: Dict[str, int] = {}
+        self._stream = None
+        self._release()
+
+    def _release(self) -> None:
+        self._graph = self._key = self._state = None
+        self._static_in = self._static_out = None
+
+    def _run(self, state: TrainState, b) -> Dict[str, torch.Tensor]:
+        tr = self.trainer
+        if self.many:
+            return {"loss": tr._many(state, b),
+                    "overflow": torch.zeros((), dtype=torch.int32,
+                                            device=tr.device)}
+        loss, logits = tr._step(state, b, {})
+        return {"loss": loss, "logits": logits}
+
+    def _advance(self, state: TrainState, batch) -> None:
+        k = len(batch["label"]) if self.many else 1
+        state.step += k
+        state.model_version += k
+
+    def __call__(self, state: TrainState, batch
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        tr = self.trainer
+        if tr.device.type != "cuda":
+            return (tr.train_many(state, batch) if self.many
+                    else tr.train_step(state, batch))
+        key = (_batch_key(batch), _state_key(state))
+        if (self._graph is None or state is not self._state
+                or key != self._key):
+            return self._capture(state, batch, key)
+        with record_function("trainer.h2d"):
+            _copy_batch(self._static_in, batch)
+        with record_function("trainer.replay"):
+            self._graph.replay()
+        self.replays += 1
+        self._advance(state, batch)
+        return state, self._static_out
+
+    def _capture(self, state: TrainState, batch, key):
+        from .ops import launch_counts
+        tr = self.trainer
+        self._release()  # the old graph's memory goes first
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(tr.device)
+        stream = self._stream
+        with record_function("trainer.h2d"):
+            static_in = tr._device_batch(batch)
+        main = torch.cuda.current_stream(tr.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            out = self._run(state, static_in)  # the warm-up: a real step
+        main.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            static_out = self._run(state, static_in)
+        after = launch_counts()
+        self.launches_per_replay = {k: after[k] - before[k] for k in after}
+        self.captures += 1
+        self._graph, self._key, self._state = graph, key, state
+        self._static_in, self._static_out = static_in, static_out
+        self._advance(state, batch)
+        return state, out

@@ -1,6 +1,6 @@
 """Single-shard sparse table ops (port of `openembedding_tpu/ops/sparse.py`):
-the gather, the scatter, and the dedup + fused optimizer apply of one
-training step.
+the gather, the scatter, the dedup + fused optimizer apply of one training
+step, and the packed weights+slots layout of `Trainer.train_many`.
 
 Tables update in place: the apply writes the touched rows of the weights
 and slots it is given, the port's counterpart of the JAX package donating
@@ -91,3 +91,101 @@ def sparse_apply_dense_table(
     # through the module attribute, so a caller can swap in the plain version
     return apply.fused_sparse_apply(optimizer, weights, slots, idx,
                                     g.float(), counts)
+
+
+# ---------------------------------------------------------------------------
+# packed table layout (weights + optimizer slots in one array)
+# ---------------------------------------------------------------------------
+#
+# Inside `Trainer.train_many`, where `packed_layout` allows it (off the card),
+# an array table and its slots live column-wise in ONE
+# (rows, dim + sum of slot widths) float32 array: the pull gathers a
+# packed row and keeps its weight columns, and the apply updates the weight
+# and slot columns of a row together (the kernel takes each array as a base
+# pointer and a row stride, so the column ranges of the packed array go in
+# as they are). The window packs at entry and unpacks at exit, so
+# checkpoints, exports and serving only ever see the split layout.
+
+# pack and unpack hold both layouts at once; a table whose packed form is
+# larger than this stays split (a quarter of an 80 GB card, so both layouts
+# and the rest of the step would still fit there)
+PACKED_MAX_BYTES = 20 << 30
+
+
+def packed_layout(dim: int, slots: Dict[str, torch.Tensor],
+                  weights_dtype=torch.float32):
+    """Static column layout ((name, width), ...) of a packable table, in
+    sorted slot-name order as in the JAX package, or None when the table
+    stays split: no slots (the weights are one array already); weights or
+    slots not float32 (a bfloat16 table packed as float32 would skip the
+    rounding to bfloat16 that the split path applies on every update, so
+    `train_many` would no longer equal K `train_step`s); a packed array over
+    `PACKED_MAX_BYTES`; slots on the CUDA card.
+
+    The JAX gate also refuses packed widths in 33..127 that are not a
+    multiple of 128, a fact of the TPU's 128-lane layout (XLA pads such rows
+    and copies the whole table every step). The card has no lanes, and what
+    its measurement supports is no packing at any width: `chip_smoke.py`'s
+    apply phase on an NVIDIA H100 80GB HBM3 at 700.00 W measured, packed
+    against split, per step, the apply kernel 0.0172 against 0.0187 ms at
+    width 10 (2^24 rows) and 0.0507 against 0.0509 ms at width 64 (2^22
+    rows), the pull (it gathers the slot columns too) 0.0169 against 0.0111
+    ms and 0.0568 against 0.0341 ms, and the pack and unpack 5.6 ms and
+    3.2 ms a window; a graph window of 16 steps took 1.47-1.58 ms a step
+    packed against 1.09-1.22 ms for the graph step (PERF.md). So the gate
+    refuses every table on the card. Off the card it keeps the JAX gate
+    without the width rule, so `train_many` on the CPU runs the packed
+    computation that the tests hold to the JAX package's."""
+    if not slots:
+        return None
+    if weights_dtype != torch.float32:
+        return None
+    names = sorted(slots)
+    if any(slots[n].dtype != torch.float32 for n in names):
+        return None
+    if any(slots[n].device.type == "cuda" for n in names):
+        return None
+    widths = [int(slots[n].shape[1]) for n in names]
+    rows = int(slots[names[0]].shape[0])
+    if rows * (dim + sum(widths)) * 4 > PACKED_MAX_BYTES:
+        return None
+    return tuple(zip(names, widths))
+
+
+def pack_table(weights: torch.Tensor, slots: Dict[str, torch.Tensor],
+               layout) -> torch.Tensor:
+    """-> (rows, dim + sum of widths) float32, a new array; column order:
+    the weights, then the slots in layout order."""
+    return torch.cat([weights.float()] + [slots[name] for name, _ in layout],
+                     dim=1)
+
+
+def unpack_table(packed: torch.Tensor, layout, dim: int, weights_dtype
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (weights, {slot: array}) as column views of `packed` (weights
+    cast when `weights_dtype` is not float32, which `packed_layout` never
+    allows)."""
+    weights = packed[:, :dim].to(weights_dtype)
+    slots = {}
+    off = dim
+    for name, width in layout:
+        slots[name] = packed[:, off:off + width]
+        off += width
+    return weights, slots
+
+
+def sparse_apply_packed_table(optimizer, packed: torch.Tensor, layout,
+                              dim: int, row_ids: torch.Tensor,
+                              grads: torch.Tensor,
+                              pre_counts: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """`sparse_apply_dense_table` on the packed layout, in place: the same
+    dedup and the same fused apply, on column views of `packed` (the slots
+    in the order the optimizer takes them). Returns `packed`."""
+    g, counts, idx = _dedup_routed(packed.shape[0], row_ids, grads,
+                                   pre_counts)
+    weights, cols = unpack_table(packed, layout, dim, packed.dtype)
+    slots = {name: cols[name] for name in optimizer.slot_shapes(dim)}
+    apply.fused_sparse_apply(optimizer, weights, slots, idx, g.float(),
+                             counts)
+    return packed

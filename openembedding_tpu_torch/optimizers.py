@@ -43,9 +43,12 @@ def _register(cls):
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded square root of a float32 tensor on every device:
-    the double square root rounds once more to float32, and 53 bits are
-    enough for that second rounding to be exact."""
+    """Square root of a float32 tensor through the double root, rounded
+    once more to float32. On the card the double root is correctly
+    rounded, and 53 bits make that second rounding exact. On the CPU ATen
+    takes the double root from MKL's vector math, which can be one double
+    ulp off; the float32 result then differs only where the root lies
+    within that ulp of a float32 rounding midpoint."""
     return torch.sqrt(x.double()).to(x.dtype)
 
 
