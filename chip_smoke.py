@@ -8,24 +8,37 @@ final line:
 
 1. device  — the card's name and power limit (nvidia-smi), CUDA present;
 2. build   — nvcc builds the three kernels, `csrc/gather_rows.cu`,
-   `csrc/gather_rows_windows.cu` and `csrc/fused_sparse_apply.cu`, at the
-   same time (one thread each);
+   `csrc/gather_rows_windows.cu` (both include the row-copy core
+   `csrc/gather_core.cuh`) and `csrc/fused_sparse_apply.cu`, at the same
+   time (one thread each); ptxas's registers and spills per kernel, the
+   gather's grid (resident blocks, read once per card), and a check that
+   the window kernel's staging constants are the ones
+   `ops/gather_windows.staged_bytes` mirrors;
 3. kernel  — the gather against its plain PyTorch version on the card at the
    serving path's shapes (a 2^24 x 10 float32 table, 4096 x 26 Zipfian ids
    with -1 pads and out-of-range ids; int32/int64 ids, with and without a
-   mask; one bfloat16 table of width 64). Every case must be bit-equal.
-   Times: the kernel, the plain version, and one library call computing the
-   same function (index_select + where, a yardstick the port never calls),
+   mask; one bfloat16 table of width 64) and at the row-copy core's edges:
+   rows of 36 bytes (float32 width 9) and 18 bytes (bfloat16 width 9), a
+   table view 8-byte aligned (`w[1:]`), n not a multiple of the tile, and
+   n = 1 (the floor of one launch). Every case must be bit-equal. Times:
+   the kernel, the plain version, and one library call computing the same
+   function (index_select + where, a yardstick the port never calls),
    beside the memory bound at 3.35 TB/s;
-4. windows — the window-batched gather against its plain version and
-   against the gather kernel, bit-equal, on the 2^24 x 10 table with the
-   sorted ids the dedup emits for one `synthetic_criteo(4096, id_space=2^24,
-   seed=7)` batch (windows 16 and 64), unsorted Zipfian ids with -1 pads
-   and out-of-range ids, a bfloat16 table, and a table smaller than the
-   window (which goes through the gather kernel). Times: the wrapper
-   (prepass + kernel), the kernel alone, its plain version, the gather
-   kernel and the library call, beside the byte bound; and the bytes the
-   staged windows read;
+4. windows — the window-batched gather (one launch, no prepass) against
+   its plain version and against the gather kernel, bit-equal, on the
+   2^24 x 10 table with the sorted ids the dedup emits for one
+   `synthetic_criteo(4096, id_space=2^24, seed=7)` batch (windows 16 and
+   64), the dedup's ids of Zipf(1.1) ranks left unhashed
+   (frequency-relabeled ids, whose dense head stages), unsorted Zipfian ids
+   with -1 pads and out-of-range ids, unsorted ids with duplicates, a
+   bfloat16 table, a table whose last window is partial, and a table
+   smaller than the window (which goes through the gather kernel). Each
+   case runs under three staging rules (none, dense runs, every run), all
+   bit-equal, with what each stages (`staged_bytes`) and its time; after
+   the last phase, torch.profiler must see one device kernel per call
+   (traced after every timing, so that no timed phase runs after a
+   profiler session). Times: the kernel, its plain version, the gather
+   kernel and the library call, beside the byte bound;
 5. apply   — the fused sparse apply against its plain version on the card.
    Main case: the 2^24 x 10 float32 table and its Adagrad accumulator,
    updated from one `synthetic_criteo(4096, id_space=2^24, seed=7)` batch
@@ -154,9 +167,53 @@ def host_ms(torch, fn, iters: int = 200) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _gather_case(torch, mb, gather, tname, w, ids_host, id_dtype, valid_np,
+                 dev) -> dict:
+    """One gather case: the kernel bit-equal to its plain version, its
+    time beside the plain version's, the library call's and the bound."""
+    ids = torch.from_numpy(ids_host).to(dev, id_dtype)
+    valid = (torch.from_numpy(valid_np).to(dev) if valid_np is not None
+             else None)
+    launches = gather.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(w, ids, valid)
+    check(gather.LAUNCHES["gather_rows"] == launches + 1,
+          "one gather_rows call is one kernel launch")
+    want = gather.gather_rows_reference(w, ids, valid)
+    torch.cuda.synchronize()
+    equal = torch.equal(mb.bits(got), mb.bits(want))
+    err = float((got.float() - want.float()).abs().max())
+    n_rows = w.shape[0]
+    nbytes = mb.gather_bytes(ids_host, ids.element_size(), valid_np, n_rows,
+                             w.shape[1], w.element_size())
+    rec = {
+        "phase": "kernel", "case": tname,
+        "table": f"{str(w.dtype).split('.')[-1]} {n_rows}x{w.shape[1]}",
+        "table_address_mod_16": w.data_ptr() % 16,
+        "ids": f"{ids.shape[0]} {str(id_dtype).split('.')[-1]}",
+        "mask": valid is not None, "bit_equal": equal, "max_abs_err": err,
+        "ms": mb.device_ms(lambda: gather.gather_rows(w, ids, valid)),
+        "plain_ms": mb.device_ms(
+            lambda: gather.gather_rows_reference(w, ids, valid)),
+        "library_ms": mb.device_ms(lambda: mb.library_gather(w, ids, valid)),
+        "host_ms_per_call": host_ms(
+            torch, lambda: gather.gather_rows(w, ids, valid)),
+        **nbytes,
+        "bound_ms": nbytes["useful_bytes"] / mb.HBM_BYTES_PER_S * 1e3,
+        "sector_bound_ms": (nbytes["sector_read_bytes"]
+                            + nbytes["useful_bytes"]
+                            - nbytes["read_bytes"]) / mb.HBM_BYTES_PER_S
+        * 1e3,
+    }
+    emit(rec)
+    check(equal, f"gather_rows bit-equal to its plain version ({rec})")
+    return rec
+
+
 def phase_kernel(torch, mb, gather) -> dict:
-    """Kernel vs plain version at the serving shapes; returns the main-path
-    case (float32 table, int64 ids, no mask) for the kernels line."""
+    """Kernel vs plain version at the serving path's shapes and at the
+    edges of the row-copy core (word widths, alignment, ragged tiles, the
+    one-row launch floor); returns the main-path case (float32 table, int64
+    ids, no mask) for the kernels line."""
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -166,61 +223,75 @@ def phase_kernel(torch, mb, gather) -> dict:
     ids64_np = ids_np.copy()
     ids64_np[8:24] = (1 << 40) + np.arange(16)  # past int32, int64 only
     mask_np = rng.random(ids_np.shape[0]) < 0.9
-    mask = torch.from_numpy(mask_np).to(dev)
-    cases = [("f32", w32, ids_np, torch.int32, None),
-             ("f32", w32, ids64_np, torch.int64, None),
-             ("f32", w32, ids_np, torch.int32, mask_np),
-             ("f32", w32, ids64_np, torch.int64, mask_np)]
+    cases = [("main", w32, ids64_np, torch.int64, None),
+             ("int32 ids", w32, ids_np, torch.int32, None),
+             ("int32 ids, mask", w32, ids_np, torch.int32, mask_np),
+             ("mask", w32, ids64_np, torch.int64, mask_np)]
     # uniform ids: no hot rows for L2 to keep, unlike the Zipfian cases
     uniform_np = rng.integers(0, VOCAB, ids_np.shape[0])
-    cases.append(("f32 uniform", w32, uniform_np, torch.int64, None))
+    cases.append(("uniform ids", w32, uniform_np, torch.int64, None))
     w16 = torch.randn((VOCAB, 64), generator=gen, device=dev).to(
         torch.bfloat16)
-    cases.append(("bf16", w16, ids64_np, torch.int64, None))
+    cases.append(("bf16 width 64: 16-byte words", w16, ids64_np, torch.int64,
+                  None))
+    # the core's other words: 36-byte rows move in 4-byte words, 18-byte
+    # bfloat16 rows in 2-byte words, and a view that starts 40 bytes into
+    # the table (8-byte aligned) in 8-byte words
+    w9 = torch.randn((1 << 22, 9), generator=gen, device=dev)
+    ids22_np = zipf_ids(rng, BATCH * FIELDS, 1 << 22)
+    cases += [("f32 width 9: 4-byte words", w9, ids22_np, torch.int64, None),
+              ("bf16 width 9: 2-byte words", w9.to(torch.bfloat16), ids22_np,
+               torch.int64, None),
+              ("view w[1:], 8-byte aligned", w32[1:], ids64_np, torch.int64,
+               None),
+              # n not a multiple of the 32-row tile, and one row: the
+              # floor of one launch
+              ("n = 1001", w32, ids64_np[:1001], torch.int64, None),
+              ("n = 1: launch floor", w32, ids64_np[6:7], torch.int64, None)]
     main = None
     for tname, w, ids_host, id_dtype, valid_np in cases:
-        ids = torch.from_numpy(ids_host).to(dev, id_dtype)
-        valid = mask if valid_np is not None else None
-        launches = gather.LAUNCHES["gather_rows"]
-        got = gather.gather_rows(w, ids, valid)
-        check(gather.LAUNCHES["gather_rows"] == launches + 1,
-              "one gather_rows call is one kernel launch")
-        want = gather.gather_rows_reference(w, ids, valid)
-        torch.cuda.synchronize()
-        equal = torch.equal(mb.bits(got), mb.bits(want))
-        err = float((got.float() - want.float()).abs().max())
-        n_rows = w.shape[0]
-        nbytes = mb.gather_bytes(ids_host, ids.element_size(), valid_np,
-                                 n_rows, w.shape[1], w.element_size())
-        rec = {
-            "phase": "kernel", "table": f"{tname} {n_rows}x{w.shape[1]}",
-            "ids": f"{ids.shape[0]} {str(id_dtype).split('.')[-1]}",
-            "mask": valid is not None, "bit_equal": equal,
-            "max_abs_err": err,
-            "ms": mb.device_ms(lambda: gather.gather_rows(w, ids, valid)),
-            "plain_ms": mb.device_ms(
-                lambda: gather.gather_rows_reference(w, ids, valid)),
-            "library_ms": mb.device_ms(
-                lambda: mb.library_gather(w, ids, valid)),
-            "host_ms_per_call": host_ms(
-                torch, lambda: gather.gather_rows(w, ids, valid)),
-            **nbytes,
-            "bound_ms": nbytes["useful_bytes"] / mb.HBM_BYTES_PER_S * 1e3,
-            "sector_bound_ms": (nbytes["sector_read_bytes"]
-                                + nbytes["useful_bytes"]
-                                - nbytes["read_bytes"]) / mb.HBM_BYTES_PER_S
-            * 1e3,
-        }
-        emit(rec)
-        check(equal, f"gather_rows bit-equal to its plain version ({rec})")
-        if tname == "f32" and id_dtype == torch.int64 and valid is None:
+        rec = _gather_case(torch, mb, gather, tname, w, ids_host, id_dtype,
+                           valid_np, dev)
+        if tname == "main":
             main = rec
     return main
 
 
+def device_kernels(torch, fn, tries: int = 3) -> tuple:
+    """Names of the device kernels that one call of `fn` enqueues, as
+    torch.profiler traces them, and the profiler sessions it took. Inside
+    each session the call sits between two spin kernels (left out of the
+    names), and the session ends a few ms after the last kernel: a short
+    session of one call alone sometimes traced no device kernel on the
+    H100. A session that sees no kernel but the spins is taken again: the
+    card ran the call (its output is checked), so the trace lost it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(10_000)
+            fn()
+            torch.cuda._sleep(10_000)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and "spin" not in e.name]
+        if names:
+            break
+    return names, attempt
+
+
+STAGE_SHARES = (float("inf"), 0.5, 0.0)  # none, dense runs, every run
+
+
 def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
-    """The window gather against its plain version and the gather kernel;
-    returns the main case (the dedup's sorted ids, window 16)."""
+    """The window gather against its plain version and the gather kernel,
+    under three staging rules; returns the main case (the dedup's sorted
+    ids, window 16, the default rule) and the calls `windows_profile`
+    traces once every timing is done."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 4)
     gen = torch.Generator(device=dev)
@@ -229,19 +300,37 @@ def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
     batch = next(data.synthetic_criteo(BATCH, id_space=VOCAB,
                                        seed=TRAIN_SEED))
     ids = torch.from_numpy(batch["sparse"]["categorical"].reshape(-1)).to(dev)
-    # the ids the apply reads as the dedup emits them: the sorted unique
-    # ids, then one distinct out-of-range id per padding slot
-    _, _, dedup_ids = sparse._dedup_routed(
-        VOCAB, ids, torch.zeros((ids.shape[0], 1), device=dev), None)
+
+    def dedup(ids):
+        # the ids the apply reads as the dedup emits them: the sorted
+        # unique ids, then one distinct out-of-range id per padding slot
+        return sparse._dedup_routed(
+            VOCAB, ids, torch.zeros((ids.shape[0], 1), device=dev), None)[2]
+
+    # Zipf(1.1) ranks left unhashed: frequency-relabeled ids, as the
+    # reference's criteo_preprocess.cpp writes them; their head is dense
+    ranks = rng.zipf(1.1, BATCH * FIELDS) - 1
+    relabeled = dedup(torch.from_numpy(ranks % VOCAB).to(dev))
     zipf = torch.from_numpy(zipf_ids(rng, BATCH * FIELDS, VOCAB)).to(dev)
     w16 = torch.randn((VOCAB, 64), generator=gen, device=dev).to(
         torch.bfloat16)
     small = torch.randn((8, DIM + 1), generator=gen, device=dev)
     small_ids = torch.from_numpy(rng.integers(-2, 12, 5000)).to(dev)
-    cases = [("dedup sorted", w32, dedup_ids, 16),
-             ("dedup sorted", w32, dedup_ids, 64),
+    # 1,000,003 rows: the last window of 16 (and of 64) holds 3 rows;
+    # sorted ids crowd the table's end, some past it
+    partial = torch.randn((1_000_003, DIM + 1), generator=gen, device=dev)
+    partial_ids = torch.from_numpy(np.sort(rng.integers(
+        1_000_003 - 4000, 1_000_003 + 8, 20_000))).to(dev)
+    dups = torch.from_numpy(rng.integers(0, 3000, 50_000)).to(dev)
+    cases = [("dedup sorted", w32, dedup(ids), 16),
+             ("dedup sorted", w32, dedup(ids), 64),
+             ("relabeled dedup sorted", w32, relabeled, 16),
+             ("relabeled dedup sorted", w32, relabeled, 64),
              ("zipf unsorted", w32, zipf, 16),
              ("zipf unsorted bf16", w16, zipf.to(torch.int32), 16),
+             ("unsorted with duplicates", w32, dups, 16),
+             ("last window partial", partial, partial_ids, 16),
+             ("last window partial", partial, partial_ids, 64),
              ("table smaller than the window", small, small_ids, 16)]
     main = None
     for name, w, rows, window in cases:
@@ -282,25 +371,49 @@ def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
                "bound_ms": nbytes["useful_bytes"] / mb.HBM_BYTES_PER_S
                * 1e3}
         if n_rows >= window:
-            plan = gather_windows.window_prepass(
-                n_rows, rows, block=gather_windows.DEFAULT_BLOCK,
-                window=window)
-            staged = gather_windows.staged_bytes(plan, dim * w.element_size())
-            rec.update(
-                kernel_ms=mb.device_ms(lambda: gather_windows.launch_planned(
-                    w, plan, rows.shape[0])),
-                prepass_ms=mb.device_ms(lambda: gather_windows.window_prepass(
-                    n_rows, rows, block=gather_windows.DEFAULT_BLOCK,
-                    window=window)),
-                distinct_windows=int(plan.nw.sum()), staged_bytes=staged,
-                staged_bound_ms=(staged + nbytes["write_bytes"])
-                / mb.HBM_BYTES_PER_S * 1e3)
+            rec["by_share"] = {}
+            for share in STAGE_SHARES:
+                # the rule changes how the kernel reads, never what it returns
+                alt = gather_windows.gather_rows_windows(
+                    w, rows, window=window, stage_share=share)
+                torch.cuda.synchronize()
+                same = torch.equal(mb.bits(alt), mb.bits(want))
+                equal = equal and same
+                st = gather_windows.staged_bytes(
+                    ids_np, n_rows, dim * w.element_size(), window=window,
+                    stage_share=share, base_offset=w.data_ptr() % 16)
+                rec["by_share"][str(share)] = {
+                    "bit_equal": same, **st._asdict(),
+                    "ms": mb.device_ms(
+                        lambda: gather_windows.gather_rows_windows(
+                            w, rows, window=window, stage_share=share))}
+        rec["bit_equal"] = equal
         emit(rec)
         check(equal, f"gather_rows_windows bit-equal to its plain version "
               f"and to gather_rows ({rec})")
         if main is None:
             main = rec
-    return main
+    # traced last (`windows_profile`), so that no timed phase runs after a
+    # profiler session
+    calls = [(f"relabeled dedup sorted, stage_share {share}",
+              lambda share=share: gather_windows.gather_rows_windows(
+                  w32, relabeled, stage_share=share))
+             for share in (float("inf"), 0.5)]
+    return main, calls
+
+
+def windows_profile(torch, calls) -> None:
+    """The window gather under torch.profiler, one call a session: each
+    call must enqueue one device kernel, the window gather, and nothing
+    else (no prepass)."""
+    for name, fn in calls:
+        kernels, sessions = device_kernels(torch, fn)
+        emit({"phase": "windows", "case": f"profiler: {name}",
+              "device_kernels_per_call": kernels,
+              "profiler_sessions": sessions})
+        check(len(kernels) == 1 and "window_gather" in kernels[0],
+              f"one gather_rows_windows call enqueues one device kernel "
+              f"({name}: {kernels})")
 
 
 def _apply_once(torch, mb, apply, opt, w, slots, idx, g, counts):
@@ -926,7 +1039,21 @@ def phase_build(torch, kernel_modules, _build) -> None:
               "seconds": time.perf_counter() - t0,
               "nvcc_seconds": info["seconds"],
               "ptxas": [ln for ln in info["log"].splitlines()
-                        if "registers" in ln or "spill" in ln]})
+                        if "Compiling entry" in ln or "registers" in ln
+                        or "spill" in ln]})
+    gather, gather_windows = kernel_modules[:2]
+    lib = gather_windows._library()
+    rule = (lib.oe_window_gather_tile(), lib.oe_window_gather_stage_bytes(),
+            lib.oe_window_gather_stage_min_rows())
+    check(rule == (gather_windows.TILE, gather_windows.STAGE_BYTES,
+                   gather_windows.STAGE_MIN_ROWS),
+          f"the window kernel's staging rule {rule} is the one "
+          "ops/gather_windows.staged_bytes mirrors")
+    glib = gather._library()
+    emit({"phase": "build", "gather_rows_grid_blocks": {
+        f"{wb}-byte words, {ib}-byte ids":
+        glib.oe_gather_rows_resident_blocks(wb, ib)
+        for wb in (16, 8, 4, 2) for ib in (4, 8)}})
 
 
 def phase_microbench(torch, mb, ops) -> tuple:
@@ -968,8 +1095,8 @@ def main() -> int:
     phase_build(torch, (gather, gather_windows, apply), _build)
 
     main_gather = phase_kernel(torch, mb, gather)
-    main_windows = phase_windows(torch, mb, gather, gather_windows, sparse,
-                                 data)
+    main_windows, profile_calls = phase_windows(
+        torch, mb, gather, gather_windows, sparse, data)
     torch.cuda.empty_cache()
     main_apply = phase_apply(torch, mb, apply, gather, sparse, optimizers,
                              data)
@@ -978,6 +1105,7 @@ def main() -> int:
     train = phase_train(torch, mb, ops, optimizers, data)
     torch.cuda.empty_cache()
     _, bench_launches = phase_microbench(torch, mb, ops)
+    windows_profile(torch, profile_calls)
     by_path = {k: {"serve": serve_launches if k == "gather_rows" else 0,
                    "train": train["launches"][k],
                    "train_graphs": train["graph_launches"][k],

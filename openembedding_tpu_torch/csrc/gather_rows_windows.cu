@@ -1,207 +1,310 @@
 // Window-batched row gather: out[i, :] = w[rows[i], :] for in-range ids,
-// +0.0 rows for the others, computed by staging fixed-grid windows of
-// `window` consecutive table rows in shared memory.
+// +0.0 rows for the others; ids that share a window of `window` table rows
+// may be read as one span.
 //
 // Replaces the TPU kernel
 // `openembedding_tpu/ops/pallas_sparse.py::gather_rows_windows`
 // (`_window_gather_kernel` / `_window_gather_call`). That kernel takes a
-// prepass's scalars (per block of requested rows: the distinct windows'
-// base rows, their count, and each row's slot*W + offset), DMAs each
-// distinct window of the block into VMEM once, then copies every requested
-// row out of its staged window. The prepass is ported as torch ops
-// (`ops/gather_windows.window_prepass`); this file is the kernel.
+// prepass's scalars (per block of requested rows: the distinct fixed-grid
+// windows, their count, each row's slot*W + offset), DMAs each distinct
+// window of the block into VMEM once, then copies every row out of its
+// window. The TPU needed the windows because it paid about 300 ns of
+// scalar-core descriptor issue per row DMA (`pallas_sparse.py:189-209`).
 //
-// What bounds it on an H100: memory. It does no arithmetic. The function
-// itself needs n rows read and n rows written, but the staging reads whole
-// windows: for ids spread over a large table every row brings its own
-// window, W times the row's bytes (the TPU kernel's documented negative
-// result, `pallas_sparse.py:204-209`). For dense ids (many requested rows
-// in one window) the staging reads fewer bytes than a per-row gather would
-// touch in sectors.
+// What bounds it on an H100: memory, as for the per-row gather
+// (`gather_rows.cu`). The card has no per-row descriptor cost, and its
+// memory system merges the sorted, adjacent rows that one warp reads on
+// its own; bytes staged beyond the requested rows' sectors are pure loss.
 //
-// What the design does about it:
-// - One CTA per block of requested rows (the TPU grid step). The VMEM of the
-//   TPU held all of a block's windows at once; 227 KB of shared memory does
-//   not (256 windows x 16 rows x 40 B is 160 KB, at width 64 it is 1 MB), so
-//   the CTA loops over chunks of its distinct windows that fit: stage a
-//   chunk, sync, copy out the rows whose window is in the chunk, sync.
-// - A window is W * row_bytes contiguous bytes, so the staging loads
-//   coalesce; each thread keeps kUnroll loads in flight before it stores
-//   them, so a CTA has thousands of loads outstanding.
-// - Rows move as raw words (16, 8, 4 or 2 bytes, the widest that divides
-//   the row and the table's address), so bfloat16 rows move bit-exact.
-// - The prepass marks out-of-range ids with slotoff -1; the kernel writes
-//   their zero rows itself (the TPU version masked afterwards with
-//   `jnp.where`).
-// - A CTA uses at most half the card's opt-in shared memory when a window
-//   fits in that, so two CTAs share an SM and one stages while the other
-//   copies out. The opt-in limit is set once per device
-//   (`oe_window_gather_init`), not per launch.
-// - Table offsets are 64-bit (base row * row words).
+// What the design does about it: one launch, no prepass.
+// - One CTA per tile of `block` consecutive requested ids (the TPU's grid
+//   step, at most kTile), one id a thread, loaded coalesced.
+// - Runs instead of a sort: a run is a maximal stretch of consecutive
+//   positions whose in-range ids lie in one fixed window (`id / window`);
+//   an out-of-range id ends a run. Run starts come from an adjacent
+//   compare, run numbers from a block-wide scan (`__ballot_sync` + warp
+//   counts), each run's least and greatest row from shared-memory atomics.
+//   For sorted ids the runs are the JAX prepass's distinct windows of the
+//   block; for ids in any order they are shorter, and the answer is the
+//   same.
+// - A dense run is staged: it has at least kStageMinRows positions, and
+//   they are at least `share` of the rows from its least to its greatest
+//   requested row (`share` is the caller's; `ops/gather_windows.py`
+//   holds the default). Staging is one
+//   1-D TMA bulk copy (`cp.async.bulk`, completion on an mbarrier) of that
+//   span only, widened to 16-byte boundaries and only if the widened span
+//   lies inside the table, into a kStageBytes buffer; runs are placed in
+//   order and one that would overflow the buffer is not staged. The staged
+//   rows then move out of shared memory.
+// - Every other row takes the row-copy core's direct path
+//   (`gather_core.cuh`) while the bulk copies are in flight: ids read once
+//   per row and passed by `__shfl_sync`, no division per element, the
+//   widest word that divides the row bytes and both base addresses, all of
+//   a lane's loads before its stores, streaming stores.
+// - A rule that stages nothing (share = inf, the default since the card
+//   measured staging slower than the direct path at every density) skips
+//   the run analysis: every row goes the direct way at once.
+// - The staging buffer is static shared memory below 48 KB, so no launch
+//   attribute is set, and nothing is queried per launch: a launch can be
+//   captured into a CUDA graph.
+// `ops/gather_windows.staged_bytes` applies the same run and staging rule
+// to ids on the host, to report what a launch stages.
 //
 // Plain C interface (bound with ctypes in `ops/gather_windows.py`): the
 // launch goes on the caller's stream, does not synchronise, allocates
 // nothing, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <climits>
+#include <cmath>
+
+#include "gather_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
+using namespace oe_gather;
 
-int g_smem_optin = 0;  // bytes of dynamic shared memory a block may use
+constexpr int kTile = 256;          // ids a CTA takes at most, one a thread
+constexpr int kStageBytes = 32768;  // shared memory for staged runs
+constexpr int kStageMinRows = 2;    // a run of one row is never staged
+constexpr int kNotStaged = INT_MIN;
 
-template <typename Word>
-__global__ void __launch_bounds__(kThreads)
-window_gather_kernel(const Word* __restrict__ w, int row_words,
-                     const int64_t* __restrict__ bases,
-                     const int32_t* __restrict__ nw,
-                     const int32_t* __restrict__ slotoff, int64_t n,
-                     int block, int window, int chunk,
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <typename Word, typename Id>
+__global__ void __launch_bounds__(kTile)
+window_gather_kernel(const Word* __restrict__ w, int64_t n_rows,
+                     int64_t row_bytes, RowMap m,
+                     const Id* __restrict__ rows, int64_t n, int tile,
+                     int64_t window, int shift, bool runs, double share,
                      Word* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Word* stage = reinterpret_cast<Word*>(smem_raw);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * block;
-  const int64_t left = n - row0;
-  const int rows_here = left < block ? static_cast<int>(left) : block;
-  const int64_t* blk_bases = bases + row0;
-  const int32_t* blk_slotoff = slotoff + row0;
-  const int nwin = nw[blockIdx.x];
-  const int win_words = window * row_words;
+  __shared__ __align__(16) unsigned char stage[kStageBytes];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int64_t s_win[kTile + 1];  // window per position, -1: none
+  __shared__ int s_lo[kTile];           // per run: least row - window base
+  __shared__ int s_hi[kTile];           // per run: greatest row - its base
+  __shared__ int s_end[kTile];          // per run: one past its last position
+  __shared__ int s_key[kTile];          // per run: staged key of the window
+                                        // base, or kNotStaged
+  __shared__ int s_warp[kTile / 32];
+  __shared__ int s_total;               // bytes staged
 
-  for (int c0 = 0; c0 < nwin; c0 += chunk) {
-    const int cn = nwin - c0 < chunk ? nwin - c0 : chunk;
-    // stage windows c0 .. c0+cn-1 of this block, kUnroll loads in flight
-    const int total = cn * win_words;
-    for (int e0 = threadIdx.x; e0 < total; e0 += kUnroll * kThreads) {
-      Word v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < total) {
-          const int k = e / win_words;
-          const int off = e - k * win_words;
-          v[u] = w[blk_bases[c0 + k] * row_words + off];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int e = e0 + u * kThreads;
-        if (e < total) stage[e] = v[u];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int wp = t >> 5;
+  const int64_t pos0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int64_t left = n - pos0;
+  const int here = left < tile ? static_cast<int>(left) : tile;
+
+  int64_t r = -1;
+  bool ok = false;
+  if (t < here) {
+    r = static_cast<int64_t>(rows[pos0 + t]);
+    ok = r >= 0 && r < n_rows;
+  }
+  const int warp_rows = here - wp * 32 < 32 ? here - wp * 32 : 32;
+  const Cursor start = first_word(m);
+  Word* warp_out = out + (pos0 + wp * 32) * m.rw;
+  if (!runs) {  // the rule stages nothing: no run analysis, all rows direct
+    if (warp_rows > 0) {
+      copy_tile(ok ? r * m.rw : kZero, warp_rows, m, start, warp_out,
+                TableRows<Word>{w});
+    }
+    return;
+  }
+  const int64_t win = ok ? (shift >= 0 ? r >> shift : r / window) : -1;
+  s_win[t] = win;
+  s_lo[t] = INT_MAX;
+  s_hi[t] = -1;
+  if (t == 0) {
+    s_win[blockDim.x] = -1;
+    s_total = 0;
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_addr(&bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // run numbers: a run starts where the window changes
+  const bool first = ok && (t == 0 || s_win[t - 1] != win);
+  const bool last = ok && s_win[t + 1] != win;
+  const unsigned starts = __ballot_sync(kFull, first);
+  if (lane == 0) s_warp[wp] = __popc(starts);
+  __syncthreads();
+  int before = 0;
+  for (int i = 0; i < wp; ++i) before += s_warp[i];
+  const int run = before + __popc(starts & ((2u << lane) - 1u)) - 1;
+  const int off = ok ? static_cast<int>(r - win * window) : 0;
+  if (ok) {
+    atomicMin(&s_lo[run], off);
+    atomicMax(&s_hi[run], off);
+  }
+  if (last) s_end[run] = t + 1;
+  __syncthreads();
+
+  // each run's first thread decides whether it stages, and its bytes
+  const uintptr_t table = reinterpret_cast<uintptr_t>(w);
+  uintptr_t lo = 0;
+  int bytes = 0;
+  if (first) {
+    const int count = s_end[run] - t;
+    const int64_t base = win * window;
+    const int64_t span = s_hi[run] - s_lo[run] + 1;
+    if (count >= kStageMinRows &&
+        static_cast<double>(count) >= share * static_cast<double>(span)) {
+      lo = (table + (base + s_lo[run]) * row_bytes) & ~uintptr_t{15};
+      const uintptr_t hi =
+          (table + (base + s_hi[run] + 1) * row_bytes + 15) & ~uintptr_t{15};
+      if (lo >= table && hi <= table + n_rows * row_bytes &&
+          hi - lo <= kStageBytes) {
+        bytes = static_cast<int>(hi - lo);
       }
     }
-    __syncthreads();
-    // copy out every row whose window is in this chunk; out-of-range ids
-    // (slotoff -1) take a zero row, written once, with the first chunk
-    const int emit = rows_here * row_words;
-    for (int e = threadIdx.x; e < emit; e += kThreads) {
-      const int i = e / row_words;
-      const int col = e - i * row_words;
-      const int so = blk_slotoff[i];
-      Word* dst = out + (row0 + i) * row_words + col;
-      if (so < 0) {
-        if (c0 == 0) *dst = Word{};
-        continue;
-      }
-      const int slot = so / window;
-      if (slot >= c0 && slot < c0 + cn) {
-        const int r = so - slot * window;
-        *dst = stage[(slot - c0) * win_words + r * row_words + col];
-      }
+  }
+  // exclusive scan of the bytes over the block, in position order
+  int incl = bytes;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) s_warp[wp] = incl;  // all read s_warp before the sync above
+  __syncthreads();
+  int excl = incl - bytes;
+  for (int i = 0; i < wp; ++i) excl += s_warp[i];
+  const bool staged = bytes > 0 && excl + bytes <= kStageBytes;
+  if (first) {
+    // key of the window's base row in the buffer, in words: rows below the
+    // span are never read through it
+    const int64_t key_bytes = excl + static_cast<int64_t>(
+        table + win * window * row_bytes - lo);
+    s_key[run] = staged ? static_cast<int>(
+        key_bytes / static_cast<int64_t>(sizeof(Word)))
+                        : kNotStaged;
+    if (staged) atomicMax(&s_total, excl + bytes);
+  }
+  __syncthreads();
+  const int total = s_total;
+  if (total > 0) {
+    if (t == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(smem_addr(&bar)), "r"(total) : "memory");
     }
     __syncthreads();
+    if (staged) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          ::"r"(smem_addr(stage + excl)), "l"(lo), "r"(bytes),
+          "r"(smem_addr(&bar)) : "memory");
+    }
+  }
+
+  // the direct rows while the spans are in flight, then the staged ones
+  long long direct = kSkip;
+  long long from_stage = kSkip;
+  if (t < here) {
+    if (!ok) {
+      direct = kZero;
+    } else if (s_key[run] == kNotStaged) {
+      direct = r * m.rw;
+    } else {
+      from_stage = s_key[run] + static_cast<long long>(off) * m.rw;
+    }
+  }
+  if (warp_rows > 0 && __any_sync(kFull, direct != kSkip)) {
+    copy_tile(direct, warp_rows, m, start, warp_out, TableRows<Word>{w});
+  }
+  if (total > 0) {
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{ .reg .pred p;"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+          " selp.u32 %0, 1, 0, p; }"
+          : "=r"(done) : "r"(smem_addr(&bar)), "r"(0u) : "memory");
+    }
+    if (warp_rows > 0 && __any_sync(kFull, from_stage != kSkip)) {
+      copy_tile(from_stage, warp_rows, m, start, warp_out,
+                StagedRows<Word>{reinterpret_cast<const Word*>(stage)});
+    }
   }
 }
 
-template <typename Word>
-int launch(const void* w, int64_t row_bytes, const int64_t* bases,
-           const int32_t* nw, const int32_t* slotoff, int64_t n, int block,
-           int window, void* out, cudaStream_t stream) {
-  const int row_words = static_cast<int>(row_bytes / sizeof(Word));
-  const int64_t win_bytes = static_cast<int64_t>(window) * row_bytes;
-  int64_t budget = g_smem_optin / 2;
-  if (win_bytes > budget) budget = g_smem_optin;
-  int64_t chunk = budget / win_bytes;
-  if (chunk > block) chunk = block;
-  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t nb = (n + block - 1) / block;
-  const size_t smem = static_cast<size_t>(chunk * win_bytes);
-  window_gather_kernel<Word><<<static_cast<unsigned>(nb), kThreads, smem,
-                               stream>>>(
-      static_cast<const Word*>(w), row_words, bases, nw, slotoff, n, block,
-      window, static_cast<int>(chunk), static_cast<Word*>(out));
+template <typename Word, typename Id>
+int launch(const void* w, int64_t n_rows, int64_t row_bytes,
+           const void* rows, int64_t n, int tile, int64_t window,
+           double share, void* out, cudaStream_t stream) {
+  int shift = -1;
+  if ((window & (window - 1)) == 0) {
+    shift = 0;
+    while ((int64_t{1} << shift) < window) ++shift;
+  }
+  const int rw = static_cast<int>(row_bytes / sizeof(Word));
+  const int64_t blocks = (n + tile - 1) / tile;
+  const int threads = (tile + 31) / 32 * 32;
+  window_gather_kernel<Word, Id><<<static_cast<unsigned>(blocks), threads,
+                                   0, stream>>>(
+      static_cast<const Word*>(w), n_rows, row_bytes, row_map(rw),
+      static_cast<const Id*>(rows), n, tile, window, shift,
+      !(std::isinf(share) && share > 0), share, static_cast<Word*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned(const void* p, size_t a) {
-  return reinterpret_cast<uintptr_t>(p) % a == 0;
-}
-
 template <typename Word>
-cudaError_t allow_smem(int bytes) {
-  return cudaFuncSetAttribute(window_gather_kernel<Word>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+int launch_word(const void* w, int64_t n_rows, int64_t row_bytes,
+                const void* rows, int id_bytes, int64_t n, int tile,
+                int64_t window, double share, void* out,
+                cudaStream_t stream) {
+  if (id_bytes == 8) {
+    return launch<Word, int64_t>(w, n_rows, row_bytes, rows, n, tile, window,
+                                 share, out, stream);
+  }
+  return launch<Word, int32_t>(w, n_rows, row_bytes, rows, n, tile, window,
+                               share, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Sets the kernels' dynamic shared memory limit to the current device's
-// opt-in maximum. Call once per device before the first launch on it.
-int oe_window_gather_init() {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = allow_smem<uint4>(optin)) != cudaSuccess ||
-      (err = allow_smem<uint2>(optin)) != cudaSuccess ||
-      (err = allow_smem<uint32_t>(optin)) != cudaSuccess ||
-      (err = allow_smem<uint16_t>(optin)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  g_smem_optin = optin;
-  return static_cast<int>(cudaSuccess);
-}
+// Ids a CTA takes at most, the staging buffer's bytes and the fewest
+// positions a staged run has (`ops/gather_windows.py` mirrors the rule).
+int oe_window_gather_tile() { return kTile; }
+int oe_window_gather_stage_bytes() { return kStageBytes; }
+int oe_window_gather_stage_min_rows() { return kStageMinRows; }
 
-// Bytes of shared memory a block may use (0 before oe_window_gather_init).
-int oe_window_gather_smem_bytes() { return g_smem_optin; }
-
-// w: the table, rows of row_bytes bytes (a multiple of 2); bases: nb*block
-// int64 window base rows per block slot; nw: nb int32 distinct-window
-// counts; slotoff: nb*block int32 slot*window + offset per requested row,
-// -1 for an out-of-range id; out: n rows. Returns a cudaError_t.
-int oe_gather_rows_windows(const void* w, int64_t row_bytes,
-                           const int64_t* bases, const int32_t* nw,
-                           const int32_t* slotoff, int64_t n, int block,
-                           int window, void* out, void* stream) {
-  if (g_smem_optin <= 0 || row_bytes <= 0 || row_bytes % 2 != 0 || n < 0 ||
-      block <= 0 || window <= 0) {
+// w: n_rows rows of row_bytes bytes (a multiple of 2); rows: n int32
+// (id_bytes 4) or int64 (id_bytes 8) ids; tile: ids per CTA, 1..kTile;
+// window: rows per window, >= 1; share: a run stages when its positions
+// are at least share x the rows of its span (inf: none stages); out: n
+// rows. Returns a cudaError_t.
+int oe_gather_rows_windows(const void* w, int64_t n_rows, int64_t row_bytes,
+                           const void* rows, int id_bytes, int64_t n,
+                           int tile, int64_t window, double share, void* out,
+                           void* stream) {
+  if (row_bytes <= 0 || row_bytes % 2 != 0 || n < 0 || n_rows < 0 ||
+      tile < 1 || tile > kTile || window < 1 ||
+      (id_bytes != 4 && id_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the widest word that divides the row and both base addresses
-  if (row_bytes % 16 == 0 && aligned(w, 16) && aligned(out, 16)) {
-    return launch<uint4>(w, row_bytes, bases, nw, slotoff, n, block, window,
-                         out, s);
+  switch (word_bytes(row_bytes, w, out)) {
+    case 16:
+      return launch_word<uint4>(w, n_rows, row_bytes, rows, id_bytes, n, tile,
+                                window, share, out, s);
+    case 8:
+      return launch_word<uint2>(w, n_rows, row_bytes, rows, id_bytes, n, tile,
+                                window, share, out, s);
+    case 4:
+      return launch_word<uint32_t>(w, n_rows, row_bytes, rows, id_bytes, n,
+                                   tile, window, share, out, s);
+    default:
+      return launch_word<uint16_t>(w, n_rows, row_bytes, rows, id_bytes, n,
+                                   tile, window, share, out, s);
   }
-  if (row_bytes % 8 == 0 && aligned(w, 8) && aligned(out, 8)) {
-    return launch<uint2>(w, row_bytes, bases, nw, slotoff, n, block, window,
-                         out, s);
-  }
-  if (row_bytes % 4 == 0 && aligned(w, 4) && aligned(out, 4)) {
-    return launch<uint32_t>(w, row_bytes, bases, nw, slotoff, n, block,
-                            window, out, s);
-  }
-  return launch<uint16_t>(w, row_bytes, bases, nw, slotoff, n, block, window,
-                          out, s);
 }
 
 const char* oe_cuda_error_string(int code) {

@@ -9,11 +9,12 @@ Adagrad(0.05) accumulator:
 - gather: the `gather_rows` kernel on uniform ids against its plain version
   and one library call computing the same function (`index_select` +
   `where`, which the port never calls);
-- window gather: `gather_rows_windows` on sorted uniform ids and on sorted
-  ids drawn from the first 10% of the table, each at window 16 and 64: the
-  wrapper (prepass + kernel), the kernel alone on the prepass's plan, its
-  plain version, the gather kernel and the library call on the same ids,
-  and the bytes the staged windows read;
+- window gather: `gather_rows_windows` (one launch) on sorted uniform ids
+  and on sorted ids drawn from the first 10% of the table, each at window
+  16 and 64: the kernel, its plain version, the gather kernel and the
+  library call on the same ids; what the launch stages (runs, rows,
+  bytes; `gather_windows.staged_bytes`) and, on the card, the kernel's
+  time under three staging rules (none, dense runs, every run);
 - apply: the `fused_sparse_apply` kernel on the deduplicated update of n
   uniform ids, against its plain version and `torch.optim.Adagrad` on the
   same coalesced sparse gradient (which the port never calls), and the
@@ -60,6 +61,9 @@ from .ops import apply, gather, gather_windows, plain_versions, sparse
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 WINDOWS = (16, 64)
+# the window gather's staging rule at three settings: none stages, the
+# dense runs stage (half their span requested), every run of 2+ rows does
+STAGE_SHARES = (float("inf"), 0.5, 0.0)
 
 
 class MismatchError(RuntimeError):
@@ -264,12 +268,9 @@ def bench_dim(b: _Bench, dim: int, vocab: int, n: int, seed: int = 0
             check_equal(what, got, gather_windows.gather_rows_windows_reference(
                 w, rows, window=window))
             check_equal(what + " vs gather_rows", got, per_row)
-            plan = gather_windows.window_prepass(
-                vocab, rows, block=gather_windows.DEFAULT_BLOCK, window=window)
             rec = {"bench": "gather_windows", "table": table, "n": n,
                    "ids": f"sorted {label}", "window": window,
                    "bit_equal": True,
-                   "staged_bytes": gather_windows.staged_bytes(plan, dim * 4),
                    "ms": b.ms(lambda: gather_windows.gather_rows_windows(
                        w, rows, window=window)),
                    "plain_ms": b.ms(
@@ -279,15 +280,21 @@ def bench_dim(b: _Bench, dim: int, vocab: int, n: int, seed: int = 0
                        lambda: gather.gather_rows(w, rows)),
                    "library_ms": b.ms(lambda: library_gather(w, rows)),
                    "bound_ms": nbytes["useful_bytes"] / HBM_BYTES_PER_S
-                   * 1e3, "useful_bytes": nbytes["useful_bytes"]}
-            if b.cuda:
-                check_equal(what + " kernel alone",
-                            gather_windows.launch_planned(w, plan, n), got)
-                rec["kernel_ms"] = b.ms(
-                    lambda: gather_windows.launch_planned(w, plan, n))
-                rec["prepass_ms"] = b.ms(lambda: gather_windows.window_prepass(
-                    vocab, rows, block=gather_windows.DEFAULT_BLOCK,
-                    window=window))
+                   * 1e3, "useful_bytes": nbytes["useful_bytes"],
+                   "staged_by_share": {}}
+            for share in STAGE_SHARES:
+                st = gather_windows.staged_bytes(
+                    ids_np, vocab, dim * 4, window=window, stage_share=share,
+                    base_offset=w.data_ptr() % 16)
+                rec["staged_by_share"][str(share)] = st._asdict()
+                if b.cuda:  # the rule changes the kernel's reads only
+                    check_equal(f"{what} stage_share {share}",
+                                gather_windows.gather_rows_windows(
+                                    w, rows, window=window,
+                                    stage_share=share), got)
+                    rec.setdefault("ms_by_share", {})[str(share)] = b.ms(
+                        lambda: gather_windows.gather_rows_windows(
+                            w, rows, window=window, stage_share=share))
             b.emit(rec)
         del per_row
 

@@ -4,13 +4,15 @@ Each kernel source under `csrc/` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface and loaded with `ctypes`. The build
 happens at first use, never at import, into `_build/` beside this package's
 sources (listed in `.gitignore`). The library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale library
-is never loaded.
+the source, of every header under `csrc/` (`*.cuh`, which a source may
+include) and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -46,6 +48,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def digest(name: str, csrc_dir: str = CSRC_DIR) -> str:
+    """The build key of `<csrc_dir>/<name>.cu`: a hash of it, of every
+    `*.cuh` header beside it, and of the nvcc flags."""
+    h = hashlib.sha256()
+    paths = [os.path.join(csrc_dir, f"{name}.cu")]
+    paths += sorted(glob.glob(os.path.join(csrc_dir, "*.cuh")))
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read()
+                     + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _compile(source: str, out: str) -> str:
     tmp = f"{out}.tmp.{os.getpid()}.{threading.get_ident()}"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
@@ -68,11 +84,8 @@ def load(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         source = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        path = os.path.join(BUILD_DIR, f"lib{name}-{digest(name)}.so")
         t0 = time.perf_counter()
         log = ""
         if not os.path.exists(path):

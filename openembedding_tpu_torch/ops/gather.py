@@ -109,20 +109,39 @@ def gather_rows(weights: torch.Tensor, rows: torch.Tensor,
 
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (every
-    pointer and the stream as c_void_p, so none is cut to 32 bits)."""
+    pointer and the stream as c_void_p, so none is cut to 32 bits). When
+    it loads, it reads each card's SM count and resident blocks, once, so
+    that no launch queries the device (a launch may be captured)."""
     global _LIB
-    if _LIB is None:
-        lib = _build.load(KERNEL)
-        lib.oe_gather_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.oe_gather_rows.restype = ctypes.c_int
-        lib.oe_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.oe_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = _build.load(KERNEL)
+            lib.oe_gather_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+            lib.oe_gather_rows.restype = ctypes.c_int
+            lib.oe_gather_rows_init.argtypes = []
+            lib.oe_gather_rows_init.restype = ctypes.c_int
+            lib.oe_gather_rows_resident_blocks.argtypes = [ctypes.c_int,
+                                                           ctypes.c_int]
+            lib.oe_gather_rows_resident_blocks.restype = ctypes.c_int
+            lib.oe_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.oe_cuda_error_string.restype = ctypes.c_char_p
+            for dev in range(torch.cuda.device_count()):
+                with torch.cuda.device(dev):
+                    rc = lib.oe_gather_rows_init()
+                if rc != 0:
+                    msg = lib.oe_cuda_error_string(rc).decode()
+                    raise RuntimeError(f"gather_rows: reading card {dev}'s "
+                                       f"occupancy failed: CUDA error {rc} "
+                                       f"({msg})")
+            _LIB = lib
     return _LIB

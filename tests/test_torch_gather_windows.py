@@ -102,7 +102,93 @@ def test_prepass_counts_each_blocks_distinct_windows():
         assert slot < want_nw[b]
         assert bases[b, slot] + window <= n_rows
         assert bases[b, slot] + off == r
-    assert gather_windows.staged_bytes(plan, 40) == sum(want_nw) * window * 40
+    # staging the runs at least half dense, the kernel reads their spans
+    # only, never more than the whole windows the TPU kernel's plan read
+    staged = gather_windows.staged_bytes(ids, n_rows, 40, block=block,
+                                         window=window, stage_share=0.5)
+    assert staged == _numpy_staged(ids, n_rows, 40, block, window, 0.5)
+    assert 0 < staged.bytes <= sum(want_nw) * window * 40
+
+
+def _numpy_staged(ids, n_rows, row_bytes, block, window, share,
+                  base_offset=0):
+    """The kernel's staging rule, run by run: -> (runs, rows, bytes)."""
+    n = len(ids)
+    tile = min(block, max(8, n), gather_windows.TILE)
+    budget = gather_windows.STAGE_BYTES
+    runs = rows = nbytes = 0
+    for t0 in range(0, n, tile):
+        end, used, i = min(t0 + tile, n), 0, t0
+        while i < end:
+            if not 0 <= ids[i] < n_rows:
+                i += 1
+                continue
+            j = i
+            while (j + 1 < end and 0 <= ids[j + 1] < n_rows
+                   and ids[j + 1] // window == ids[i] // window):
+                j += 1
+            run = ids[i:j + 1]
+            lo, hi, count = int(run.min()), int(run.max()), j + 1 - i
+            i = j + 1
+            if count < gather_windows.STAGE_MIN_ROWS or count < share * (
+                    hi - lo + 1):
+                continue
+            a = (base_offset + lo * row_bytes) // 16 * 16
+            z = -(-(base_offset + (hi + 1) * row_bytes) // 16) * 16
+            if a < base_offset or z > base_offset + n_rows * row_bytes or (
+                    z - a > budget):
+                continue
+            if used + z - a <= budget:
+                runs, rows, nbytes = runs + 1, rows + count, nbytes + z - a
+            used += z - a
+    return runs, rows, nbytes
+
+
+def _staging_case(name):
+    """-> (ids, n_rows, row_bytes, window, block, base_offset)."""
+    rng = np.random.default_rng(11)
+    if name == "sorted":
+        return np.sort(rng.integers(0, 3000, 2000)), 5000, 40, 16, 256, 0
+    if name == "unsorted":
+        return rng.integers(0, 400, 2000), 5000, 40, 16, 256, 0
+    if name == "duplicates":
+        ids = np.repeat(np.sort(rng.integers(0, 2000, 700)), 3)
+        return ids, 5000, 40, 64, 256, 0
+    if name == "out_of_range":
+        ids = np.sort(rng.integers(-50, 1100, 1500))
+        ids[::7] = -1
+        return ids, 1000, 40, 16, 128, 0
+    if name == "last_partial_window":  # 1000 rows = 62 windows of 16 + 8
+        ids = np.sort(rng.integers(900, 1003, 400))
+        return ids, 1000, 36, 16, 64, 8
+    # rows of 2 KB: dense runs of 16 rows fill the staging buffer
+    return np.sort(rng.integers(0, 600, 1000)), 600, 2048, 16, 256, 0
+
+
+@pytest.mark.parametrize("share", [0.0, 0.5, float("inf")])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "duplicates",
+                                  "out_of_range", "last_partial_window",
+                                  "buffer_full"])
+def test_staged_bytes_matches_a_run_by_run_count(case, share):
+    """`staged_bytes`, the kernel's run and staging rule on the host,
+    against the rule applied run by run in plain Python: sorted and
+    unsorted ids, duplicates, out-of-range ids, the table's last partial
+    window (with rows of 36 bytes on a table 8 bytes past a 16-byte
+    boundary, where widened spans cross the table's end), and runs that
+    overflow the staging buffer."""
+    ids, n_rows, row_bytes, window, block, base = _staging_case(case)
+    got = gather_windows.staged_bytes(
+        torch.from_numpy(ids), n_rows, row_bytes, block=block, window=window,
+        stage_share=share, base_offset=base)
+    want = _numpy_staged(ids, n_rows, row_bytes, block, window, share, base)
+    assert tuple(got) == want
+    if share == float("inf"):
+        assert want == (0, 0, 0)
+    elif case in ("sorted", "duplicates", "buffer_full"):
+        assert want[0] > 0  # dense runs stage
+    if case == "buffer_full" and share == 0.0:
+        assert want[2] <= gather_windows.STAGE_BYTES * -(-len(ids) // block)
+        assert want[1] < len(ids)  # some dense runs did not fit
 
 
 def test_wrapper_edges_on_cpu():

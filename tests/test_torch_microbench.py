@@ -45,11 +45,20 @@ def test_cpu_run_prints_one_json_line_per_measurement(capsys):
                                                      "plain"]
     for r in by["gather"] + by["gather_windows"] + by["apply"]:
         assert r["bit_equal"] is True and r["ms"] > 0 and r["bound_ms"] > 0
-    # dense ids share windows: the hot ids stage fewer bytes
-    staged = {(r["table"], r["ids"], r["window"]): r["staged_bytes"]
-              for r in by["gather_windows"]}
-    assert (staged[("f32 16384x64", "sorted hot10%", 16)]
-            < staged[("f32 16384x64", "sorted uniform", 16)])
+    # what each staging rule stages: under inf nothing, and dense ids
+    # form dense runs, so under the half-span rule more of the hot ids
+    # stage than of the uniform ones
+    for r in by["gather_windows"]:
+        assert set(r["staged_by_share"]) == {"inf", "0.5", "0.0"}
+        assert r["staged_by_share"]["inf"] == {"runs": 0, "rows": 0,
+                                               "bytes": 0}
+    for dim in (64, 128):
+        for window in (16, 64):
+            staged = {r["ids"]: r["staged_by_share"]["0.5"]["rows"]
+                      for r in by["gather_windows"]
+                      if r["table"] == f"f32 16384x{dim}"
+                      and r["window"] == window}
+            assert staged["sorted hot10%"] > staged["sorted uniform"]
     assert all(r["batch"] == 256 and r["steps"] == 5
                for r in by["train_step"])
 
