@@ -8,12 +8,15 @@ final line:
 
 1. device  — the card's name and power limit (nvidia-smi), CUDA present;
 2. build   — nvcc builds the three kernels, `csrc/gather_rows.cu`,
-   `csrc/gather_rows_windows.cu` (both include the row-copy core
-   `csrc/gather_core.cuh`) and `csrc/fused_sparse_apply.cu`, at the same
-   time (one thread each); ptxas's registers and spills per kernel, the
-   gather's grid (resident blocks, read once per card), and a check that
-   the window kernel's staging constants are the ones
-   `ops/gather_windows.staged_bytes` mirrors;
+   `csrc/gather_rows_windows.cu` and `csrc/fused_sparse_apply.cu` (all
+   three include the row-copy core's lane map `csrc/gather_core.cuh`), at
+   the same time (one thread each); ptxas's registers and spills per kernel
+   instance, the grids of the gather and of every apply instance (resident
+   blocks, read once per card), a check that the window kernel's staging
+   constants are the ones `ops/gather_windows.staged_bytes` mirrors, and
+   one that `ops/apply.launch_plan` picks the kernel's word and tile
+   (`oe_fused_sparse_apply_plan`) for every rule, widths 1 to 1024, both
+   table types, and addresses and strides off every word boundary;
 3. kernel  — the gather against its plain PyTorch version on the card at the
    serving path's shapes (a 2^24 x 10 float32 table, 4096 x 26 Zipfian ids
    with -1 pads and out-of-range ids; int32/int64 ids, with and without a
@@ -43,20 +46,34 @@ final line:
    Main case: the 2^24 x 10 float32 table and its Adagrad accumulator,
    updated from one `synthetic_criteo(4096, id_space=2^24, seed=7)` batch
    deduplicated by `ops/sparse._dedup_routed`; every table and slot must be
-   bit-equal after the same in-place update of two clones. Times: the
-   kernel, the plain version, `torch.optim.Adagrad` stepping on the same
-   coalesced sparse gradient (a yardstick the port never calls), the bound
-   from the bytes the update must move (and from the 32-byte sectors it
-   touches). Packed cases: the gate (`ops/sparse.packed_layout`) refuses
-   the table on the card; the same update through the packed weights+slots
-   array (2^24 x 20 at width 10, 2^22 x 128 at width 64) is bit-equal to
-   the split arrays all the same, with the gather and the apply timed in
-   both layouts and the pack and unpack that a packed window adds: the
-   measurement behind the gate's refusal.
-   Further cases: all nine optimizer rules on a small table with
-   duplicates, -1 pads and out-of-range ids, a bfloat16 table with Adam
-   (the 1-wide per-row slots), each bit-equal; Ftrl with
-   learning_rate_power -0.7 (`powf`) within a stated tolerance;
+   bit-equal after the same in-place update of two clones, and an update
+   whose counts are all 0 must leave both bit-identical. Times: the kernel,
+   its one-slot call (the floor of a launch) and its all-padding call (one
+   coalesced count and id round per tile), the kernel and its one-slot
+   call again with L2 emptied before each call (rows from DRAM, not from
+   the L2 the timed calls leave them in), the plain version,
+   `torch.optim.Adagrad` stepping on the same coalesced sparse gradient (a
+   yardstick the port never calls), the bound from the bytes the update must move (and from
+   the 32-byte sectors it touches). Packed cases: the gate
+   (`ops/sparse.packed_layout`) refuses the table on the card; the same
+   update through the packed weights+slots array (2^24 x 20 at width 10,
+   2^22 x 128 at width 64) is bit-equal to the split arrays all the same,
+   with the gather and the apply timed in both layouts and the pack and
+   unpack that a packed window adds: the measurement behind the gate's
+   refusal.
+   Edge cases of the kernel's lane map, two updates each, bit-equal, with
+   the launch plan checked against
+   the kernel's: widths 1, 9, 10, 11, 16, 64 and 128 (words of 1, 2 and 4
+   elements, partial tiles; int32 ids at two of them), bfloat16 tables of
+   widths 10 and 16, RMSprop's slots as column views 4 and 8 bytes off a
+   16-byte boundary (the columns between them untouched), a `w[1:]` view,
+   n = 1 and n = 1001 slots, an update whose counts are all 0 (tables
+   bit-identical), and Adam, Adamax and TestOptimizer (per-row state) at
+   widths 10 and 64. Further cases: all nine optimizer rules on a small
+   table with duplicates, -1 pads and out-of-range ids, a bfloat16 table
+   with Adam (the 1-wide per-row slots), each bit-equal; Ftrl with
+   learning_rate_power -0.7 (`powf`) within a stated tolerance. After the
+   last phase, torch.profiler must see one device kernel per apply call;
 6. serve   — the full-width DeepFM (`make_deepfm(vocabulary=1<<24, dim=9)`,
    random weights from a seed) exported, loaded by a REST server and driven
    through `ServingClient`: predict at batch 1, 100 and 4096 and a pull. The
@@ -290,7 +307,7 @@ STAGE_SHARES = (float("inf"), 0.5, 0.0)  # none, dense runs, every run
 def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
     """The window gather against its plain version and the gather kernel,
     under three staging rules; returns the main case (the dedup's sorted
-    ids, window 16, the default rule) and the calls `windows_profile`
+    ids, window 16, the default rule) and the calls `kernels_profile`
     traces once every timing is done."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 4)
@@ -393,7 +410,7 @@ def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
               f"and to gather_rows ({rec})")
         if main is None:
             main = rec
-    # traced last (`windows_profile`), so that no timed phase runs after a
+    # traced last (`kernels_profile`), so that no timed phase runs after a
     # profiler session
     calls = [(f"relabeled dedup sorted, stage_share {share}",
               lambda share=share: gather_windows.gather_rows_windows(
@@ -402,17 +419,16 @@ def phase_windows(torch, mb, gather, gather_windows, sparse, data) -> dict:
     return main, calls
 
 
-def windows_profile(torch, calls) -> None:
-    """The window gather under torch.profiler, one call a session: each
-    call must enqueue one device kernel, the window gather, and nothing
-    else (no prepass)."""
+def kernels_profile(torch, phase: str, calls, kernel: str) -> None:
+    """Each call under torch.profiler, one a session: it must enqueue one
+    device kernel, `kernel`, and nothing else (no prepass, no copy)."""
     for name, fn in calls:
         kernels, sessions = device_kernels(torch, fn)
-        emit({"phase": "windows", "case": f"profiler: {name}",
+        emit({"phase": phase, "case": f"profiler: {name}",
               "device_kernels_per_call": kernels,
               "profiler_sessions": sessions})
-        check(len(kernels) == 1 and "window_gather" in kernels[0],
-              f"one gather_rows_windows call enqueues one device kernel "
+        check(len(kernels) == 1 and kernel in kernels[0],
+              f"one {phase} call enqueues one device kernel, {kernel} "
               f"({name}: {kernels})")
 
 
@@ -574,10 +590,142 @@ def apply_packed_case(torch, mb, apply, gather, sparse, optimizers, data,
     return rec
 
 
-def phase_apply(torch, mb, apply, gather, sparse, optimizers, data) -> dict:
+def _apply_edge_case(torch, mb, apply, sparse, rng, name, opt, dtype, dim,
+                     layout="split", n_ids=3000, id_dtype="int64",
+                     zero_counts=False) -> dict:
+    """Two updates in a row of a 5000-row table, each the kernel on one copy
+    against the plain version on another, every array bit-equal after each (with
+    `zero_counts`, also bit-identical to before). layout: "split" (arrays
+    of their own), "w[1:]" (every array a view one row in), or "off4" /
+    "off8" (weights and the two slots of RMSprop as column views of one
+    (n_rows, 52) array, the slots starting 4 / 8 bytes off a 16-byte
+    boundary, the columns between them checked too)."""
+    dev = torch.device("cuda")
+    n_rows = 5000
+    names = list(opt.slot_shapes(dim))
+    if layout in ("off4", "off8"):
+        offsets = (17, 34) if layout == "off4" else (18, 36)
+        backing = [torch.from_numpy(rng.standard_normal((n_rows, 52)).astype(
+            np.float32)).abs().to(dev)]
+
+        def views(b):
+            return b[0][:, :dim], {k: b[0][:, o:o + dim]
+                                   for k, o in zip(names, offsets)}
+    else:
+        skip = 1 if layout == "w[1:]" else 0
+        w = torch.from_numpy(rng.standard_normal(
+            (n_rows + skip, dim)).astype(np.float32)).to(dev, dtype)
+        backing = [w, *opt.init_slots(n_rows + skip, dim, device=dev).values()]
+
+        def views(b):
+            return b[0][skip:], {k: v[skip:] for k, v in zip(names, b[1:])}
+    equal, worst, plans = True, 0.0, set()
+    for update in range(2):
+        ids = rng.integers(-1, n_rows + 50, n_ids)
+        ids[:n_ids // 10] = ids[n_ids // 10:2 * (n_ids // 10)]  # duplicates
+        ids[0] = n_rows // 2  # at least one live slot, also at n = 1
+        grads = torch.from_numpy(rng.standard_normal((n_ids, dim)).astype(
+            np.float32)).to(dev)
+        g, counts, idx = sparse._dedup_routed(
+            n_rows, torch.from_numpy(ids).to(dev, getattr(torch, id_dtype)),
+            grads, None)
+        if zero_counts:
+            counts.zero_()
+        got_b = [b.clone() for b in backing]
+        want_b = [b.clone() for b in backing]
+        (w, slots), (w2, s2) = views(got_b), views(want_b)
+        arrays = apply.plan_arrays(opt, w, slots, g)
+        plan = apply.launch_plan(opt.rule, dim, arrays)
+        c_plan = apply.kernel_plan(opt.rule, dim, arrays)
+        check((plan.word_elems, plan.tile_rows) == c_plan,
+              f"{name}: launch_plan {plan} is the kernel's {c_plan}")
+        plans.add((plan.word_elems, plan.tile_rows))
+        before = apply.LAUNCHES["fused_sparse_apply"]
+        apply.fused_sparse_apply(opt, w, slots, idx, g, counts)
+        check(apply.LAUNCHES["fused_sparse_apply"] == before + 1,
+              "one fused_sparse_apply call is one kernel launch")
+        apply.fused_sparse_apply_reference(opt, w2, s2, idx, g, counts)
+        torch.cuda.synchronize()
+        for a, b in zip(got_b, want_b):
+            equal = equal and torch.equal(mb.bits(a), mb.bits(b))
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        if zero_counts:
+            equal = equal and all(torch.equal(mb.bits(a), mb.bits(b))
+                                  for a, b in zip(got_b, backing))
+        backing = want_b  # continue from the plain version's state
+    rec = {"phase": "apply", "case": name,
+           "table": f"{n_rows}x{dim} {str(dtype).split('.')[-1]}",
+           "layout": layout, "ids": id_dtype,
+           "slots": int(idx.shape[0]),
+           "plan_word_elems_tile_rows": sorted(plans), "bit_equal": equal,
+           "max_abs_err": worst, "tolerance": 0.0}
+    emit(rec)
+    check(equal, f"fused_sparse_apply bit-equal to its plain version ({rec})")
+    return rec
+
+
+def apply_edge_cases(torch, mb, apply, sparse, optimizers) -> tuple:
+    """What the kernel's lane map can get wrong: each word (E = 1, 2, 4) and
+    partial tiles (widths 1 to 128), bfloat16 words, views off a 16-byte
+    boundary, one slot, a ragged slot count, an update with no live slot,
+    and the three rules with per-row state; returns the records and two
+    calls for the profiler check."""
+    rng = np.random.default_rng(SEED + 6)
+    f32, bf16, i32 = torch.float32, torch.bfloat16, "int32"
+    ada = optimizers.Adagrad(learning_rate=0.1)
+    rms = optimizers.RMSprop(learning_rate=0.05, momentum=0.5)
+    cases = [(f"adagrad width {d}", ada, f32, d, {}) for d in (1, 9, 10)]
+    cases += [("adagrad width 11, int32 ids", ada, f32, 11,
+               {"id_dtype": i32}),
+              ("adagrad width 16", ada, f32, 16, {}),
+              ("adagrad width 64, int32 ids", ada, f32, 64,
+               {"id_dtype": i32}),
+              ("adagrad width 128", ada, f32, 128, {}),
+              ("adagrad bf16 width 10", ada, bf16, 10, {}),
+              ("adagrad bf16 width 16", ada, bf16, 16, {}),
+              ("rmsprop column views 4 bytes off", rms, f32, 16,
+               {"layout": "off4"}),
+              ("rmsprop column views 8 bytes off", rms, f32, 16,
+               {"layout": "off8"}),
+              ("adagrad view w[1:] width 10", ada, f32, 10,
+               {"layout": "w[1:]"}),
+              ("adagrad width 10, n = 1", ada, f32, 10, {"n_ids": 1}),
+              ("adagrad width 10, n = 1001", ada, f32, 10,
+               {"n_ids": 1001}),
+              ("adagrad width 10, counts all 0", ada, f32, 10,
+               {"zero_counts": True})]
+    for rule, opt in (("adam", optimizers.Adam(learning_rate=0.01)),
+                      ("adamax", optimizers.Adamax(learning_rate=0.01)),
+                      ("test", optimizers.TestOptimizer())):
+        cases += [(f"{rule} width {d}", opt, f32, d, {}) for d in (10, 64)]
+    out = [_apply_edge_case(torch, mb, apply, sparse, rng, name, opt, dtype,
+                            dim, **kw)
+           for name, opt, dtype, dim, kw in cases]
+
+    # one small call of each table type for the profiler, traced last
+    dev = torch.device("cuda")
+    calls = []
+    adam = optimizers.Adam(learning_rate=0.01)
+    for dtype, opt in ((f32, ada), (bf16, adam)):
+        w = torch.randn((5000, 10), device=dev).to(dtype)
+        slots = opt.init_slots(5000, 10, device=dev)
+        ids = torch.from_numpy(rng.integers(0, 5000, 1001)).to(dev)
+        g, counts, idx = sparse._dedup_routed(
+            5000, ids, torch.randn((1001, 10), device=dev), None)
+        calls.append((f"{type(opt).__name__} {str(dtype).split('.')[-1]} "
+                      f"5000x10, 1001 slots",
+                      lambda opt=opt, w=w, slots=slots, idx=idx, g=g,
+                      counts=counts: apply.fused_sparse_apply(
+                          opt, w, slots, idx, g, counts)))
+    return out, calls
+
+
+def phase_apply(torch, mb, apply, gather, sparse, optimizers, data) -> tuple:
     """The apply kernel against its plain version at the training path's
-    shapes, the packed cases, then the small cases; returns the main
-    case."""
+    shapes, its one-slot and all-padding times, warm and with L2 emptied,
+    the packed cases, the lane map's edge cases and the small
+    cases; returns the main case and the calls the profiler check traces
+    once every timing is done."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
@@ -603,15 +751,49 @@ def phase_apply(torch, mb, apply, gather, sparse, optimizers, data) -> dict:
     counts_np = counts.cpu().numpy()
     nbytes = mb.apply_bytes(rows_np, counts_np, VOCAB, dim, w.element_size(),
                             [dim])
+    arrays = apply.plan_arrays(opt, w, slots, g)
+    plan = apply.launch_plan(opt.rule, dim, arrays)
+    check((plan.word_elems, plan.tile_rows)
+          == apply.kernel_plan(opt.rule, dim, arrays),
+          "the main case's launch plan is the kernel's")
+    tiles = -(-len(counts_np) // plan.tile_rows)
+    live = np.zeros(tiles * plan.tile_rows, bool)
+    live[:len(counts_np)] = counts_np > 0
+    # the update with every count 0 leaves the table as it is
+    zeros = torch.zeros_like(counts)
+    before = (w.clone(), slots["accum"].clone())
+    apply.fused_sparse_apply(opt, w, slots, idx, g, zeros)
+    torch.cuda.synchronize()
+    padding_equal = _bit_equal(torch, mb, (w, slots),
+                               (before[0], {"accum": before[1]}))
+    del before
     run = lambda: apply.fused_sparse_apply(opt, w, slots, idx, g, counts)
+    one_slot = lambda: apply.fused_sparse_apply(opt, w, slots, idx[:1], g[:1],
+                                                counts[:1])
+    # a read of 256 MB, five times the H100's L2, before each cold call
+    flush = torch.ones(1 << 26, device=dev)
     run_plain = lambda: apply.fused_sparse_apply_reference(
         opt, w, slots, idx, g, counts)
     rec = {
         "phase": "apply", "case": "main adagrad",
         "table": f"f32 {VOCAB}x{dim} + accum",
-        "slots": int(idx.shape[0]), **nbytes, "bit_equal": equal,
+        "slots": int(idx.shape[0]), **nbytes,
+        "plan": plan._asdict(), "tiles": tiles,
+        "tiles_with_a_live_slot": int(live.reshape(
+            tiles, plan.tile_rows).any(1).sum()),
+        "bit_equal": equal,
+        "all_padding_bit_identical": padding_equal,
         "max_abs_err": err,
         "ms": mb.device_ms(run),
+        # one live slot: the floor of a launch; every slot padding: one
+        # coalesced count and id round per tile
+        "one_slot_ms": mb.device_ms(one_slot),
+        "all_padding_ms": mb.device_ms(lambda: apply.fused_sparse_apply(
+            opt, w, slots, idx, g, zeros)),
+        # the same with the rows in DRAM: what the update takes above its
+        # floor, against the sector bound
+        "cold_ms": mb.device_ms(run, before=flush.sum),
+        "cold_one_slot_ms": mb.device_ms(one_slot, before=flush.sum),
         "plain_ms": mb.device_ms(run_plain),
         "library_ms": mb.device_ms(mb.library_adagrad(opt, w, idx, g,
                                                       counts)),
@@ -620,9 +802,11 @@ def phase_apply(torch, mb, apply, gather, sparse, optimizers, data) -> dict:
         "sector_bound_ms": nbytes["sector_bytes"] / mb.HBM_BYTES_PER_S * 1e3,
     }
     emit(rec)
-    check(equal, f"fused_sparse_apply bit-equal to its plain version at the "
-          f"main case ({rec})")
-    del w, slots, got
+    check(equal, f"fused_sparse_apply bit-equal to its plain version at "
+          f"the main case ({rec})")
+    check(padding_equal, "an update whose counts are all 0 leaves the "
+          "table and its slots bit-identical")
+    del w, slots, got, flush
     torch.cuda.empty_cache()
     rec["packed"] = [
         apply_packed_case(torch, mb, apply, gather, sparse, optimizers, data,
@@ -630,9 +814,11 @@ def phase_apply(torch, mb, apply, gather, sparse, optimizers, data) -> dict:
         apply_packed_case(torch, mb, apply, gather, sparse, optimizers, data,
                           64, 1 << 22)]
     torch.cuda.empty_cache()
+    rec["edge_cases"], calls = apply_edge_cases(torch, mb, apply, sparse,
+                                                optimizers)
     rec["small_cases"] = apply_small_cases(torch, mb, apply, sparse,
                                            optimizers)
-    return rec
+    return rec, calls
 
 
 def profile_device(torch, fn, calls: int = 10, unit: str = "predict"
@@ -1054,6 +1240,51 @@ def phase_build(torch, kernel_modules, _build) -> None:
         f"{wb}-byte words, {ib}-byte ids":
         glib.oe_gather_rows_resident_blocks(wb, ib)
         for wb in (16, 8, 4, 2) for ib in (4, 8)}})
+    apply = kernel_modules[2]
+    alib = apply._library()
+    emit({"phase": "build", "fused_sparse_apply_grid_blocks": {
+        f"rule {rule}, {eb}-byte table, E {e}":
+        alib.oe_fused_sparse_apply_resident_blocks(rule, eb, e)
+        for rule in range(len(apply.WIDE_SLOTS)) for eb in (4, 2)
+        for e in apply.WORD_ELEMS}})
+    plans = apply_plan_cases(apply)
+    emit({"phase": "build", "fused_sparse_apply_plans_checked": plans})
+
+
+def apply_plan_cases(apply) -> int:
+    """`ops/apply.launch_plan` against the kernel's own plan
+    (`oe_fused_sparse_apply_plan`, which reads addresses and strides and
+    nothing they point to) for every rule, widths from 1 to 1024, both
+    table types, and each array in turn moved 2, 4 or 8 bytes off a
+    16-byte boundary or given an odd or even row stride; returns the cases
+    checked."""
+    base = 1 << 20
+    cases = 0
+    for rule, wide in enumerate(apply.WIDE_SLOTS):
+        for dim in (1, 2, 3, 4, 9, 10, 11, 12, 16, 64, 65, 128, 1024):
+            for eb in (4, 2):
+                def arrays(which=-1, off=0, stride_add=0):
+                    out = []
+                    for k in range(wide + 2):
+                        bytes_ = eb if k == 0 else 4
+                        addr = base * (k + 1) + (off if k == which else 0)
+                        out.append((addr, dim + (stride_add if k == which
+                                                 else 0), bytes_))
+                    return out
+                variants = [arrays()]
+                for which in range(wide + 2):
+                    variants += [arrays(which, off) for off in (2, 4, 8)
+                                 if off % (eb if which == 0 else 4) == 0]
+                    variants += [arrays(which, 0, add) for add in (1, 2)]
+                for arrs in variants:
+                    want = apply.kernel_plan(rule, dim, arrs)
+                    got = apply.launch_plan(rule, dim, arrs)
+                    check((got.word_elems, got.tile_rows) == want,
+                          f"ops/apply.launch_plan {got} is the kernel's "
+                          f"plan {want} (rule {rule}, width {dim}, arrays "
+                          f"{arrs})")
+                    cases += 1
+    return cases
 
 
 def phase_microbench(torch, mb, ops) -> tuple:
@@ -1098,14 +1329,15 @@ def main() -> int:
     main_windows, profile_calls = phase_windows(
         torch, mb, gather, gather_windows, sparse, data)
     torch.cuda.empty_cache()
-    main_apply = phase_apply(torch, mb, apply, gather, sparse, optimizers,
-                             data)
+    main_apply, apply_calls = phase_apply(torch, mb, apply, gather, sparse,
+                                          optimizers, data)
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch, ops, gather)
     train = phase_train(torch, mb, ops, optimizers, data)
     torch.cuda.empty_cache()
     _, bench_launches = phase_microbench(torch, mb, ops)
-    windows_profile(torch, profile_calls)
+    kernels_profile(torch, "windows", profile_calls, "window_gather")
+    kernels_profile(torch, "apply", apply_calls, "fused_apply")
     by_path = {k: {"serve": serve_launches if k == "gather_rows" else 0,
                    "train": train["launches"][k],
                    "train_graphs": train["graph_launches"][k],

@@ -1,6 +1,8 @@
 // The row-copy core that both row gathers share (`gather_rows.cu`,
 // `gather_rows_windows.cu`): one warp copies a tile of up to 32 rows,
-// given one key per row, into 32 * rows consecutive output words.
+// given one key per row, into 32 * rows consecutive output words. The
+// fused apply (`fused_sparse_apply.cu`) walks its tiles with the same
+// lane map (`RowMap`, `Cursor`, `advance`, `tile_rows`).
 //
 // - Ids are read once per row: lane i holds row i's key (computed by the
 //   caller from a coalesced id load, range-checked there once), and the
@@ -43,9 +45,9 @@ struct RowMap {
 
 inline RowMap row_map(int rw) { return RowMap{rw, 32 / rw, 32 % rw}; }
 
-// Rows a tile holds so that its words are one round of kUnroll per lane.
-inline int tile_rows(int rw) {
-  const int t = 32 * kUnroll / rw;
+// Rows a tile holds so that its words are one round of `unroll` per lane.
+inline int tile_rows(int rw, int unroll = kUnroll) {
+  const int t = 32 * unroll / rw;
   return t < 1 ? 1 : (t > 32 ? 32 : t);
 }
 
@@ -59,6 +61,16 @@ struct Cursor {
 __device__ __forceinline__ Cursor first_word(const RowMap& m) {
   const int lane = threadIdx.x & 31;
   return Cursor{lane / m.rw, lane % m.rw};
+}
+
+// Move the cursor on by 32 words (to this lane's next word).
+__device__ __forceinline__ void advance(Cursor& c, const RowMap& m) {
+  c.word += m.r32;
+  c.row += m.q32;
+  if (c.word >= m.rw) {
+    c.word -= m.rw;
+    ++c.row;
+  }
 }
 
 // Word rows from the table in device memory.
@@ -99,12 +111,7 @@ __device__ __forceinline__ void copy_tile(long long key, int rows,
       v[u] = Word{};
       if (in_tile && k >= 0) v[u] = load(k, c.word);
       if (in_tile && k != kSkip) store |= 1u << u;
-      c.word += m.r32;
-      c.row += m.q32;
-      if (c.word >= m.rw) {
-        c.word -= m.rw;
-        ++c.row;
-      }
+      advance(c, m);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {

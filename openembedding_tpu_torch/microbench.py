@@ -84,11 +84,14 @@ def check_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 def device_ms(fn: Callable[[], object], samples: int = 25,
-              spin_cycles: int = 2_000_000) -> float:
+              spin_cycles: int = 2_000_000,
+              before: Optional[Callable[[], object]] = None) -> float:
     """Median device time of one `fn()` over `samples` CUDA-event-timed
     calls. A spin kernel runs first so the host has enqueued the start event
     and all of `fn`'s work before the device reaches them: the events then
-    time the device work alone, not the host's launch overhead."""
+    time the device work alone, not the host's launch overhead. `before`,
+    if given, runs ahead of the spin kernel of each call, untimed (to empty
+    L2, say)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -96,6 +99,8 @@ def device_ms(fn: Callable[[], object], samples: int = 25,
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         torch.cuda._sleep(spin_cycles)
         start.record()
         fn()

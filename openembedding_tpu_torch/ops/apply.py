@@ -17,14 +17,16 @@ launch that fails raises, it never falls back.
 
 The kernel takes each array as a base pointer and a row stride, so weights
 and slots may be column ranges of one wider array (a packed layout) as well
-as arrays of their own.
+as arrays of their own. A warp of the kernel updates a tile of slots, in
+words of E elements: `launch_plan` mirrors on the host how a launch picks E
+and the tile.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +41,47 @@ _TABLE_DTYPES = (torch.float32, torch.bfloat16)
 _ID_DTYPES = (torch.int32, torch.int64)
 MAX_SLOTS = 4   # kMaxSlots in the kernel source
 MAX_HYPER = 8   # kMaxHyper in the kernel source
+# the kernel's launch plan (`plan`, `unroll` and `tile_rows` in the sources):
+# per rule (`SparseOptimizer.rule`), how many of its slots, first in its
+# order, are as wide as the row (the rest hold one column of per-row state)
+WIDE_SLOTS = (0, 1, 1, 2, 2, 2, 2, 2, 0)
+WORD_ELEMS = (4, 2, 1)  # elements a word, widest first
+WORD_FLOATS = 30        # floats of loaded words a lane holds in one round
+MAX_UNROLL = 8
+
+
+class LaunchPlan(NamedTuple):
+    word_elems: int  # E: elements a word
+    unroll: int      # words of each array a lane loads in one round
+    tile_rows: int   # slots a warp's tile holds
+
+
+def launch_plan(rule: int, dim: int,
+                arrays: Sequence[Tuple[int, int, int]]) -> LaunchPlan:
+    """The kernel's plan for one launch, computed on the host as the kernel
+    computes it. arrays: (address, row stride in elements, element bytes) of
+    the weights, of each of the rule's wide slots and of the gradients. E is
+    the largest of 4, 2, 1 that divides `dim` and every row stride, and
+    whose bytes divide every address; a lane loads `unroll` words of each
+    array a round (about WORD_FLOATS floats in all); a tile holds as many
+    rows (1..32) as make `unroll` words a lane."""
+    e = next((e for e in WORD_ELEMS
+              if dim % e == 0 and all(stride % e == 0 and addr % (e * b) == 0
+                                      for addr, stride, b in arrays)), 1)
+    unroll = min(MAX_UNROLL, max(1, WORD_FLOATS
+                                 // ((2 + WIDE_SLOTS[rule]) * e)))
+    tile = min(32, max(1, 32 * unroll // (dim // e)))
+    return LaunchPlan(e, unroll, tile)
+
+
+def plan_arrays(optimizer, weights: torch.Tensor,
+                slots: Dict[str, torch.Tensor],
+                grads: torch.Tensor) -> List[Tuple[int, int, int]]:
+    """The `arrays` argument of `launch_plan` for one `fused_sparse_apply`
+    call: the weights, the rule's wide slots, the gradients."""
+    wide = list(slots.values())[:WIDE_SLOTS[optimizer.rule]]
+    return [(t.data_ptr(), t.stride(0), t.element_size())
+            for t in (weights, *wide, grads)]
 
 
 def fused_sparse_apply_reference(optimizer, weights: torch.Tensor,
@@ -147,25 +190,73 @@ def fused_sparse_apply(optimizer, weights: torch.Tensor,
     return weights, slots
 
 
+def kernel_plan(rule: int, dim: int,
+                arrays: Sequence[Tuple[int, int, int]]) -> Tuple[int, int]:
+    """(E, tile rows) as the built kernel picks them
+    (`oe_fused_sparse_apply_plan`, which reads the addresses and never
+    what they point to), for `launch_plan`'s arguments: what
+    `launch_plan` must agree with."""
+    (w_addr, w_stride, w_bytes), *wide, (g_addr, g_stride, _) = arrays
+    lib = _library()
+    slot_ptrs = (ctypes.c_void_p * MAX_SLOTS)(*[a for a, _, _ in wide])
+    slot_strides = (ctypes.c_int64 * MAX_SLOTS)(*[st for _, st, _ in wide])
+    e, tile = ctypes.c_int(), ctypes.c_int()
+    rc = lib.oe_fused_sparse_apply_plan(
+        rule, dim, w_addr, w_stride, w_bytes, slot_ptrs, slot_strides,
+        g_addr, g_stride, ctypes.byref(e), ctypes.byref(tile))
+    if rc != 0:
+        raise RuntimeError(f"fused_sparse_apply: no plan: CUDA error {rc}")
+    return e.value, tile.value
+
+
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
 
 
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signature declared (every
-    pointer and the stream as c_void_p, so none is cut to 32 bits)."""
+    """The built kernel library with its C signatures declared (every
+    pointer and the stream as c_void_p, so none is cut to 32 bits). When
+    it loads, it reads each card's SM count and each kernel instance's
+    resident blocks, once, so that no launch queries the device (a launch
+    may be captured)."""
     global _LIB
-    if _LIB is None:
-        lib = _build.load(KERNEL)
-        lib.oe_fused_sparse_apply.argtypes = [
-            ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-        lib.oe_fused_sparse_apply.restype = ctypes.c_int
-        lib.oe_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.oe_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = _build.load(KERNEL)
+            lib.oe_fused_sparse_apply.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p]
+            lib.oe_fused_sparse_apply.restype = ctypes.c_int
+            lib.oe_fused_sparse_apply_init.argtypes = []
+            lib.oe_fused_sparse_apply_init.restype = ctypes.c_int
+            lib.oe_fused_sparse_apply_resident_blocks.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            lib.oe_fused_sparse_apply_resident_blocks.restype = ctypes.c_int
+            lib.oe_fused_sparse_apply_plan.argtypes = [
+                ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int)]
+            lib.oe_fused_sparse_apply_plan.restype = ctypes.c_int
+            lib.oe_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.oe_cuda_error_string.restype = ctypes.c_char_p
+            for dev in range(torch.cuda.device_count()):
+                with torch.cuda.device(dev):
+                    rc = lib.oe_fused_sparse_apply_init()
+                if rc != 0:
+                    msg = lib.oe_cuda_error_string(rc).decode()
+                    raise RuntimeError(f"fused_sparse_apply: reading card "
+                                       f"{dev}'s occupancy failed: CUDA "
+                                       f"error {rc} ({msg})")
+            _LIB = lib
     return _LIB

@@ -127,15 +127,18 @@ def packed_layout(dim: int, slots: Dict[str, torch.Tensor],
     and copies the whole table every step). The card has no lanes, and what
     its measurement supports is no packing at any width: `chip_smoke.py`'s
     apply phase on an NVIDIA H100 80GB HBM3 at 700.00 W measured, packed
-    against split, per step, the apply kernel 0.0172 against 0.0187 ms at
-    width 10 (2^24 rows) and 0.0507 against 0.0509 ms at width 64 (2^22
-    rows), the pull (it gathers the slot columns too) 0.0169 against 0.0111
-    ms and 0.0568 against 0.0341 ms, and the pack and unpack 5.6 ms and
-    3.2 ms a window; a graph window of 16 steps took 1.47-1.58 ms a step
-    packed against 1.09-1.22 ms for the graph step (PERF.md). So the gate
-    refuses every table on the card. Off the card it keeps the JAX gate
-    without the width rule, so `train_many` on the CPU runs the packed
-    computation that the tests hold to the JAX package's."""
+    against split, per step, the apply kernel 0.0103-0.0104 against
+    0.0123-0.0126 ms at width 10 (2^24 rows) and 0.0373-0.0378 against
+    0.0377-0.0383 ms at width 64 (2^22 rows), the pull (it gathers the slot
+    columns too) 0.0096-0.0097 against 0.0083-0.0085 ms and 0.0401-0.0408
+    against 0.0161-0.0166 ms, and the pack and unpack 5.6 ms and 3.2 ms a
+    window; a graph window of 16 steps took 1.45-1.52 ms a step packed
+    against 1.10-1.19 ms split (PERF.md). Packing saves at width 10 on the
+    apply about what it loses on the pull, and nothing at width 64, so the
+    pack and unpack are pure cost: the gate refuses every table on the
+    card. Off the card it keeps the JAX gate without the width rule, so
+    `train_many` on the CPU runs the packed computation that the tests hold
+    to the JAX package's."""
     if not slots:
         return None
     if weights_dtype != torch.float32:
