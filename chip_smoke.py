@@ -38,9 +38,10 @@ final line:
    smaller than the window (which goes through the gather kernel). Each
    case runs under three staging rules (none, dense runs, every run), all
    bit-equal, with what each stages (`staged_bytes`) and its time; after
-   the last phase, torch.profiler must see one device kernel per call
-   (traced after every timing, so that no timed phase runs after a
-   profiler session). Times: the kernel, its plain version, the gather
+   the apply phase, torch.profiler must see one device kernel per call
+   (traced after the three kernel phases' timings, and before the later
+   phases' many profiler sessions, after which a session has once traced
+   no kernel at all). Times: the kernel, its plain version, the gather
    kernel and the library call, beside the byte bound;
 5. apply   — the fused sparse apply against its plain version on the card.
    Main case: the 2^24 x 10 float32 table and its Adagrad accumulator,
@@ -72,8 +73,8 @@ final line:
    widths 10 and 64. Further cases: all nine optimizer rules on a small
    table with duplicates, -1 pads and out-of-range ids, a bfloat16 table
    with Adam (the 1-wide per-row slots), each bit-equal; Ftrl with
-   learning_rate_power -0.7 (`powf`) within a stated tolerance. After the
-   last phase, torch.profiler must see one device kernel per apply call;
+   learning_rate_power -0.7 (`powf`) within a stated tolerance. Then
+   torch.profiler must see one device kernel per apply call;
 6. serve   — the full-width DeepFM (`make_deepfm(vocabulary=1<<24, dim=9)`,
    random weights from a seed) exported, loaded by a REST server and driven
    through `ServingClient`: predict at batch 1, 100 and 4096 and a pull. The
@@ -101,7 +102,30 @@ final line:
    held bit-equal to the split steps and timed against them. Prints ex/s
    for each way of stepping, the profiler's device busy time, idle share
    and top device operations per step, and the peak device memory;
-8. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+8. example — the Criteo training entry point (`python -m
+   openembedding_tpu_torch.examples.criteo_deepctr`, through its `main`)
+   on a Criteo-format TSV written from a seed (20 x 4096 rows, about 20 MB:
+   a label, 13 integer counts and 26 8-hex-digit Zipfian tokens, about 5%
+   of the fields empty) and its .gz copy. The native reader's batches
+   (plain and .gz) must be byte-identical to the Python reader's; both
+   engines' rows/s, and the native reader's steady ms per batch as the
+   entry point's loop reads it. The full-width DeepFM at `--vocabulary 16777216 --dim 9
+   --batch-size 4096`, 64 steps (the file repeats), through eager steps,
+   `jit_train_step` and `jit_train_many` (`--scan 16`), each with and
+   without `--prefetch` (pinned, double-buffered, side stream): every run
+   bit-equal (losses and whole state) to the same steps through both plain
+   versions with no prefetch, and launching one gather and one apply a
+   step; ex/s and the idle share of each (its driver's device busy time
+   under the profiler against the run's steady wall time). Save after one
+   pass of the file, load into a fresh state, continue: bit-equal to the
+   uninterrupted plain run; the export's logits equal `eval_step`'s.
+   The copy alone: `jit_train_step` over the file's batches already
+   parsed, each batch copied pageable, by the pinned prefetch as the steps
+   run, or pinned before the loop, in turns.
+   `--cache` with a 2^20 x 10 sparse_as_dense table: eager and graph
+   drivers bit-equal to the plain path, the profiler sees the gather kernel
+   on the table's pull, and the checkpoint and export round-trip it;
+9. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -113,6 +137,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import shutil
@@ -1200,6 +1225,397 @@ def phase_train(torch, mb, ops, optimizers, data) -> dict:
     return rec
 
 
+EXAMPLE_BATCHES = 20      # the TSV: 20 x 4096 rows, one pass of the file
+EXAMPLE_STEPS = 64        # each driving run; the file repeats (period 20)
+EXAMPLE_K = 16            # --scan K: four windows of 16
+CACHE_VOCAB = 1 << 20     # --cache: a 2^20 x 10 float32 sparse_as_dense table
+CACHE_STEPS = 24
+SAVE_STEPS = EXAMPLE_BATCHES  # save after one pass: the resumed run reads
+                              # the batches the uninterrupted run reads next
+
+
+def write_criteo_tsv(path: str, rows: int, seed: int) -> None:
+    """Criteo-format rows from a seed, shaped like the day logs: a 0/1 label
+    (25% clicks), 13 heavy-tailed integer counts (1% of them -1) and 26
+    categorical 8-hex-digit tokens, Zipfian within each field; about 5% of
+    the fields empty."""
+    rng = np.random.default_rng(seed)
+    labels = (rng.random(rows) < 0.25).astype(np.int64)
+    ints = np.floor(rng.pareto(1.5, (rows, NUM_DENSE)) * 3).astype(np.int64)
+    ints[rng.random(ints.shape) < 0.01] = -1
+    ranks = (rng.zipf(1.2, (rows, FIELDS)) - 1).astype(np.uint64)
+    salt = np.arange(FIELDS, dtype=np.uint64) * np.uint64(0x9E3779B9)
+    toks = (ranks * np.uint64(2654435761) + salt) & np.uint64(0xFFFFFFFF)
+    empty = rng.random((rows, NUM_DENSE + FIELDS)) < 0.05
+    with open(path, "w") as f:
+        for r in range(rows):
+            e = empty[r]
+            cols = [str(labels[r])]
+            cols += ["" if e[i] else str(v) for i, v in enumerate(ints[r])]
+            cols += ["" if e[NUM_DENSE + i] else f"{int(t):08x}"
+                     for i, t in enumerate(toks[r])]
+            f.write("\t".join(cols) + "\n")
+
+
+def _same_batches(a, b) -> bool:
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        pairs = [(x["label"], y["label"]), (x["dense"], y["dense"]),
+                 (x["sparse"]["categorical"], y["sparse"]["categorical"])]
+        if any(u.dtype != v.dtype or u.shape != v.shape
+               or u.tobytes() != v.tobytes() for u, v in pairs):
+            return False
+    return True
+
+
+def example_reader(data, tsv: str, gz: str) -> list:
+    """The native and the Python engine on the TSV, and the native engine on
+    its .gz copy: byte-identical batches, and each engine's rows/s (the
+    native library built first, its build timed apart)."""
+    from openembedding_tpu_torch import native as native_mod
+    t0 = time.perf_counter()
+    native_mod.load()
+    build_s = time.perf_counter() - t0
+
+    def read(path, engine):
+        t0 = time.perf_counter()
+        out = list(data.read_criteo_tsv(path, BATCH, id_space=VOCAB,
+                                        native=engine))
+        return out, time.perf_counter() - t0
+
+    native, native_s = read(tsv, "on")
+    python, python_s = read(tsv, "off")
+    gzipped, gz_s = read(gz, "on")
+    # the entry point's input as its loop sees it: the native reader
+    # repeating the file through CriteoBatcher, past its first batch
+    it = iter(data.CriteoBatcher(data.read_criteo_tsv(
+        tsv, BATCH, id_space=VOCAB, repeat=True, native="on"), BATCH))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(EXAMPLE_STEPS):
+        next(it)
+    steady_ms = (time.perf_counter() - t0) * 1e3 / EXAMPLE_STEPS
+    it.close()
+    rows = EXAMPLE_BATCHES * BATCH
+    same = _same_batches(native, python)
+    same_gz = _same_batches(native, gzipped)
+    emit({"phase": "example", "case": "reader", "rows": rows,
+          "tsv_bytes": os.path.getsize(tsv), "gz_bytes": os.path.getsize(gz),
+          "native_build_s": build_s,
+          "batches": len(native),
+          "native_rows_per_s": rows / native_s,
+          "python_rows_per_s": rows / python_s,
+          "native_gz_rows_per_s": rows / gz_s,
+          "native_steady_ms_per_batch": steady_ms,
+          "native_steady_rows_per_s": BATCH / steady_ms * 1e3,
+          "native_vs_python_byte_identical": same,
+          "gz_byte_identical": same_gz})
+    check(len(native) == EXAMPLE_BATCHES and same and same_gz,
+          "the native reader's batches (plain and .gz) are byte-identical "
+          "to the Python reader's")
+    return native
+
+
+def _run_main(ops, ex, argv) -> tuple:
+    """`ex.main(argv)`, the counts set to 0 just before and read just after
+    -> (its result, the kernel launches that ran)."""
+    from openembedding_tpu_torch.model import CompiledStep
+    ops.reset_launch_counts()
+    out = ex.main(argv)
+    counted = ops.launch_counts()
+    drv = out["driver"]
+    if isinstance(drv, CompiledStep):
+        out["graph"] = graph_record(drv)
+        return out, ran_launches(counted, [out["graph"]])
+    return out, counted
+
+
+def _driver_profile(torch, ex, out, batches, many: bool) -> dict:
+    """The run's device busy time per step (its driver on more batches of
+    the file, under torch.profiler, after the run was checked) and the idle
+    share of its steady window against it."""
+    drv, state = out["driver"], out["state"]
+    arg = ex.stack_batches(batches[:EXAMPLE_K]) if many else batches[0]
+
+    def call():
+        drv(state, arg)
+        torch.cuda.synchronize()
+
+    prof = profile_device(torch, call, calls=3,
+                          unit="window" if many else "step")
+    busy = (prof["profile_device_ms_per_window"] / EXAMPLE_K if many
+            else prof["profile_device_ms_per_step"])
+    steady_ms = out["steady_seconds"] * 1e3
+    return {"device_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy * out["steady_steps"] / steady_ms,
+            "profile_top_device_ops": prof["profile_top_device_ops"]}
+
+
+def _example_record(torch, mb, out, launches, ref_state, ref_losses,
+                    what: str, steps: int, n_apply: int) -> dict:
+    """A run's numbers, its losses and state held bit-equal to the plain
+    run's (`ref_state` None: a run that stops early, whose losses are held
+    to the plain run's first ones), and its launches checked: the model has
+    one table, pulled by the gather each step and, unless it is
+    sparse_as_dense (`n_apply` 0), pushed by the apply."""
+    rec = {"run": what, "steps": out["steps"], "loss": out["loss"],
+           "examples_per_s": out["examples_per_s"],
+           "steady_examples_per_s": out["steady_examples_per_s"],
+           "steady_ms_per_step": out["steady_seconds"] * 1e3
+           / max(out["steady_steps"], 1),
+           "train_auc": out["train_auc"], "launches": launches}
+    if "graph" in out:
+        rec["graph"] = out["graph"]
+    if ref_state is None:
+        equal = np.array_equal(out["losses"].view(np.int32),
+                               ref_losses[:steps].view(np.int32))
+        rec["loss_bit_equal_vs_plain"] = equal
+        check(equal, f"{what}: losses equal the plain run's bit for bit")
+    else:
+        rec.update(_compare(torch, mb, out["state"], out["losses"],
+                            ref_state, ref_losses, "vs_plain"))
+    # the gather launches once more at init: the pass that materializes
+    # the dense module pulls the first batch
+    check(launches["gather_rows"] == steps + 1
+          and launches["fused_sparse_apply"] == steps * n_apply
+          and launches["gather_rows_windows"] == 0,
+          f"{what}: launched one gather a step and one at init, and "
+          f"{n_apply} apply a step ({launches})")
+    return rec
+
+
+def example_in_memory(torch, data, optimizers, batches) -> dict:
+    """The copy alone, without the reader: `jit_train_step` over the file's
+    batches already parsed (cycled), each batch copied (1) pageable by the
+    step, (2) pinned by `prefetch_to_device`'s producer thread as the steps
+    run, or (3) pinned by the same stager before the loop (all staged,
+    no producer running: the floor of the pinned copy), in turns (1 2 3 3
+    2 1), 64 timed steps each after 4 untimed."""
+    import itertools
+
+    from openembedding_tpu_torch.data.criteo import _PinnedStager
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    trainer = Trainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                      optimizers.Adagrad(learning_rate=0.05))
+    state = trainer.init(batches[0])
+    step = trainer.jit_train_step()
+    modes = ("pageable", "pinned_prefetch", "pinned_staged_before")
+    out = {f"{mode}_ms_per_step": [] for mode in modes}
+    for mode in modes + modes[::-1]:
+        it = itertools.cycle(batches)
+        if mode == "pinned_prefetch":
+            it = data.prefetch_to_device(it)
+        elif mode == "pinned_staged_before":
+            stager = _PinnedStager(torch.device("cuda"), EXAMPLE_STEPS + 4)
+            staged = [stager.stage(next(it))
+                      for _ in range(EXAMPLE_STEPS + 4)]
+            torch.cuda.synchronize()
+            it = (stager.hand_over(x) for x in staged)
+        for _ in range(4):
+            state, m = step(state, next(it))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXAMPLE_STEPS):
+            state, m = step(state, next(it))
+        torch.cuda.synchronize()
+        out[f"{mode}_ms_per_step"].append(
+            (time.perf_counter() - t0) * 1e3 / EXAMPLE_STEPS)
+        if mode == "pinned_prefetch":
+            it.close()
+    check(np.isfinite(float(m["loss"])), "finite loss")
+    emit({"phase": "example", "case": "graph step, batches in memory",
+          **out})
+    return out
+
+
+def phase_example(torch, mb, ops, data, optimizers) -> dict:
+    """The Criteo training entry point (`python -m
+    openembedding_tpu_torch.examples.criteo_deepctr`) at full width on a
+    Criteo TSV from a seed; -> {kernel: launches in the phase's runs}."""
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    from openembedding_tpu_torch.export import StandaloneModel
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-example-")
+    total = {k: 0 for k in KERNELS}
+    try:
+        tsv, gz = os.path.join(tmp, "day.tsv"), os.path.join(tmp, "day.tsv.gz")
+        t0 = time.perf_counter()
+        write_criteo_tsv(tsv, EXAMPLE_BATCHES * BATCH, SEED + 3)
+        with open(tsv, "rb") as f, gzip.open(gz, "wb", compresslevel=1) as g:
+            shutil.copyfileobj(f, g)
+        emit({"phase": "example", "case": "data", "write_s":
+              time.perf_counter() - t0})
+        batches = example_reader(data, tsv, gz)
+        on_card = [{"sparse": {"categorical": torch.from_numpy(
+                        b["sparse"]["categorical"]).cuda()},
+                    "dense": torch.from_numpy(b["dense"]).cuda(),
+                    "label": torch.from_numpy(b["label"]).cuda()}
+                   for b in batches[:EXAMPLE_K]]
+
+        def argv(steps, *extra, vocab=VOCAB):
+            return ["--vocabulary", str(vocab), "--dim", str(DIM),
+                    "--batch-size", str(BATCH), "--data", tsv,
+                    "--steps", str(steps), *extra]
+
+        def drive(args, what, ref, ref_losses, steps, n_apply=1,
+                  profile=True):
+            """One run of the entry point, checked; a run held to the
+            whole plain run (`ref` given) is profiled too, unless told
+            not to."""
+            out, launches = _run_main(ops, ex, args)
+            for k in KERNELS:
+                total[k] += launches[k]
+            rec = _example_record(torch, mb, out, launches, ref, ref_losses,
+                                  what, steps, n_apply)
+            if ref is not None and profile:
+                prefetch = "--prefetch" in args
+                rec.update(_driver_profile(
+                    torch, ex, out, on_card if prefetch else batches,
+                    "--scan" in args))
+            return out, rec
+
+        # the plain path: eager steps through both plain versions, no
+        # prefetch; no launch may be counted
+        ops.reset_launch_counts()
+        with ops.plain_versions():
+            ref = ex.main(argv(EXAMPLE_STEPS, "--eager"))
+        check(sum(ops.launch_counts().values()) == 0,
+              "the plain run launched no kernel")
+        ref_state, ref_losses = ref["state"], ref["losses"]
+        check(np.isfinite(ref_losses).all(), "finite losses")
+        del ref
+        runs = []
+        order = [("eager", ["--eager"]), ("eager+prefetch",
+                                          ["--eager", "--prefetch"]),
+                 ("graph", []), ("graph+prefetch", ["--prefetch"]),
+                 ("graph+prefetch", ["--prefetch"]), ("graph", []),
+                 ("scan", ["--scan", str(EXAMPLE_K)]),
+                 ("scan+prefetch", ["--scan", str(EXAMPLE_K), "--prefetch"]),
+                 ("scan+prefetch", ["--scan", str(EXAMPLE_K), "--prefetch"]),
+                 ("scan", ["--scan", str(EXAMPLE_K)])]
+        for what, extra in order:
+            # one profiler session per way of stepping: the repeat of each
+            # is timed only
+            out, rec = drive(argv(EXAMPLE_STEPS, *extra), what, ref_state,
+                             ref_losses, EXAMPLE_STEPS,
+                             profile=all(r["run"] != what for r in runs))
+            emit({"phase": "example", "case": "train", **rec})
+            runs.append(rec)
+            del out
+            torch.cuda.empty_cache()
+
+        # save after one pass, load into a fresh state, continue: equal to
+        # the uninterrupted plain run
+        ckpt, export = os.path.join(tmp, "ckpt"), os.path.join(tmp, "export")
+        first, _ = drive(argv(SAVE_STEPS, "--prefetch", "--save", ckpt,
+                              "--export", export),
+                         "graph+prefetch, save", None, ref_losses,
+                         SAVE_STEPS)
+        served = StandaloneModel.load(export)
+        want = first["trainer"].eval_step(first["state"], batches[0])
+        got = served.predict(batches[0])
+        export_equal = torch.equal(got, want["logits"])
+        check(export_equal, "the export's logits equal eval_step's")
+        first_losses = first["losses"]
+        del first, served
+        torch.cuda.empty_cache()
+        resumed, launched = _run_main(
+            ops, ex, argv(EXAMPLE_STEPS - SAVE_STEPS, "--prefetch",
+                          "--load", ckpt))
+        for k in KERNELS:
+            total[k] += launched[k]
+        check(launched["gather_rows"] - 1 == launched["fused_sparse_apply"]
+              == EXAMPLE_STEPS - SAVE_STEPS, f"the resumed run launched one "
+              f"gather and one apply a step, and one gather at init "
+              f"({launched})")
+        losses = np.concatenate([first_losses, resumed["losses"]])
+        resume = _compare(torch, mb, resumed["state"], losses, ref_state,
+                          ref_losses, "save_load_continue_vs_uninterrupted")
+        emit({"phase": "example", "case": "save, load, continue",
+              "save_steps": SAVE_STEPS,
+              "continue_steps": EXAMPLE_STEPS - SAVE_STEPS,
+              "export_logits_equal_eval_step": export_equal, **resume})
+        del resumed, ref_state
+        torch.cuda.empty_cache()
+        in_memory = example_in_memory(torch, data, optimizers, batches)
+        torch.cuda.empty_cache()
+        cache = example_cache(torch, mb, ops, ex, argv, drive, batches, tmp,
+                              total)
+        return {"launches": total, "runs": runs, "cache": cache,
+                "in_memory": in_memory}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def example_cache(torch, mb, ops, ex, argv, drive, batches, tmp, total
+                  ) -> dict:
+    """--cache: the table as a 2^20 x 10 sparse_as_dense table (and its
+    Adagrad accumulator), pulled by the gather kernel with a gradient and
+    updated whole by the dense path; eager and graph drivers bit-equal to
+    the plain path, checkpoint and export round-tripped."""
+    from openembedding_tpu_torch.export import StandaloneModel
+    cache = ["--cache", str(CACHE_VOCAB)]
+
+    def args(steps, *extra):
+        return argv(steps, *cache, *extra, vocab=CACHE_VOCAB)
+
+    with ops.plain_versions():
+        ref = ex.main(args(CACHE_STEPS, "--eager"))
+    state = ref["state"]
+    check(state.tables == {} and state.embeddings["categorical"].shape
+          == (CACHE_VOCAB, DIM + 1), "the --cache table is sparse_as_dense")
+    out = {}
+    for what, extra in (("eager+prefetch", ["--eager", "--prefetch"]),
+                        ("graph+prefetch", ["--prefetch"])):
+        run, rec = drive(args(CACHE_STEPS, *extra), f"cache {what}", state,
+                         ref["losses"], CACHE_STEPS, n_apply=0)
+        if what.startswith("eager"):
+            def one_step():
+                run["trainer"].train_step(run["state"], batches[0])
+            names, sessions = device_kernels(torch, one_step)
+            rec["profiler_kernels_per_step"] = len(names)
+            rec["profiler_gather_kernels"] = [n[:60] for n in names
+                                              if "gather_rows_kernel" in n]
+            check(len(rec["profiler_gather_kernels"]) == 1,
+                  f"the profiler sees the gather kernel on the "
+                  f"sparse_as_dense pull ({names})")
+        emit({"phase": "example", "case": "cache train", **rec})
+        out[what] = rec
+        del run
+        torch.cuda.empty_cache()
+    ckpt, export = os.path.join(tmp, "ckpt_cache"), os.path.join(
+        tmp, "export_cache")
+    half = SAVE_STEPS  # one pass of the file, as for the flagship
+    first, _ = drive(args(half, "--prefetch", "--save", ckpt, "--export",
+                          export), "cache save", None, ref["losses"], half,
+                     n_apply=0)
+    served = StandaloneModel.load(export)
+    export_equal = torch.equal(
+        served.predict(batches[0]),
+        first["trainer"].eval_step(first["state"], batches[0])["logits"])
+    check(export_equal, "the --cache export's logits equal eval_step's")
+    del first, served
+    resumed, launched = _run_main(
+        ops, ex, args(CACHE_STEPS - half, "--prefetch", "--load", ckpt))
+    for k in KERNELS:
+        total[k] += launched[k]
+    check(launched["gather_rows"] == CACHE_STEPS - half + 1
+          and launched["fused_sparse_apply"] == 0,
+          f"the resumed --cache run launched one gather a step and one at "
+          f"init ({launched})")
+    losses = np.concatenate([ref["losses"][:half], resumed["losses"]])
+    out["save_load_continue"] = _compare(
+        torch, mb, resumed["state"], losses, state, ref["losses"],
+        "cache_save_load_continue_vs_uninterrupted")
+    out["export_logits_equal_eval_step"] = export_equal
+    emit({"phase": "example", "case": "cache save, load, continue",
+          **out["save_load_continue"],
+          "export_logits_equal_eval_step": export_equal})
+    return out
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -1331,16 +1747,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_apply, apply_calls = phase_apply(torch, mb, apply, gather, sparse,
                                           optimizers, data)
+    kernels_profile(torch, "windows", profile_calls, "window_gather")
+    kernels_profile(torch, "apply", apply_calls, "fused_apply")
+    del profile_calls, apply_calls
     torch.cuda.empty_cache()
     serve_launches = phase_serve(torch, ops, gather)
     train = phase_train(torch, mb, ops, optimizers, data)
     torch.cuda.empty_cache()
+    example = phase_example(torch, mb, ops, data, optimizers)
+    torch.cuda.empty_cache()
     _, bench_launches = phase_microbench(torch, mb, ops)
-    kernels_profile(torch, "windows", profile_calls, "window_gather")
-    kernels_profile(torch, "apply", apply_calls, "fused_apply")
     by_path = {k: {"serve": serve_launches if k == "gather_rows" else 0,
                    "train": train["launches"][k],
                    "train_graphs": train["graph_launches"][k],
+                   "example": example["launches"][k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),
             ("gather_rows_windows", "gather_rows_windows.cu", ":282",

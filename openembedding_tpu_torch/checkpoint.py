@@ -6,10 +6,12 @@ A checkpoint directory holds:
 - `model_meta` — the ModelMeta JSON (+ `extra`: step, model_version,
   include_optimizer); `model_config.json` — the zoo recipe;
 - `variable_<id>/weights.npy` (rows in global id order) and
-  `variable_<id>/slot_<name>.npy`;
-- `dense_params.npz` — the dense params under their flax names;
-  `dense_slots.npz` — their slots as `<param>/<slot>` rows of shape
-  (1, size) in the flax layout (`convert.dense_slots_to_flax`).
+  `variable_<id>/slot_<name>.npy`; a sparse_as_dense variable's directory
+  stays empty, as in the JAX package;
+- `dense_params.npz` — the dense params under their flax names, the
+  sparse_as_dense tables under `__embeddings__/<name>`; `dense_slots.npz` —
+  their slots as `<param>/<slot>` rows of shape (1, size) in the flax layout
+  (`convert.dense_slots_to_flax`).
 
 A checkpoint written by either package loads in the other (the port always
 writes the optimizer state; it reads checkpoints written without it). The
@@ -77,10 +79,10 @@ def _check_meta(meta: ModelMeta, model) -> None:
 
 def _array_tables_only(model) -> None:
     for name, spec in model.specs.items():
-        if spec.use_hash_table or spec.sparse_as_dense:
+        if spec.use_hash_table:
             raise NotImplementedError(
-                f"variable {name!r}: checkpoints of hash and sparse_as_dense "
-                "tables are not ported yet (see ROADMAP.md)")
+                f"variable {name!r}: checkpoints of hash tables are not "
+                "ported yet (see ROADMAP.md)")
 
 
 def save_server_model(state, model, path: str, *,
@@ -101,12 +103,14 @@ def save_server_model(state, model, path: str, *,
             initializer=spec.initializer.to_config(),
             table={"category": "array", "capacity": spec.capacity,
                    "sparse_as_dense": spec.sparse_as_dense}))
+        if spec.sparse_as_dense:
+            continue  # its table is in dense_params.npz
         ts = state.tables[name]
         np.save(os.path.join(vdir, "weights.npy"), table_to_numpy(ts.weights))
         for slot_name, arr in ts.slots.items():
             np.save(os.path.join(vdir, f"slot_{slot_name}.npy"),
                     _to_numpy(arr))
-    dense = dense_to_flax(state.dense)
+    dense = dense_to_flax(state.dense, state.embeddings)
     np.savez(os.path.join(path, "dense_params.npz"), **dense)
     np.savez(os.path.join(path, "dense_slots.npz"),
              **dense_slots_to_flax(state.dense, state.dense_slots))
@@ -139,9 +143,15 @@ def load_server_model(state, model, path: str):
     extra = json.loads(raw).get("extra", {})
     _check_meta(meta, model)
 
-    device = next(iter(state.tables.values())).weights.device
+    device = next(state.dense.parameters()).device
     z = np.load(os.path.join(path, "dense_params.npz"))
-    dense_from_flax({k: z[k] for k in z.files}, state.dense)
+    sad = dense_from_flax({k: z[k] for k in z.files}, state.dense)
+    for name in model.sad_specs():
+        if name not in sad:
+            raise ValueError(f"checkpoint holds no sparse_as_dense table "
+                             f"{name!r} (dense_params.npz)")
+        state.embeddings[name].copy_(
+            tables_from_numpy({"w": sad[name]}, device=device)["w"])
     slots_path = os.path.join(path, "dense_slots.npz")
     if os.path.exists(slots_path):
         z = np.load(slots_path)
@@ -153,7 +163,7 @@ def load_server_model(state, model, path: str):
                 if new is not None and new.shape == old.shape:
                     slots[sname] = new
 
-    for name, spec in model.specs.items():
+    for name, spec in model.ps_specs().items():
         vdir = os.path.join(path, f"variable_{spec.variable_id}")
         ts = state.tables[name]
         w = np.load(os.path.join(vdir, "weights.npy"))

@@ -8,15 +8,24 @@ optimizer slots travel as flat names `<param>/<slot>` (`Dense_0/kernel/accum`,
 the content of a checkpoint's `dense_slots.npz`) of (1, size) rows: a
 kernel's slot row is laid out like the flax kernel flattened, so it is
 transposed on the way like the kernel it belongs to.
+
+sparse_as_dense tables travel in the dense params under
+`__embeddings__/<name>` (rows, dim), and their slots as
+`__embeddings__/<name>/<slot>` (1, rows * dim) rows, row-major in both
+packages, so they need no relayout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from .model import SAD_SCOPE
+
+_SAD_PREFIX = SAD_SCOPE + "/"
 
 
 def _flax_dense(module: nn.Module):
@@ -27,13 +36,20 @@ def _flax_dense(module: nn.Module):
     return fn()
 
 
-def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module) -> None:
+def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
+                    ) -> Dict[str, np.ndarray]:
     """Load flax-named flat params into `module` (on its current device, or
     the CPU for a module with no parameters yet). Every key must name a
-    layer of the module; layers with no key stay as they are."""
+    layer of the module, or a sparse_as_dense table (`__embeddings__/
+    <name>`), which the module does not hold: those are returned, {name:
+    table}. Layers with no key stay as they are."""
     layers = _flax_dense(module)
     by_layer: Dict[str, Dict[str, np.ndarray]] = {}
+    sad = {}
     for key, value in flat.items():
+        if key.startswith(_SAD_PREFIX):
+            sad[key[len(_SAD_PREFIX):]] = value
+            continue
         path, _, leaf = key.rpartition("/")
         if path not in layers or leaf not in ("kernel", "bias"):
             raise KeyError(f"flax param {key!r} has no counterpart in "
@@ -48,11 +64,16 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module) -> None:
         kernel = torch.tensor(leaves["kernel"], dtype=torch.float32)
         bias = torch.tensor(leaves["bias"], dtype=torch.float32)
         layers[path].set_parameters(kernel.t().to(device), bias.to(device))
+    return sad
 
 
-def dense_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
+def dense_to_flax(module: nn.Module,
+                  embeddings: Optional[Mapping[str, torch.Tensor]] = None
+                  ) -> Dict[str, np.ndarray]:
     """The module's materialized `Dense` layers as flat flax-named float32
-    arrays: kernels (in, out), biases (out,)."""
+    arrays: kernels (in, out), biases (out,); then the sparse_as_dense
+    `embeddings` given as `__embeddings__/<name>` (a bfloat16 table as its
+    2-byte words, as `table_to_numpy` writes it)."""
     out = {}
     for path, layer in _flax_dense(module).items():
         if not layer.materialized:
@@ -60,6 +81,8 @@ def dense_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
         out[f"{path}/kernel"] = layer.weight.detach().t().contiguous().cpu(
         ).numpy()
         out[f"{path}/bias"] = layer.bias.detach().cpu().numpy()
+    for name, t in sorted((embeddings or {}).items()):
+        out[_SAD_PREFIX + name] = table_to_numpy(t)
     return out
 
 
@@ -110,25 +133,32 @@ def _relayout(row: np.ndarray, shape, is_kernel: bool, to_flax: bool
 def dense_slots_to_flax(module: nn.Module,
                         slots: Mapping[str, Mapping[str, torch.Tensor]]
                         ) -> Dict[str, np.ndarray]:
-    """{torch param name: {slot: (1, size)}} -> flat flax-named numpy rows."""
+    """{torch param name or `__embeddings__/<name>`: {slot: (1, size)}} ->
+    flat flax-named numpy rows."""
     out = {}
     for pname, (fname, is_kernel) in _flax_leaves(module).items():
         shape = tuple(module.get_parameter(pname).shape)
         for sname, row in slots[pname].items():
             out[f"{fname}/{sname}"] = _relayout(
                 row.detach().cpu().numpy(), shape, is_kernel, to_flax=True)
+    for key in sorted(k for k in slots if k.startswith(_SAD_PREFIX)):
+        for sname, row in slots[key].items():
+            out[f"{key}/{sname}"] = row.detach().cpu().numpy()
     return out
 
 
 def dense_slots_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module,
                           *, device) -> Dict[str, Dict[str, torch.Tensor]]:
     """Flat flax-named slot rows -> {torch param name: {slot: tensor}} for
-    every parameter of the (materialized) module."""
+    every parameter of the (materialized) module, and {`__embeddings__/
+    <name>`: {slot: tensor}} for every sparse_as_dense table in `flat`."""
     by_param: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in flat.items():
         param, _, slot = key.rpartition("/")
         by_param.setdefault(param, {})[slot] = np.asarray(value, np.float32)
-    out = {}
+    out = {key: {sname: torch.tensor(row, device=device)
+                 for sname, row in rows.items()}
+           for key, rows in by_param.items() if key.startswith(_SAD_PREFIX)}
     for pname, (fname, is_kernel) in _flax_leaves(module).items():
         shape = tuple(module.get_parameter(pname).shape)
         out[pname] = {
@@ -155,12 +185,13 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
                          ):
     """A `TrainState` on `device` from the JAX package's state as numpy:
     `tables` {name: {"weights": (rows, dim), "slots": {slot: (rows, w)}}},
-    flat flax-named `dense_params` and `dense_slots`. The model's dense
+    flat flax-named `dense_params` and `dense_slots` (sparse_as_dense
+    tables and their slots under `__embeddings__/`). The model's dense
     module takes the parameters and becomes the state's."""
     from .embedding import EmbeddingTableState
     from .model import TrainState
     module = model.module
-    dense_from_flax(dense_params, module)
+    sad = dense_from_flax(dense_params, module)
     module.to(device)
     out_tables = {}
     for name, t in tables.items():
@@ -171,7 +202,8 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
     return TrainState(
         step=int(step), dense=module,
         dense_slots=dense_slots_from_flax(dense_slots, module, device=device),
-        tables=out_tables, model_version=int(model_version))
+        tables=out_tables, model_version=int(model_version),
+        embeddings=tables_from_numpy(sad, device=device))
 
 
 def train_state_to_jax(state) -> Dict:
@@ -190,7 +222,7 @@ def train_state_to_jax(state) -> Dict:
                           "slots": copies({k: v.detach().cpu().numpy()
                                            for k, v in t.slots.items()})}
                    for name, t in state.tables.items()},
-        "dense_params": copies(dense_to_flax(state.dense)),
+        "dense_params": copies(dense_to_flax(state.dense, state.embeddings)),
         "dense_slots": copies(dense_slots_to_flax(state.dense,
                                                   state.dense_slots)),
     }

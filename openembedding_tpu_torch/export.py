@@ -98,7 +98,8 @@ def export_standalone(state: Union[WeightsState, TrainState],
     """Write every embedding variable and the dense module into a
     self-contained directory, from fresh weights or from a training state.
     Weights only (no optimizer slots); array tables only (the port has no
-    device hash table yet)."""
+    device hash table yet). A sparse_as_dense table is written as a plain
+    array table, and served like one."""
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
@@ -107,9 +108,11 @@ def export_standalone(state: Union[WeightsState, TrainState],
             raise NotImplementedError(
                 f"variable {name!r}: exporting a hash table is not ported yet "
                 "(see ROADMAP.md)")
-        weights = state.tables[name]
         if isinstance(state, TrainState):
-            weights = weights.weights
+            weights = (state.embeddings[name] if spec.sparse_as_dense
+                       else state.tables[name].weights)
+        else:
+            weights = state.tables[name]
         if weights.dtype != torch.float32:
             raise NotImplementedError(
                 f"variable {name!r}: the port exports float32 tables only, "

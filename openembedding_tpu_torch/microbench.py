@@ -55,7 +55,7 @@ import torch
 
 from . import data, optimizers
 from .device import resolve_device
-from .model import Trainer
+from .model import Trainer, dense_leaves
 from .models import make_deepfm
 from .ops import apply, gather, gather_windows, plain_versions, sparse
 
@@ -162,13 +162,13 @@ def apply_bytes(rows: np.ndarray, counts: np.ndarray, n_rows: int, dim: int,
 
 
 def state_bits(state) -> Dict[str, torch.Tensor]:
-    """Every tensor of a TrainState (tables, slots, dense parameters and
-    their slots) by name."""
+    """Every tensor of a TrainState (tables, slots, dense parameters,
+    sparse_as_dense tables and their slots) by name."""
     out = {}
     for name, t in state.tables.items():
         out[f"{name}/weights"] = t.weights
         out.update({f"{name}/{k}": v for k, v in t.slots.items()})
-    for pname, p in state.dense.named_parameters():
+    for pname, p in dense_leaves(state.dense, state.embeddings):
         out[f"dense/{pname}"] = p.detach()
         out.update({f"dense/{pname}/{k}": v
                     for k, v in state.dense_slots[pname].items()})

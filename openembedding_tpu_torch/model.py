@@ -1,14 +1,21 @@
 """EmbeddingModel, its states and the single-device Trainer.
 
 Port of `openembedding_tpu/model.py` for one device: `EmbeddingModel`,
-`binary_logloss`, `IDS_KEY`/`attach_ids`, `WeightsState` (the tables and
-dense module an export is written from), `TrainState`, the dense-path
-optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer` and its
-compiled steps (`CompiledStep`: a step or a `train_many` window as a CUDA
-graph).
+`binary_logloss`, `IDS_KEY`/`attach_ids`, `sad_rows`, `WeightsState` (the
+tables and dense module an export is written from), `TrainState`, the
+dense-path optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer` and
+its compiled steps (`CompiledStep`: a step or a `train_many` window as a
+CUDA graph).
 
 The dense module is a `torch.nn.Module` called as `module(embedded, dense)`
 where `embedded` maps variable name -> (B, ..., dim) pulled rows.
+
+`sparse_as_dense` tables (the reference's 'Cache' mode) are dense leaves, as
+in the JAX package, where they live in the dense params under the
+`__embeddings__` scope: `TrainState.embeddings` holds them, their optimizer
+slots sit in `TrainState.dense_slots` under `__embeddings__/<name>`, the
+pull goes through `sad_rows` (the gather kernel, with a gradient) and
+`dense_apply` updates the whole table every step.
 
 Batch convention (as in the JAX package): {"sparse": {feature: int ids
 (B,) or (B, F)}, "dense": optional float (B, D), "label": (B,), optional
@@ -31,9 +38,10 @@ from .embedding import (Embedding, EmbeddingSpec, EmbeddingTableState,
                         apply_gradients, combine, init_table,
                         init_table_state, lookup, lookup_train)
 from .layers import materialize
-from .ops.sparse import (pack_table, packed_layout, sparse_apply_packed_table,
-                         unpack_table)
+from .ops.sparse import (lookup_rows_trainable, pack_table, packed_layout,
+                         sparse_apply_packed_table, unpack_table)
 from .optimizers import Adagrad, SparseOptimizer
+from .utils.fs import local_path
 
 
 def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
@@ -52,6 +60,24 @@ def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
 # Reserved key inside `embedded` for modules that declare `takes_ids = True`:
 # maps variable name -> that variable's raw id batch.
 IDS_KEY = "__ids__"
+
+# The dense-param scope of the sparse_as_dense tables in the JAX package
+# (`dense_params["__embeddings__"][name]`); their flat names in
+# `dense_params.npz` and the keys of their dense slots are
+# `__embeddings__/<name>`.
+SAD_SCOPE = "__embeddings__"
+
+
+def sad_key(name: str) -> str:
+    return f"{SAD_SCOPE}/{name}"
+
+
+def sad_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """A sparse_as_dense table's pull: the gather kernel (its plain version
+    on the CPU) with a gradient to the whole table. -1 pads and
+    out-of-range ids pull zero rows and train nothing, the invalid-id
+    contract of every lookup path (`ops/sparse.lookup_rows_trainable`)."""
+    return lookup_rows_trainable(table, ids)
 
 
 def attach_ids(embedded: Dict[str, Any], model: "EmbeddingModel", batch,
@@ -81,12 +107,29 @@ class EmbeddingModel:
             spec = dataclasses.replace(e.spec, variable_id=i)
             if spec.name in self.specs:
                 raise ValueError(f"duplicate embedding name {spec.name!r}")
+            if spec.sparse_as_dense and spec.optimizer is not None:
+                # sad tables train on the dense path with the trainer's
+                # optimizer, as in the JAX package
+                raise ValueError(
+                    f"embedding {spec.name!r}: sparse_as_dense tables cannot "
+                    "have a per-variable optimizer (they train with the "
+                    "dense optimizer)")
             self.specs[spec.name] = spec
         self.loss_fn = loss_fn
-        # optional batch -> batch function run ahead of every step (the JAX
-        # package's hook for shared Keras layers); the port's Trainer
-        # refuses it until it is ported
+        # optional batch -> batch function applied to the device batch at
+        # the top of every train, eval and init path (the JAX package's hook
+        # for shared Keras layers); it must be made of torch ops, so that a
+        # captured step can replay it
         self.batch_transform = None
+
+    def sad_specs(self) -> Dict[str, EmbeddingSpec]:
+        """The sparse_as_dense variables: tables kept as dense leaves and
+        trained by the dense path."""
+        return {n: s for n, s in self.specs.items() if s.sparse_as_dense}
+
+    def ps_specs(self) -> Dict[str, EmbeddingSpec]:
+        """Every other variable: tables pulled and pushed row by row."""
+        return {n: s for n, s in self.specs.items() if not s.sparse_as_dense}
 
 
 @dataclasses.dataclass
@@ -102,21 +145,44 @@ class WeightsState:
 
 def _table_generator(seed: int, spec: EmbeddingSpec, device
                      ) -> torch.Generator:
+    """A table's own generator; a sparse_as_dense table draws from stream
+    7919 + variable id, as the JAX package folds its key for them (the two
+    frameworks' draws differ, only their distributions match)."""
+    stream = spec.variable_id + (7919 if spec.sparse_as_dense else 0)
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed * 131071 + spec.variable_id)
+    gen.manual_seed(seed * 131071 + stream)
     return gen
 
 
 def _to_device(x, device) -> torch.Tensor:
+    """A tensor already on `device` is returned as it is (no copy)."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.as_tensor(np.asarray(x), device=device)
 
 
+def _batch_to_device(batch, device) -> Dict[str, Any]:
+    out = {"sparse": {k: _to_device(v, device)
+                      for k, v in batch["sparse"].items()}}
+    for key in ("dense", "label", "weight"):
+        if batch.get(key) is not None:
+            out[key] = _to_device(batch[key], device)
+    return out
+
+
+def _transformed(model: "EmbeddingModel", batch) -> Dict[str, Any]:
+    """`model.batch_transform(batch)` when the model has one."""
+    if model.batch_transform is None:
+        return batch
+    return model.batch_transform(batch)
+
+
 def _materialize_dense(model: EmbeddingModel, tables: Dict[str, torch.Tensor],
                        sample_batch, seed: int, device) -> nn.Module:
     """Create the dense module's parameters on `device` from one forward
-    pass over `sample_batch`, drawing from a generator seeded from `seed`."""
+    pass over `sample_batch` (already transformed), drawing from a
+    generator seeded from `seed`. `tables` holds every variable's weights,
+    sparse_as_dense ones included."""
     embedded = {
         name: lookup(spec, tables[name], _to_device(
             sample_batch["sparse"][spec.feature_name], device))
@@ -139,11 +205,13 @@ def init_weights(model: EmbeddingModel, sample_batch, *, seed: int = 0,
     Every table draws from its own generator seeded from (seed, variable id);
     the dense module is materialized from one forward pass over
     `sample_batch` ({"sparse": {feature: ids}, "dense": ...}), drawing from a
-    generator seeded from `seed`."""
+    generator seeded from `seed`. A sparse_as_dense table is a table here
+    like any other: an export serves it as an array table."""
     device = resolve_device(device)
     tables = {name: init_table(spec, _table_generator(seed, spec, device))
               for name, spec in model.specs.items()}
-    dense = _materialize_dense(model, tables, sample_batch, seed, device)
+    sample = _transformed(model, _batch_to_device(sample_batch, device))
+    dense = _materialize_dense(model, tables, sample, seed, device)
     return WeightsState(tables=tables, dense=dense)
 
 
@@ -155,8 +223,10 @@ def init_weights(model: EmbeddingModel, sample_batch, *, seed: int = 0,
 @dataclasses.dataclass
 class TrainState:
     """All training state: the step counters, the dense module (holding its
-    parameters), the dense optimizer slots {parameter name: {slot:
-    (1, size) float32}} and the tables {name: EmbeddingTableState}.
+    parameters), the sparse_as_dense tables `embeddings` {name: (rows,
+    dim)}, the dense optimizer slots {parameter name or
+    `__embeddings__/<name>`: {slot: (1, size) float32}} and the other
+    tables {name: EmbeddingTableState}.
 
     The train step updates the tensors in place, the port's counterpart of
     the JAX package donating its state to the jitted step: a state passed to
@@ -168,32 +238,54 @@ class TrainState:
     dense_slots: Dict[str, Dict[str, torch.Tensor]]
     tables: Dict[str, EmbeddingTableState]
     model_version: int = 0
+    embeddings: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     def clone(self) -> "TrainState":
         return copy.deepcopy(self)
 
 
-def init_dense_slots(optimizer: SparseOptimizer, module: nn.Module
+def dense_leaves(module: nn.Module,
+                 embeddings: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> List[Tuple[str, torch.Tensor]]:
+    """(slot key, tensor) of every dense leaf: the module's parameters, then
+    the sparse_as_dense tables as `__embeddings__/<name>` in name order (the
+    order JAX flattens a dict in)."""
+    out = list(module.named_parameters())
+    out += [(sad_key(n), embeddings[n]) for n in sorted(embeddings or {})]
+    return out
+
+
+def init_dense_slots(optimizer: SparseOptimizer, module: nn.Module,
+                     embeddings: Optional[Dict[str, torch.Tensor]] = None
                      ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Slots for every dense parameter, each parameter a 1-row table of
-    `numel` columns. A slot row is laid out like the parameter flattened in
-    PyTorch's order ((out, in) for a `Dense` weight)."""
+    """Slots for every dense leaf, each leaf a 1-row table of `numel`
+    columns. A slot row is laid out like the leaf flattened in PyTorch's
+    order ((out, in) for a `Dense` weight, row-major for a table)."""
     return {name: optimizer.init_slots(1, p.numel(), p.dtype,
                                        device=p.device)
-            for name, p in module.named_parameters()}
+            for name, p in dense_leaves(module, embeddings)}
 
 
 @torch.no_grad()
 def dense_apply(optimizer: SparseOptimizer, module: nn.Module,
-                slots: Dict[str, Dict[str, torch.Tensor]]) -> None:
-    """The dense update from each parameter's `.grad`, in place: the
-    parameter runs through the sparse rule as a 1-row table with count 1,
-    in float32, and is cast back to its dtype. A parameter without a
-    gradient takes a zero gradient, as every leaf does in the JAX package.
-    Parameters and slots keep their tensors (new values are copied in), so
-    a captured step that replays reads this step's values."""
-    for name, p in module.named_parameters():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
+                slots: Dict[str, Dict[str, torch.Tensor]],
+                embeddings: Optional[Dict[str, torch.Tensor]] = None,
+                embedding_grads: Optional[Dict[str, torch.Tensor]] = None
+                ) -> None:
+    """The dense update, in place: each parameter from its `.grad`, each
+    sparse_as_dense table from `embedding_grads[name]`. A leaf runs through
+    the sparse rule as a 1-row table with count 1, in float32, and is cast
+    back to its dtype; a table's rows without a gradient take the rule too,
+    as in the JAX package. A leaf without a gradient takes a zero gradient,
+    as every leaf does there. Leaves and slots keep their tensors (new
+    values are copied in), so a captured step that replays reads this
+    step's values."""
+    grads = {sad_key(n): g for n, g in (embedding_grads or {}).items()}
+    for name, p in dense_leaves(module, embeddings):
+        g = grads[name] if name in grads else p.grad
+        if g is None:
+            g = torch.zeros_like(p)
         ones = torch.ones(1, dtype=torch.int32, device=p.device)
         new_p, new_slots = optimizer.apply(
             p.reshape(1, -1).float(), slots[name],
@@ -232,7 +324,7 @@ def _state_key(state: TrainState) -> tuple:
     for ts in state.tables.values():
         ptrs += [ts.weights.data_ptr()] + [v.data_ptr()
                                            for v in ts.slots.values()]
-    for name, p in state.dense.named_parameters():
+    for name, p in dense_leaves(state.dense, state.embeddings):
         ptrs += [p.data_ptr()] + [v.data_ptr()
                                   for v in state.dense_slots[name].values()]
     return tuple(ptrs)
@@ -252,29 +344,23 @@ class Trainer:
     """Trains an EmbeddingModel on one device (the CUDA card unless
     `device="cpu"` is asked for; raises when there is no card).
 
-    A step pulls each table's rows through the gather kernel, runs the
-    forward and backward pass of the dense module with autograd (the pulled
-    rows are the leaves the table gradients come from), updates the dense
-    parameters with `dense_apply`, and pushes the row gradients through the
-    dedup and the fused apply kernel (`embedding.apply_gradients`). Every
-    update happens in place.
+    A step applies the model's `batch_transform` (if any), pulls each
+    table's rows through the gather kernel, runs the forward and backward
+    pass of the dense module with autograd (the pulled rows are the leaves
+    the table gradients come from; a sparse_as_dense table is itself a leaf,
+    pulled by `sad_rows`), updates the dense parameters and the
+    sparse_as_dense tables with `dense_apply`, and pushes the other tables'
+    row gradients through the dedup and the fused apply kernel
+    (`embedding.apply_gradients`). Every update happens in place.
 
     `train_step` and `train_many` run eagerly; `jit_train_step()` and
     `jit_train_many()` return callables that run them as CUDA graphs
-    (`CompiledStep`)."""
+    (`CompiledStep`). A batch whose tensors are already on the device (from
+    `data.prefetch_to_device`) is used as it is, with no second copy."""
 
     def __init__(self, model: EmbeddingModel,
                  optimizer: Optional[SparseOptimizer] = None, seed: int = 0,
                  *, device=None):
-        for name, spec in model.specs.items():
-            if spec.sparse_as_dense:
-                raise NotImplementedError(
-                    f"embedding {name!r}: sparse_as_dense tables are not "
-                    "ported yet (see ROADMAP.md)")
-        if model.batch_transform is not None:
-            raise NotImplementedError(
-                "EmbeddingModel.batch_transform is not ported yet (see "
-                "ROADMAP.md)")
         self.model = model
         self.optimizer = optimizer or Adagrad()
         self.seed = seed
@@ -291,27 +377,44 @@ class Trainer:
         return self.model.loss_fn(logits, batch["label"], w)
 
     def _device_batch(self, batch) -> Dict[str, Any]:
-        out = {"sparse": {k: _to_device(v, self.device)
-                          for k, v in batch["sparse"].items()}}
-        for key in ("dense", "label", "weight"):
-            if batch.get(key) is not None:
-                out[key] = _to_device(batch[key], self.device)
-        return out
+        return _batch_to_device(batch, self.device)
 
     def init(self, sample_batch) -> TrainState:
         """Fresh state: each table from a generator seeded from (seed,
-        variable id) as `init_weights` draws it, with its optimizer's slots;
-        the dense module from one forward pass over `sample_batch`."""
+        variable id) as `init_weights` draws it, with its optimizer's slots
+        (a sparse_as_dense table with the dense slots); the dense module
+        from one forward pass over `sample_batch`."""
+        model = self.model
         tables = {name: init_table_state(
                       spec, self.opt_for(spec),
                       _table_generator(self.seed, spec, self.device))
-                  for name, spec in self.model.specs.items()}
+                  for name, spec in model.ps_specs().items()}
+        embeddings = {name: init_table(
+                          spec, _table_generator(self.seed, spec,
+                                                 self.device))
+                      for name, spec in model.sad_specs().items()}
+        sample = _transformed(model, self._device_batch(sample_batch))
         dense = _materialize_dense(
-            self.model, {n: t.weights for n, t in tables.items()},
-            sample_batch, self.seed, self.device)
-        return TrainState(step=0, dense=dense,
-                          dense_slots=init_dense_slots(self.optimizer, dense),
-                          tables=tables, model_version=0)
+            model, {**{n: t.weights for n, t in tables.items()},
+                    **embeddings}, sample, self.seed, self.device)
+        return TrainState(
+            step=0, dense=dense,
+            dense_slots=init_dense_slots(self.optimizer, dense, embeddings),
+            tables=tables, model_version=0, embeddings=embeddings)
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def save(self, state: TrainState, path: str, **kw):
+        """`checkpoint.save_server_model` of the state into the local
+        directory `path` (remote URIs: ROADMAP.md item 7)."""
+        from .checkpoint import save_server_model
+        return save_server_model(state, self.model, local_path(path), **kw)
+
+    def load(self, state: TrainState, path: str) -> TrainState:
+        """`checkpoint.load_server_model` from the local directory `path`
+        into `state`, in place; returns it."""
+        from .checkpoint import load_server_model
+        return load_server_model(state, self.model, local_path(path))
 
     # -- the packed weights+slots layout of train_many ----------------------
 
@@ -319,7 +422,7 @@ class Trainer:
         """{name: column layout} of the tables `train_many` packs (see
         `ops/sparse.packed_layout`)."""
         out = {}
-        for name, spec in self.model.specs.items():
+        for name, spec in self.model.ps_specs().items():
             ts = state.tables[name]
             lay = packed_layout(spec.output_dim, ts.slots, ts.weights.dtype)
             if lay is not None:
@@ -342,19 +445,21 @@ class Trainer:
 
     def _step(self, state: TrainState, b: Dict[str, Any],
               packed: Dict[str, tuple]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One step on a batch already on the device: pull -> forward/
-        backward -> dense apply + sparse apply, in place -> (loss, logits).
-        It copies nothing from the host and reads nothing back, so it can
-        be captured as a CUDA graph. `packed`: {name: column layout} of the
-        tables whose state holds the packed array. The four phases are
-        `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
+        """One step on a batch already on the device: transform -> pull ->
+        forward/backward -> dense apply + sparse apply, in place -> (loss,
+        logits). It copies nothing from the host and reads nothing back, so
+        it can be captured as a CUDA graph. `packed`: {name: column layout}
+        of the tables whose state holds the packed array. The four phases
+        are `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
         `trainer.dense_apply`, `trainer.sparse_apply`)."""
-        specs = self.model.specs
+        b = _transformed(self.model, b)
+        ps_specs = self.model.ps_specs()
+        sad_specs = self.model.sad_specs()
         with record_function("trainer.pull"):
             ids = {name: b["sparse"][spec.feature_name]
-                   for name, spec in specs.items()}
+                   for name, spec in self.model.specs.items()}
             pulled = {}
-            for name, spec in specs.items():
+            for name, spec in ps_specs.items():
                 if name in packed:
                     rows = self._packed_pull(spec, state.tables[name],
                                              ids[name])
@@ -362,18 +467,27 @@ class Trainer:
                     _, rows = lookup_train(spec, state.tables[name],
                                            ids[name])
                 pulled[name] = rows.requires_grad_()
+            # each sparse_as_dense table enters autograd as a leaf that
+            # shares its storage (dense_apply writes the table itself); its
+            # pulled rows carry the gradient back to it
+            sad_leaves = {name: state.embeddings[name].detach()
+                          .requires_grad_() for name in sad_specs}
+            for name in sad_specs:
+                pulled[name] = sad_rows(sad_leaves[name], ids[name])
         with record_function("trainer.compute"):
             embedded = {name: combine(spec, ids[name], pulled[name])
-                        for name, spec in specs.items()}
+                        for name, spec in self.model.specs.items()}
             attach_ids(embedded, self.model, b, self.device)
             state.dense.zero_grad(set_to_none=True)
             logits = state.dense(embedded, b.get("dense"))
             loss = self._loss(logits, b)
             loss.backward()
         with record_function("trainer.dense_apply"):
-            dense_apply(self.optimizer, state.dense, state.dense_slots)
+            dense_apply(self.optimizer, state.dense, state.dense_slots,
+                        state.embeddings,
+                        {n: leaf.grad for n, leaf in sad_leaves.items()})
         with record_function("trainer.sparse_apply"), torch.no_grad():
-            for name, spec in specs.items():
+            for name, spec in ps_specs.items():
                 if name in packed:
                     self._packed_apply(spec, state.tables[name], ids[name],
                                        pulled[name].grad, packed[name])
@@ -387,23 +501,28 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One synchronous step: the batch to the device (`trainer.h2d`),
         then `_step`, in place. Returns (state, {"loss": (), "logits":
-        (B,)}); nothing is read back to the host."""
+        (B,), "stats": {}}); nothing is read back to the host. "stats" is
+        empty, as in the JAX package's single-device step without its
+        numerics sentinel (ROADMAP.md item 1.5)."""
         with record_function("trainer.h2d"):
             b = self._device_batch(batch)
         loss, logits = self._step(state, b, {})
         state.step += 1
         state.model_version += 1
-        return state, {"loss": loss, "logits": logits}
+        return state, {"loss": loss, "logits": logits, "stats": {}}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        specs = self.model.specs
-        b = self._device_batch(batch)
+        b = _transformed(self.model, self._device_batch(batch))
         embedded = {}
-        for name, spec in specs.items():
+        for name, spec in self.model.ps_specs().items():
             ids = b["sparse"][spec.feature_name]
             embedded[name] = combine(
                 spec, ids, lookup(spec, state.tables[name].weights, ids))
+        for name, spec in self.model.sad_specs().items():
+            ids = b["sparse"][spec.feature_name]
+            embedded[name] = combine(
+                spec, ids, sad_rows(state.embeddings[name], ids))
         attach_ids(embedded, self.model, b, self.device)
         logits = state.dense(embedded, b.get("dense"))
         return {"logits": logits, "loss": self._loss(logits, b)}
@@ -517,7 +636,7 @@ class CompiledStep:
                     "overflow": torch.zeros((), dtype=torch.int32,
                                             device=tr.device)}
         loss, logits = tr._step(state, b, {})
-        return {"loss": loss, "logits": logits}
+        return {"loss": loss, "logits": logits, "stats": {}}
 
     def _advance(self, state: TrainState, batch) -> None:
         k = len(batch["label"]) if self.many else 1
@@ -558,7 +677,10 @@ class CompiledStep:
         main.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
+        # thread_local: other threads (a prefetch producer staging the
+        # next batches) may allocate and copy while this thread captures
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
             static_out = self._run(state, static_in)
         after = launch_counts()
         self.launches_per_replay = {k: after[k] - before[k] for k in after}

@@ -1,6 +1,7 @@
 """Single-shard sparse table ops (port of `openembedding_tpu/ops/sparse.py`):
-the gather, the scatter, the dedup + fused optimizer apply of one training
-step, and the packed weights+slots layout of `Trainer.train_many`.
+the gather (also with a gradient, for sparse_as_dense tables), the scatter,
+the dedup + fused optimizer apply of one training step, and the packed
+weights+slots layout of `Trainer.train_many`.
 
 Tables update in place: the apply writes the touched rows of the weights
 and slots it is given, the port's counterpart of the JAX package donating
@@ -24,6 +25,52 @@ def lookup_rows(weights: torch.Tensor, rows: torch.Tensor,
     flat = rows.reshape(-1).contiguous()
     mask = valid.reshape(-1).contiguous() if valid is not None else None
     out = gather.gather_rows(weights, flat, mask)
+    return out.reshape(tuple(rows.shape) + (weights.shape[1],))
+
+
+class _GatherRowsWithGrad(torch.autograd.Function):
+    """`lookup_rows` with a gradient to the table (the JAX package
+    differentiates its `lookup_rows`; there the transpose is XLA's scatter).
+
+    Forward: the gather kernel through the module attribute (the plain
+    version on the CPU, or in place of the kernel under
+    `ops.plain_versions()`). Backward: the dense (n_rows, dim) table
+    gradient, built deterministically: the static-capacity dedup and the
+    sorted segment sums of `_dedup_routed` sum each row's gradients in
+    occurrence order, and the sums are written at the unique rows. No
+    atomics: `index_add_` on CUDA would reorder the float sums. -1 pads and
+    out-of-range ids train nothing: their slots route to distinct rows past
+    the table (n_rows + i), which the write drops by writing into a buffer
+    of n_rows + n rows and keeping the first n_rows. Nothing is read back
+    to the host and no shape depends on the data, so a CUDA graph can
+    capture it."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, flat: torch.Tensor):
+        ctx.save_for_backward(flat)
+        ctx.table_shape = table.shape
+        return gather.gather_rows(table, flat)
+
+    @staticmethod
+    def backward(ctx, grad_rows: torch.Tensor):
+        flat, = ctx.saved_tensors
+        n_rows, dim = ctx.table_shape
+        n = flat.shape[0]
+        g, _, idx = _dedup_routed(n_rows, flat, grad_rows.contiguous(), None)
+        full = torch.zeros((n_rows + n, dim), dtype=grad_rows.dtype,
+                           device=grad_rows.device)
+        full.index_copy_(0, idx.long(), g)  # idx is duplicate-free
+        return full[:n_rows], None
+
+
+def lookup_rows_trainable(weights: torch.Tensor,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """`lookup_rows` (no mask) whose result carries a gradient to
+    `weights`: the pull of a sparse_as_dense table, the port of the JAX
+    package's `model.sad_rows`. Ids of any shape -> rows.shape + (dim,);
+    out-of-range and -1 ids pull zeros and take no gradient."""
+    flat = rows.reshape(-1).contiguous()
+    out = _GatherRowsWithGrad.apply(weights, flat)
     return out.reshape(tuple(rows.shape) + (weights.shape[1],))
 
 

@@ -264,10 +264,11 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Hash tables are not ported and raise. (batch_transform and
+    sparse_as_dense tables are ported: tests/test_torch_sparse_as_dense.py.)"""
     model = make_deepfm(VOCAB, DIM, hidden=(16, 16))
     model.batch_transform = lambda b: b
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, device="cpu")
+    Trainer(model, device="cpu").init(_batches(steps=1)[0])
     hashed = make_deepfm(VOCAB, DIM, hidden=(16, 16), hashed=True,
                          capacity=4096)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
