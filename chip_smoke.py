@@ -125,7 +125,40 @@ final line:
    `--cache` with a 2^20 x 10 sparse_as_dense table: eager and graph
    drivers bit-equal to the plain path, the profiler sees the gather kernel
    on the table's pull, and the checkpoint and export round-trip it;
-9. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+9. hash    — the hashed flagship, `make_deepfm(1 << 24, 9, hashed=True,
+   capacity=1 << 24)` (2^24 int64 keys, a 2^24 x 10 float32 table and its
+   Adagrad accumulator), on the example phase's TSV (written again from
+   its seed) read into the 2^62 id space: 64 eager steps, 64
+   `jit_train_step` calls and four `jit_train_many` windows of 16, each
+   bit-equal in losses and whole state (keys, weights, slots, overflow,
+   dense) to the same steps through the plain versions, one gather and one
+   apply a step; save after 20 steps, load into a fresh state and run the
+   other 44: the losses and the id -> row contents of the uninterrupted
+   run; the export's logits equal `eval_step`'s; a table of a quarter of
+   one batch's unique ids, 8 eager and 8 graph steps bit-equal to the
+   plain path with the same nonzero overflow; the same table filled to
+   0.6 of its slots with seeded ids before one pass of the file (3 eager
+   steps, then graph steps), bit-equal to the plain path. Reports, at
+   both loads, the probe's device time and launches a step (the kernels
+   inside its profiler range in eager steps; the push takes the pull's
+   slots, so a step probes once), each probe alone by CUDA events, the
+   graph step's ms, device ms and idle share (beside the array flagship's
+   graph run of the example phase), the load and the new ids of every
+   step, and the peak device memory;
+10. lr_example — `python -m
+   openembedding_tpu_torch.examples.criteo_lr_subclass` through its `main`
+   at its own settings (a hashed LR of 2^16 slots on
+   `examples/train100.tsv`, batch 32, 4 epochs) with `--checkpoint` and
+   `--save`, bit-equal to its steps through the plain versions (eager:
+   the plain apply cannot be captured), then `--load` of the checkpoint
+   for one more epoch;
+11. zoo    — the entry point's `main` for `--model` lr, wdl, xdeepfm, dcn
+   and dlrm at `--vocabulary 16777216 --dim 9 --batch-size 4096` on the
+   TSV: 16 eager and 16 graph steps, each bit-equal to the plain path, one
+   gather a step (and one at init) and one apply a step; the graph run's
+   export served over REST, its logits equal to `eval_step`'s; ms, device
+   ms and idle share a step per family;
+12. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -281,7 +314,14 @@ def phase_kernel(torch, mb, gather) -> dict:
     # the table (8-byte aligned) in 8-byte words
     w9 = torch.randn((1 << 22, 9), generator=gen, device=dev)
     ids22_np = zipf_ids(rng, BATCH * FIELDS, 1 << 22)
-    cases += [("f32 width 9: 4-byte words", w9, ids22_np, torch.int64, None),
+    # LR's table: rows one float wide (4 bytes), the hashed pull's miss row
+    # (slot == capacity) and -1 pads among the ids
+    w1 = torch.randn((VOCAB, 1), generator=gen, device=dev)
+    ids1_np = ids64_np.copy()
+    ids1_np[100:140] = VOCAB
+    cases += [("f32 width 1: LR's 4-byte rows", w1, ids1_np, torch.int64,
+               None),
+              ("f32 width 9: 4-byte words", w9, ids22_np, torch.int64, None),
               ("bf16 width 9: 2-byte words", w9.to(torch.bfloat16), ids22_np,
                torch.int64, None),
               ("view w[1:], 8-byte aligned", w32[1:], ids64_np, torch.int64,
@@ -1035,10 +1075,32 @@ def _run_windows(torch, many, state, windows, losses) -> tuple:
     return state, seconds
 
 
-def _compare(torch, mb, state, losses, ref, ref_losses, what: str) -> dict:
-    got, want = mb.state_bits(state), mb.state_bits(ref)
-    diffs = {k: float((got[k].float() - want[k].float()).abs().max())
-             for k in got}
+def by_id_bits(torch, mb, state) -> dict:
+    """`mb.state_bits` with every hash table's resident rows (keys, weights,
+    slots) in id order: a table loaded from a checkpoint may hold two
+    colliding ids at each other's slots, and equals the saved one in its
+    id -> row contents."""
+    out = mb.state_bits(state)
+    for name, t in state.tables.items():
+        if t.keys is None:
+            continue
+        sel = torch.nonzero(t.keys >= 0).squeeze(1)
+        rows = sel[torch.argsort(t.keys[sel])]
+        out[f"{name}/keys"] = t.keys[rows]
+        out[f"{name}/weights"] = t.weights[rows]
+        out.update({f"{name}/{k}": v[rows] for k, v in t.slots.items()})
+    return out
+
+
+def _compare(torch, mb, state, losses, ref, ref_losses, what: str,
+             by_id: bool = False) -> dict:
+    bits = (lambda s: by_id_bits(torch, mb, s)) if by_id else mb.state_bits
+    got, want = bits(state), bits(ref)
+    check(got.keys() == want.keys() and all(
+        got[k].shape == want[k].shape for k in got),
+        f"{what}: the states hold the same tensors and shapes")
+    diffs = {k: float((got[k].double() - want[k].double()).abs().max())
+             if got[k].numel() else 0.0 for k in got}
     unequal = sorted(k for k in got if not torch.equal(mb.bits(got[k]),
                                                        mb.bits(want[k])))
     loss_equal = np.array_equal(losses.view(np.int32),
@@ -1052,22 +1114,29 @@ def _compare(torch, mb, state, losses, ref, ref_losses, what: str) -> dict:
 
 
 def graph_record(driver) -> dict:
-    """What a `model.CompiledStep` counted: captures, replays and the
-    launches of one replay."""
+    """What a `model.CompiledStep` has counted so far (copies: the driver
+    counts on): captures, replays, the launches of one replay of each graph
+    it keeps, and the launches its captures counted and its replays ran."""
     return {"captures": driver.captures, "replays": driver.replays,
-            "launches_per_replay": driver.launches_per_replay}
+            "graph_launches": driver.graph_launches,
+            "launches_captured": dict(driver.launches_captured),
+            "launches_replayed": dict(driver.launches_replayed)}
 
 
-def ran_launches(counted: dict, graphs) -> dict:
+def ran_launches(counted: dict, graphs, captures: int = 1) -> dict:
     """The kernel launches that ran on the card in a run through CUDA-graph
     drivers, from their `graph_record`s: the wrappers' counts over the run
     less what each capture counted, since a captured launch runs nothing,
-    plus what each replay ran. Each driver must have captured once."""
+    plus what each replay ran. Each driver must have captured `captures`
+    times, once per batch structure of the run, and kept every graph: a
+    driver that captures again for a structure it has seen fails."""
     out = dict(counted)
     for d in graphs:
-        check(d["captures"] == 1, f"one capture per driver ({d})")
-        for k, n in d["launches_per_replay"].items():
-            out[k] += n * (d["replays"] - d["captures"])
+        check(d["captures"] == captures == len(d["graph_launches"]),
+              f"{captures} capture(s) per driver, each graph kept ({d})")
+        for k in out:
+            out[k] += (d["launches_replayed"].get(k, 0)
+                       - d["launches_captured"].get(k, 0))
     return out
 
 
@@ -1162,9 +1231,9 @@ def phase_train(torch, mb, ops, optimizers, data) -> dict:
                     else (MANY_WINDOWS, MANY_STEPS))
         check(d["captures"] == 1 and d["replays"] == calls - 1,
               f"jit_train_{name}: one capture, then replays ({d})")
-        check(d["launches_per_replay"] == {
+        check(d["graph_launches"] == [{
             "gather_rows": k * n_tables, "gather_rows_windows": 0,
-            "fused_sparse_apply": k * n_tables},
+            "fused_sparse_apply": k * n_tables}],
             f"each captured step launches one gather and one apply per "
             f"table ({d})")
     for st in (graph_state, packed_state):
@@ -1317,9 +1386,10 @@ def example_reader(data, tsv: str, gz: str) -> list:
     return native
 
 
-def _run_main(ops, ex, argv) -> tuple:
+def _run_main(ops, ex, argv, captures: int = 1) -> tuple:
     """`ex.main(argv)`, the counts set to 0 just before and read just after
-    -> (its result, the kernel launches that ran)."""
+    -> (its result, the kernel launches that ran). `captures`: the batch
+    structures of the run, each captured once by a graph driver."""
     from openembedding_tpu_torch.model import CompiledStep
     ops.reset_launch_counts()
     out = ex.main(argv)
@@ -1327,7 +1397,7 @@ def _run_main(ops, ex, argv) -> tuple:
     drv = out["driver"]
     if isinstance(drv, CompiledStep):
         out["graph"] = graph_record(drv)
-        return out, ran_launches(counted, [out["graph"]])
+        return out, ran_launches(counted, [out["graph"]], captures)
     return out, counted
 
 
@@ -1616,6 +1686,510 @@ def example_cache(torch, mb, ops, ex, argv, drive, batches, tmp, total
     return out
 
 
+HASH_CAPACITY = 1 << 24   # the hashed flagship's slots (2^24 x 10 table)
+HASH_ID_SPACE = 1 << 62   # the reader folds tokens into the hashed id space
+HASH_STEPS = 64           # each way of stepping
+HASH_SAVE = 20            # save after 20 steps, load, run the other 44
+HASH_K = 16               # jit_train_many windows: four of 16
+SMALL_STEPS = 8           # the small-capacity run that overflows
+LOADED_FILL = 0.6         # the loaded run: the share of slots filled first
+LOADED_STEPS = 20         # its steps: one pass of the file, new ids in each
+LOADED_EAGER = 3          # its first steps, eager under the profiler
+
+
+def _tsv_batches(data, tsv: str, id_space: int, steps: int) -> list:
+    """`steps` batches of the TSV through the native reader, the file
+    repeating, as the entry points read it."""
+    it = iter(data.CriteoBatcher(data.read_criteo_tsv(
+        tsv, BATCH, id_space=id_space, repeat=True, native="on"), BATCH))
+    out = [next(it) for _ in range(steps)]
+    it.close()
+    return out
+
+
+def _eager(torch, trainer, state, batches) -> tuple:
+    losses = []
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+        losses.append(m["loss"])
+    return state, torch.stack(losses).cpu().numpy()
+
+
+def _graph_steps(torch, step, state, batches) -> tuple:
+    """`step` over the batches, its losses cloned; the steps after the
+    first WARM_STEPS timed -> (state, losses, ms a step)."""
+    losses = []
+    for i, b in enumerate(batches):
+        if i == WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - WARM_STEPS)
+    return state, torch.stack(losses).cpu().numpy(), ms
+
+
+def probe_profile(torch, fn, calls: int = 3) -> dict:
+    """The hash probe's share of `calls` eager train steps under
+    torch.profiler: the device kernels that start inside the device-side
+    spans of the `hash.probe_insert` range (the step's one probe: the push
+    takes the pull's slots), their summed time and their count, per
+    step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("hash.probe")]
+    kernels = [e for e in events if not e.name.startswith(("hash.",
+                                                          "trainer."))]
+    inside = [e for e in kernels
+              if any(a <= e.time_range.start < b for a, b in spans)]
+    probe_us = sum(e.time_range.elapsed_us() for e in inside)
+    step_us = sum(e.time_range.elapsed_us() for e in kernels)
+    check(len(spans) == calls and probe_us > 0,
+          f"the profiler saw one probe range a step ({len(spans)} spans)")
+    return {"probe_device_ms_per_step": probe_us / 1e3 / calls,
+            "probe_launches_per_step": len(inside) / calls,
+            "step_device_ms_per_step": step_us / 1e3 / calls,
+            "step_launches_per_step": len(kernels) / calls}
+
+
+def new_ids_per_step(batches, resident=()) -> list:
+    """How many of each batch's distinct ids no earlier batch (nor
+    `resident`) held: the ids its pull inserts into a table that overflows
+    nothing."""
+    seen = np.asarray(resident, np.int64)
+    out = []
+    for b in batches:
+        ids = np.unique(b["sparse"]["categorical"])
+        ids = ids[ids >= 0]
+        new = ids[~np.isin(ids, seen)]
+        out.append(int(len(new)))
+        seen = np.concatenate([seen, new])
+    return out
+
+
+def hash_loaded(torch, mb, ops, trainer, batches) -> dict:
+    """The flagship's table filled to LOADED_FILL with seeded ids of the
+    2^62 space before the run, as a day of Criteo fills it: one pass of the
+    file (every step inserts ids) from it, the first LOADED_EAGER steps
+    eager under the profiler (the probe's device time at this load), the
+    rest through `jit_train_step` (timed), all bit-equal to the same steps
+    through the plain versions; then the graph step's device ms."""
+    from openembedding_tpu_torch.tables import hash_table
+    state = trainer.init(batches[0])
+    keys = state.tables["categorical"].keys
+    rng = np.random.default_rng(SEED + 11)
+    fill = np.unique(rng.integers(0, HASH_ID_SPACE,
+                                  int(LOADED_FILL * HASH_CAPACITY)))
+    fill_overflow = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for chunk in np.array_split(fill, 8):
+        _, over = hash_table.hash_find_or_insert(
+            keys, torch.as_tensor(chunk, device="cuda"))
+        fill_overflow += int(over)
+    fill_s = time.perf_counter() - t0
+    load_before = int((keys >= 0).sum()) / HASH_CAPACITY
+    ref = state.clone()
+    runs = batches[:LOADED_STEPS]
+    with ops.plain_versions():
+        ref, ref_losses = _eager(torch, trainer, ref, runs)
+    ops.reset_launch_counts()
+    losses, it = [], iter(runs)
+
+    def eager_step():
+        nonlocal state
+        state, m = trainer.train_step(state, next(it))
+        losses.append(m["loss"])
+
+    probe = probe_profile(torch, eager_step, calls=LOADED_EAGER)
+    eager = ops.launch_counts()
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()
+    state, graph_losses, graph_ms = _graph_steps(torch, step, state,
+                                                 runs[LOADED_EAGER:])
+    ran = ran_launches(ops.launch_counts(), [graph_record(step)])
+    for k in ("gather_rows", "fused_sparse_apply"):
+        check(eager[k] == LOADED_EAGER and
+              ran[k] == LOADED_STEPS - LOADED_EAGER,
+              f"the loaded run: one {k} a step ({eager}, {ran})")
+    rec = _compare(torch, mb, state, np.concatenate(
+        [torch.stack(losses).cpu().numpy(), graph_losses]), ref, ref_losses,
+        "loaded_vs_plain")
+    del ref
+
+    def one_replay():
+        step(state, runs[0])
+        torch.cuda.synchronize()
+
+    device_ms = profile_device(torch, one_replay, calls=5,
+                               unit="step")["profile_device_ms_per_step"]
+    out = {"fill_ids": int(len(fill)), "fill_overflow": fill_overflow,
+           "fill_seconds": fill_s, "load_before": load_before,
+           "load_after": int((keys >= 0).sum()) / HASH_CAPACITY,
+           "steps": LOADED_STEPS, "new_ids_per_step": new_ids_per_step(runs),
+           "overflow": trainer.table_overflow(state, "categorical"),
+           "graph_ms_per_step": graph_ms,
+           "graph_device_ms_per_step": device_ms,
+           "graph_idle_share": 1.0 - device_ms / graph_ms, **probe, **rec,
+           "launches": {k: eager[k] + ran[k] for k in KERNELS}}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def hash_small_capacity(torch, mb, ops, optimizers, batches) -> dict:
+    """A table of a quarter of one batch's unique ids: eager and graph steps
+    through the kernels, bit-equal to the plain path, overflow equal and
+    nonzero."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    ids = batches[0]["sparse"]["categorical"]
+    capacity = len(np.unique(ids[ids >= 0])) // 4
+    model = make_deepfm(VOCAB, DIM, hashed=True, capacity=capacity)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    base = trainer.init(batches[0])
+    ref, graph_state = base.clone(), base.clone()
+    with ops.plain_versions():
+        ref, ref_losses = _eager(torch, trainer, ref, batches[:SMALL_STEPS])
+    state, losses = _eager(torch, trainer, base, batches[:SMALL_STEPS])
+    rec = _compare(torch, mb, state, losses, ref, ref_losses,
+                   "small_capacity_vs_plain")
+    step = trainer.jit_train_step()
+    graph_state, graph_losses, _ = _graph_steps(
+        torch, step, graph_state, batches[:SMALL_STEPS])
+    rec.update(_compare(torch, mb, graph_state, graph_losses, ref,
+                        ref_losses, "small_capacity_graph_vs_plain"))
+    overflow = [trainer.table_overflow(s, "categorical")
+                for s in (state, graph_state, ref)]
+    check(overflow[0] == overflow[1] == overflow[2] > 0,
+          f"the small table overflows alike on every path ({overflow})")
+    return {"capacity": capacity, "steps": SMALL_STEPS,
+            "overflow": overflow[0], **rec}
+
+
+def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
+               array_graph: dict) -> dict:
+    """The hashed flagship, `make_deepfm(1 << 24, 9, hashed=True, capacity=
+    1 << 24)`, on the seeded TSV read into the 2^62 id space: eager steps,
+    `jit_train_step` and `jit_train_many` windows, all bit-equal to the
+    plain path; save, load and continue; export and serve; a small table
+    that overflows; the probe's device time. -> {kernel: launches}."""
+    from openembedding_tpu_torch.export import StandaloneModel, export_standalone
+    from openembedding_tpu_torch.examples.criteo_deepctr import stack_batches
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.tables import hash_table
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = _tsv_batches(data, tsv, HASH_ID_SPACE, HASH_STEPS)
+    model = make_deepfm(VOCAB, DIM, hashed=True, capacity=HASH_CAPACITY)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    base = trainer.init(batches[0])
+    ts = base.tables["categorical"]
+    check(ts.keys.shape == (HASH_CAPACITY,) and ts.weights.shape == (
+        HASH_CAPACITY, DIM + 1), "the hashed flagship's table")
+    check(trainer._packed_layouts(base) == {},
+          "the gate keeps the hash table split on the card")
+    ref, state, graph_state, many_state, first = (base.clone()
+                                                  for _ in range(5))
+    del base
+    total = {k: 0 for k in KERNELS}
+
+    def counted():
+        got = ops.launch_counts()
+        for k in KERNELS:
+            total[k] += got[k]
+        return got
+
+    ops.reset_launch_counts()
+    with ops.plain_versions():
+        ref, ref_losses = _eager(torch, trainer, ref, batches)
+    check(sum(ops.launch_counts().values()) == 0,
+          "the plain run launched no kernel")
+    check(np.isfinite(ref_losses).all(), "finite losses")
+
+    # the main path's runs: counts set to 0 just before each, read after
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = _eager(torch, trainer, state, batches)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / HASH_STEPS
+    launches = counted()
+    check(launches["gather_rows"] == launches["fused_sparse_apply"]
+          == HASH_STEPS, f"one gather and one apply a hashed step "
+          f"({launches})")
+    rec = _compare(torch, mb, state, losses, ref, ref_losses, "vs_plain")
+
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()
+    graph_state, graph_losses, graph_ms = _graph_steps(torch, step,
+                                                       graph_state, batches)
+    graph = {"step": graph_record(step)}
+    ran = ran_launches(counted(), [graph["step"]])
+    check(ran["gather_rows"] == ran["fused_sparse_apply"] == HASH_STEPS,
+          f"the graph steps ran one gather and one apply a step ({ran})")
+    rec.update(_compare(torch, mb, graph_state, graph_losses, ref,
+                        ref_losses, "graph_vs_plain"))
+
+    many = trainer.jit_train_many()
+    ops.reset_launch_counts()
+    many_losses, overflow = [], 0
+    for w in range(HASH_STEPS // HASH_K):
+        if w == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        many_state, m = many(many_state, stack_batches(
+            batches[w * HASH_K:(w + 1) * HASH_K]))
+        many_losses.append(m["loss"].clone())
+        overflow += int(m["overflow"])
+    torch.cuda.synchronize()
+    many_ms = (time.perf_counter() - t0) * 1e3 / (HASH_STEPS - HASH_K)
+    graph["many"] = graph_record(many)
+    ran = ran_launches(counted(), [graph["many"]])
+    check(ran["gather_rows"] == ran["fused_sparse_apply"] == HASH_STEPS,
+          f"the windows ran one gather and one apply a step ({ran})")
+    check(overflow == 0, f"no id overflows the flagship table ({overflow})")
+    rec.update(_compare(torch, mb, many_state,
+                        torch.cat(many_losses).cpu().numpy(), ref,
+                        ref_losses, "many_vs_plain"))
+    del many_state, many
+    torch.cuda.empty_cache()
+
+    # the probe: its share of an eager step under the profiler, and alone
+    # (CUDA events) on one batch's ids against the trained keys
+    probe = probe_profile(
+        torch, lambda: trainer.train_step(state, batches[0]))
+    flat = torch.as_tensor(batches[0]["sparse"]["categorical"],
+                           device="cuda").reshape(-1)
+    uniq = torch.unique(flat)
+    keys = state.tables["categorical"].keys.clone()
+    probe["probe_insert_ms_alone"] = mb.device_ms(
+        lambda: hash_table.hash_find_or_insert(keys, uniq))
+    probe["probe_find_ms_alone"] = mb.device_ms(
+        lambda: hash_table.hash_find(keys, flat))
+    del keys
+
+    def one_replay():
+        step(graph_state, batches[0])
+        torch.cuda.synchronize()
+
+    graph_profile = profile_device(torch, one_replay, calls=5, unit="step")
+    device_ms = graph_profile["profile_device_ms_per_step"]
+
+    # save after HASH_SAVE steps, load into a fresh state, run the rest:
+    # the id -> row contents and the losses of the uninterrupted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-hash-")
+    try:
+        ckpt, export = os.path.join(tmp, "ckpt"), os.path.join(tmp, "export")
+        ops.reset_launch_counts()
+        first, first_losses = _eager(torch, trainer, first,
+                                     batches[:HASH_SAVE])
+        trainer.save(first, ckpt)
+        del first
+        torch.cuda.empty_cache()
+        loaded = trainer.load(trainer.init(batches[0]), ckpt)
+        check(trainer.table_overflow(loaded, "categorical") == 0,
+              "every saved id loads")
+        loaded, rest_losses = _eager(torch, trainer, loaded,
+                                     batches[HASH_SAVE:])
+        got = counted()
+        check(got["gather_rows"] == got["fused_sparse_apply"] == HASH_STEPS,
+              f"save, load, continue: one gather and one apply a step "
+              f"({got})")
+        rec.update(_compare(torch, mb, loaded, np.concatenate(
+            [first_losses, rest_losses]), ref, ref_losses,
+            "save_load_continue_vs_uninterrupted", by_id=True))
+        del loaded
+        torch.cuda.empty_cache()
+
+        ops.reset_launch_counts()
+        export_standalone(graph_state, model, export)
+        served = StandaloneModel.load(export)
+        logits = served.predict(batches[0])
+        got = counted()
+        check(got["gather_rows"] == 1, f"a predict launches one gather "
+              f"({got})")
+        want = trainer.eval_step(graph_state, batches[0])["logits"]
+        export_equal = bool(torch.equal(logits, want))
+        check(export_equal, "the hashed export's logits equal eval_step's")
+        del served
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    del ref, graph_state, step
+    torch.cuda.empty_cache()
+
+    loaded = hash_loaded(torch, mb, ops, trainer, batches)
+    for k in KERNELS:
+        total[k] += loaded["launches"][k]
+    ops.reset_launch_counts()
+    small = hash_small_capacity(torch, mb, ops, optimizers, batches)
+    counted()
+    resident = int((state.tables["categorical"].keys >= 0).sum())
+    new_ids = new_ids_per_step(batches)
+    out = {"phase": "hash", "model": "deepfm hashed, capacity 2^24, dim 9, "
+           "hidden 400-400-400 bf16, Adagrad(0.05); ids in 2^62",
+           "batch": BATCH, "steps": HASH_STEPS, "resident_ids": resident,
+           "load": resident / HASH_CAPACITY, "new_ids_per_step": new_ids,
+           "steps_without_new_ids": sum(n == 0 for n in new_ids),
+           "probe_profiled_new_ids": 0,  # batch 0 again: resident already
+           "losses_first_last": [float(losses[0]), float(losses[-1])],
+           "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+           "graph_device_ms_per_step": device_ms,
+           "graph_idle_share": 1.0 - device_ms / graph_ms,
+           "graph_many_ms_per_step": many_ms,
+           "array_flagship_graph": array_graph,
+           "graph_profile_top_device_ops":
+               graph_profile["profile_top_device_ops"],
+           **probe, "graphs": graph, "export_logits_equal_eval_step":
+           export_equal, "peak_memory_bytes": peak, **rec,
+           "loaded": loaded, "small_capacity": small, "launches": total}
+    emit(out)
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_lr_example(torch, mb, ops) -> dict:
+    """The hashed-LR example (`python -m
+    openembedding_tpu_torch.examples.criteo_lr_subclass`) at its own
+    settings, with --checkpoint and --save, then --load: bit-equal to the
+    same run through the plain versions. -> {kernel: launches}."""
+    from openembedding_tpu_torch.examples import criteo_lr_subclass as lr
+    from openembedding_tpu_torch.model import Trainer
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-lr-")
+    total = {k: 0 for k in KERNELS}
+    try:
+        ckpt, saved = os.path.join(tmp, "ckpt"), os.path.join(tmp, "saved")
+        ops.reset_launch_counts()
+        # the plain path: the example's steps as eager train_steps (the
+        # plain apply reads its live rows back to the host, which a graph
+        # cannot capture)
+        with ops.plain_versions(), mock.patch.object(
+                Trainer, "jit_train_step", lambda self: self.train_step):
+            ref = lr.main([])
+        check(sum(ops.launch_counts().values()) == 0,
+              "the plain run launched no kernel")
+        t0 = time.perf_counter()
+        # a pass is three full batches and a padded one (100 rows, batch
+        # 32): two batch structures, two graphs
+        out, launches = _run_main(ops, lr, ["--checkpoint", ckpt,
+                                            "--save", saved], captures=2)
+        seconds = time.perf_counter() - t0
+        steps = len(out["losses"])
+        check(launches["gather_rows"] == launches["fused_sparse_apply"]
+              == steps, f"one gather and one apply a step ({launches})")
+        rec = _compare(torch, mb, out["state"], out["losses"], ref["state"],
+                       ref["losses"], "vs_plain")
+        check(not os.path.exists(os.path.join(saved, "dense_slots.npz"))
+              and os.path.exists(os.path.join(ckpt, "dense_slots.npz")),
+              "--save leaves the optimizer out, --checkpoint keeps it")
+        resumed, more = _run_main(ops, lr, ["--load", ckpt, "--epochs", "1"],
+                                  captures=2)
+        check(resumed["state"].step == steps + len(resumed["losses"])
+              and np.isfinite(resumed["losses"]).all()
+              and more["gather_rows"] == more["fused_sparse_apply"]
+              == len(resumed["losses"]), f"--load resumes ({more})")
+        for k in KERNELS:
+            total[k] = launches[k] + more[k]
+        emit({"phase": "lr_example", "steps": steps,
+              "resumed_steps": len(resumed["losses"]),
+              "overflow": out["trainer"].table_overflow(out["state"],
+                                                        "categorical"),
+              "resident_ids": int((out["state"].tables["categorical"].keys
+                                   >= 0).sum()),
+              "losses": out["losses"].tolist(), "seconds": seconds,
+              "graph": out["graph"], "launches": total, **rec})
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+ZOO = ("lr", "wdl", "xdeepfm", "dcn", "dlrm")
+ZOO_STEPS = 16
+
+
+def phase_zoo(torch, mb, ops, data, tsv: str) -> dict:
+    """Every other CTR family through the Criteo entry point at full width
+    (`--vocabulary 16777216 --dim 9 --batch-size 4096`): 16 eager and 16
+    graph steps, each bit-equal to the plain path; the graph run's export
+    served once over REST, its logits equal to eval_step's.
+    -> {kernel: launches}."""
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    from openembedding_tpu_torch.serving import ServingClient, make_server
+
+    batches = _tsv_batches(data, tsv, VOCAB, 2)
+    total = {k: 0 for k in KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-zoo-")
+    httpd = make_server(os.path.join(tmp, "registry"), port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    client = ServingClient(f"http://127.0.0.1:{httpd.server_address[1]}",
+                           timeout=300)
+    try:
+        for family in ZOO:
+            args = ["--model", family, "--vocabulary", str(VOCAB), "--dim",
+                    str(DIM), "--batch-size", str(BATCH), "--data", tsv,
+                    "--steps", str(ZOO_STEPS)]
+            ops.reset_launch_counts()
+            with ops.plain_versions():
+                ref = ex.main(args + ["--eager"])
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"{family}: the plain run launched no kernel")
+            check(np.isfinite(ref["losses"]).all(), f"{family}: finite")
+            rec = {"phase": "zoo", "family": family,
+                   "table": list(ref["state"].tables["categorical"]
+                                 .weights.shape)}
+            export = os.path.join(tmp, f"export_{family}")
+            for what, extra in (("eager", ["--eager"]),
+                                ("graph", ["--export", export])):
+                out, launches = _run_main(ops, ex, args + extra)
+                for k in KERNELS:
+                    total[k] += launches[k]
+                run = _example_record(torch, mb, out, launches, ref["state"],
+                                      ref["losses"], f"{family} {what}",
+                                      ZOO_STEPS, 1)
+                rec[what] = run
+                if what == "graph":  # served before the profile steps on
+                    sign = f"{family}-smoke"
+                    ops.reset_launch_counts()
+                    client.create_model(sign, export)
+                    b = batches[1]
+                    served = client.predict(sign, b["sparse"], b["dense"])
+                    got = ops.launch_counts()
+                    for k in KERNELS:
+                        total[k] += got[k]
+                    want = out["trainer"].eval_step(out["state"], b)[
+                        "logits"].float().cpu().numpy()
+                    equal = bool(np.array_equal(served, want))
+                    rec["rest_logits_equal_eval_step"] = equal
+                    rec["rest_max_abs_err"] = float(
+                        np.abs(served - want).max())
+                    check(equal and got["gather_rows"] == 1,
+                          f"{family}: REST logits equal eval_step's "
+                          f"({rec['rest_max_abs_err']}), one gather ({got})")
+                run.update(_driver_profile(torch, ex, out, batches, False))
+                del out
+                torch.cuda.empty_cache()
+            emit(rec)
+            del ref
+            torch.cuda.empty_cache()
+        return total
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the server thread stopped")
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -1708,14 +2282,14 @@ def phase_microbench(torch, mb, ops) -> tuple:
     ran: its train step's graph counted as it replayed, not as captured)."""
     ops.reset_launch_counts()  # the path's run: counts read just after
     records = mb.main([])
-    graphs = [r for r in records if "launches_per_replay" in r]
+    graphs = [r for r in records if "graph_launches" in r]
     check(len(graphs) == 1, "the micro-benchmark ran one graph driver")
     launches = ran_launches(ops.launch_counts(), graphs)
     for k in KERNELS:
         check(launches[k] > 0, f"the micro-benchmark launched {k}")
     emit({"phase": "microbench", "records": len(records),
           "launches": launches, "graph": {k: graphs[0][k] for k in (
-              "captures", "replays", "launches_per_replay")}})
+              "captures", "replays", "graph_launches")}})
     return records, launches
 
 
@@ -1756,12 +2330,44 @@ def main() -> int:
     torch.cuda.empty_cache()
     example = phase_example(torch, mb, ops, data, optimizers)
     torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-tsv-")
+    try:
+        # the example phase's TSV again (same seed), for the later phases
+        tsv = os.path.join(tmp, "day.tsv")
+        write_criteo_tsv(tsv, EXAMPLE_BATCHES * BATCH, SEED + 3)
+        # the array flagship's graph step: through the entry point on the
+        # TSV (the reader's pace) and on batches in memory (train phase)
+        array_graph = next(
+            {k: r[k] for k in ("steady_ms_per_step", "device_ms_per_step",
+                               "device_idle_share")}
+            for r in example["runs"] if r["run"] == "graph")
+        array_graph["in_memory"] = {
+            "ms_per_step": train["graph_step_ms"],
+            "device_ms_per_step":
+                train["graph_step_profile"]["profile_device_ms_per_step"],
+            "idle_share": train["graph_step_profile"][
+                "device_idle_share_unprofiled"]}
+        hash_launches = phase_hash(torch, mb, ops, data, optimizers, tsv,
+                                   array_graph)
+        torch.cuda.empty_cache()
+        lr_launches = phase_lr_example(torch, mb, ops)
+        torch.cuda.empty_cache()
+        zoo_launches = phase_zoo(torch, mb, ops, data, tsv)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
     by_path = {k: {"serve": serve_launches if k == "gather_rows" else 0,
                    "train": train["launches"][k],
                    "train_graphs": train["graph_launches"][k],
                    "example": example["launches"][k],
+                   "hash": hash_launches[k],
+                   "lr_example": lr_launches[k],
+                   "zoo": zoo_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
+    for path in ("hash", "lr_example", "zoo"):
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),
             ("gather_rows_windows", "gather_rows_windows.cu", ":282",
              main_windows),

@@ -6,9 +6,13 @@ It imports `torch` and numpy only, never `jax` or `openembedding_tpu`.
 
 Slice 1 is standalone serving of the CTR model zoo's DeepFM: export, load,
 lookup, predict and the REST surface. Slice 2 is single-device training of
-the same model (`model.Trainer`, `optimizers`, `checkpoint`). Both device
-kernels are hand-written CUDA: the row gather (`csrc/gather_rows.cu`,
-wrapper `ops/gather.py`) and the fused sparse optimizer apply
+the same model (`model.Trainer`, `optimizers`, `checkpoint`). Later slices
+add the CUDA-graph drivers, the Criteo entry points
+(`examples/criteo_deepctr.py`, `examples/criteo_lr_subclass.py`), hashed
+tables (`tables/hash_table.py`) and the zoo's CTR families (`models/`).
+The device kernels are hand-written CUDA: the row gather
+(`csrc/gather_rows.cu`, wrapper `ops/gather.py`), the window gather
+(`csrc/gather_rows_windows.cu`) and the fused sparse optimizer apply
 (`csrc/fused_sparse_apply.cu`, wrapper `ops/apply.py`).
 
 Entry points run on the card unless the caller passes `device="cpu"`;

@@ -6,16 +6,23 @@ A checkpoint directory holds:
 - `model_meta` — the ModelMeta JSON (+ `extra`: step, model_version,
   include_optimizer); `model_config.json` — the zoo recipe;
 - `variable_<id>/weights.npy` (rows in global id order) and
-  `variable_<id>/slot_<name>.npy`; a sparse_as_dense variable's directory
-  stays empty, as in the JAX package;
+  `variable_<id>/slot_<name>.npy`; a hash table is compacted: its resident
+  ids sorted (`ids.npy`, int64) with their rows and slot rows in the same
+  order; a sparse_as_dense variable's directory stays empty, as in the JAX
+  package;
 - `dense_params.npz` — the dense params under their flax names, the
   sparse_as_dense tables under `__embeddings__/<name>`; `dense_slots.npz` —
   their slots as `<param>/<slot>` rows of shape (1, size) in the flax layout
   (`convert.dense_slots_to_flax`).
 
-A checkpoint written by either package loads in the other (the port always
-writes the optimizer state; it reads checkpoints written without it). The
-port has array tables only, on one device.
+Optimizer state (table slots and `dense_slots.npz`) is left out with
+`include_optimizer=False`; a load of such a checkpoint keeps the state's
+own slots (fresh ones, from `Trainer.init`). A hash table loads by
+re-inserting its ids (`tables/hash_table.np_hash_insert`, the JAX package's
+host insert): the loaded table equals the saved one in its id -> row
+contents, and the JAX package's load of the same files slot for slot; the
+overflow counter restarts at the ids that found no slot. A checkpoint
+written by either package loads in the other. One device only.
 """
 
 from __future__ import annotations
@@ -77,20 +84,22 @@ def _check_meta(meta: ModelMeta, model) -> None:
                              f"{spec.meta}")
 
 
-def _array_tables_only(model) -> None:
-    for name, spec in model.specs.items():
-        if spec.use_hash_table:
-            raise NotImplementedError(
-                f"variable {name!r}: checkpoints of hash tables are not "
-                "ported yet (see ROADMAP.md)")
+def compact_hash_table(ts) -> tuple:
+    """A hash table's resident rows, id-sorted: (ids int64, the selection
+    of their slots in that order), what checkpoints and exports write."""
+    keys = _to_numpy(ts.keys)
+    sel = np.flatnonzero(keys >= 0)
+    ids = keys[sel]
+    order = np.argsort(ids, kind="stable")
+    return ids[order], sel[order]
 
 
 def save_server_model(state, model, path: str, *,
+                      include_optimizer: bool = True,
                       model_sign: str = "") -> ModelMeta:
     """Dump a `TrainState` into `path` (see the module docstring)."""
     from .convert import dense_slots_to_flax, dense_to_flax, table_to_numpy
     from .export import MODEL_CONFIG_FILE
-    _array_tables_only(model)
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
@@ -101,26 +110,35 @@ def save_server_model(state, model, path: str, *,
             variable_id=spec.variable_id, storage_name=name, meta=spec.meta,
             optimizer=spec.optimizer.to_config() if spec.optimizer else {},
             initializer=spec.initializer.to_config(),
-            table={"category": "array", "capacity": spec.capacity,
+            table={"category": "hash" if spec.use_hash_table else "array",
+                   "capacity": spec.capacity,
                    "sparse_as_dense": spec.sparse_as_dense}))
         if spec.sparse_as_dense:
             continue  # its table is in dense_params.npz
         ts = state.tables[name]
-        np.save(os.path.join(vdir, "weights.npy"), table_to_numpy(ts.weights))
-        for slot_name, arr in ts.slots.items():
-            np.save(os.path.join(vdir, f"slot_{slot_name}.npy"),
-                    _to_numpy(arr))
+        weights = table_to_numpy(ts.weights)
+        slots = {k: _to_numpy(v) for k, v in ts.slots.items()}
+        if spec.use_hash_table:
+            ids, sel = compact_hash_table(ts)
+            np.save(os.path.join(vdir, "ids.npy"), ids)
+            weights = weights[sel]
+            slots = {k: v[sel] for k, v in slots.items()}
+        np.save(os.path.join(vdir, "weights.npy"), weights)
+        if include_optimizer:
+            for slot_name, arr in slots.items():
+                np.save(os.path.join(vdir, f"slot_{slot_name}.npy"), arr)
     dense = dense_to_flax(state.dense, state.embeddings)
     np.savez(os.path.join(path, "dense_params.npz"), **dense)
-    np.savez(os.path.join(path, "dense_slots.npz"),
-             **dense_slots_to_flax(state.dense, state.dense_slots))
+    if include_optimizer:
+        np.savez(os.path.join(path, "dense_slots.npz"),
+                 **dense_slots_to_flax(state.dense, state.dense_slots))
     meta.dense_manifest = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                            for k, v in dense.items()}
     with open(os.path.join(path, MODEL_META_FILE), "w") as f:
         d = json.loads(meta.to_json())
         d["extra"] = {"step": int(state.step),
                       "model_version": int(state.model_version),
-                      "include_optimizer": True}
+                      "include_optimizer": include_optimizer}
         json.dump(d, f, indent=2, sort_keys=True)
     if model.config is not None:
         with open(os.path.join(path, MODEL_CONFIG_FILE), "w") as f:
@@ -133,10 +151,10 @@ def load_server_model(state, model, path: str):
     e.g. from `Trainer.init`) in place, and return it. Tables and slots keep
     their device and dtype. A dense slot or table slot missing from the
     checkpoint, or saved with another shape (another optimizer), keeps the
-    state's value."""
+    state's value; so does every row of a hash table that no loaded id
+    takes."""
     from .convert import (dense_from_flax, dense_slots_from_flax,
                           tables_from_numpy)
-    _array_tables_only(model)
     with open(os.path.join(path, MODEL_META_FILE)) as f:
         raw = f.read()
     meta = ModelMeta.from_json(raw)
@@ -166,12 +184,37 @@ def load_server_model(state, model, path: str):
     for name, spec in model.ps_specs().items():
         vdir = os.path.join(path, f"variable_{spec.variable_id}")
         ts = state.tables[name]
-        w = np.load(os.path.join(vdir, "weights.npy"))
-        ts.weights.copy_(tables_from_numpy({"w": w}, device=device)["w"])
-        for slot_name, arr in ts.slots.items():
-            p = os.path.join(vdir, f"slot_{slot_name}.npy")
-            if os.path.exists(p):
-                arr.copy_(torch.from_numpy(np.load(p)))
+        w = tables_from_numpy({"w": np.load(os.path.join(vdir, "weights.npy"))},
+                              device=device)["w"]
+        slot_files = {k: os.path.join(vdir, f"slot_{k}.npy") for k in ts.slots}
+        slots = {k: torch.from_numpy(np.load(p)).to(device)
+                 for k, p in slot_files.items() if os.path.exists(p)}
+        if spec.use_hash_table:
+            load_hash_table(ts, np.load(os.path.join(vdir, "ids.npy")), w,
+                            slots)
+            continue
+        ts.weights.copy_(w)
+        for k, v in slots.items():
+            ts.slots[k].copy_(v)
     state.step = int(extra.get("step", 0))
     state.model_version = int(extra.get("model_version", 0))
     return state
+
+
+def load_hash_table(ts, ids: np.ndarray, weights: torch.Tensor,
+                    slots: Dict[str, torch.Tensor]) -> None:
+    """Re-insert compacted (ids, rows, slot rows) into the hash table `ts`,
+    in place: fresh keys, `np_hash_insert`'s placement, each placed id's
+    rows written at its slot; the counter becomes the ids left without a
+    slot. Rows of the slots no id takes keep their values."""
+    from .tables.hash_table import fresh_keys, np_hash_insert
+    keys = fresh_keys(ts.keys.shape[0]).numpy()
+    pos = np_hash_insert(keys, np.asarray(ids, np.int64))
+    placed = np.flatnonzero(pos >= 0)
+    dst = torch.from_numpy(pos[placed]).to(ts.weights.device)
+    src = torch.from_numpy(placed).to(ts.weights.device)
+    ts.keys.copy_(torch.from_numpy(keys))
+    ts.weights.index_copy_(0, dst, weights.index_select(0, src))
+    for k, v in slots.items():
+        ts.slots[k].index_copy_(0, dst, v.index_select(0, src))
+    ts.overflow.fill_(int(len(ids) - len(placed)))

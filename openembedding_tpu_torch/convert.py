@@ -3,7 +3,9 @@ the port's.
 
 Dense params travel as flat flax-named arrays (`Dense_0/kernel`,
 `MLP_0/Dense_2/bias`, ...), the content of an export's `dense_params.npz`.
-flax kernels are (in, out); the port's `Dense.weight` is (out, in). Dense
+flax kernels are (in, out); the port's `Dense.weight` is (out, in). A raw
+flax param (`self.param`: LR's `bias`, xDeepFM's `cin_<i>`) is a
+`layers.Param` under the same flat name, in the same layout. Dense
 optimizer slots travel as flat names `<param>/<slot>` (`Dense_0/kernel/accum`,
 the content of a checkpoint's `dense_slots.npz`) of (1, size) rows: a
 kernel's slot row is laid out like the flax kernel flattened, so it is
@@ -13,6 +15,11 @@ sparse_as_dense tables travel in the dense params under
 `__embeddings__/<name>` (rows, dim), and their slots as
 `__embeddings__/<name>/<slot>` (1, rows * dim) rows, row-major in both
 packages, so they need no relayout.
+
+Hash tables travel as their keys: single-lane int64 keys (the JAX package
+with 64-bit types on, the layout its tests run) by position, bit for bit;
+split-pair uint32 keys (64-bit types off) by their resident ids, re-inserted
+with `np_hash_insert`, their rows and slot rows moved along.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .layers import Param
 from .model import SAD_SCOPE
 
 _SAD_PREFIX = SAD_SCOPE + "/"
@@ -50,6 +58,9 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
         if key.startswith(_SAD_PREFIX):
             sad[key[len(_SAD_PREFIX):]] = value
             continue
+        if isinstance(layers.get(key), Param):
+            by_layer[key] = {"value": np.asarray(value)}
+            continue
         path, _, leaf = key.rpartition("/")
         if path not in layers or leaf not in ("kernel", "bias"):
             raise KeyError(f"flax param {key!r} has no counterpart in "
@@ -59,6 +70,9 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
     device = next((p.device for p in module.parameters()),
                   torch.device("cpu"))
     for path, leaves in by_layer.items():
+        if isinstance(layers[path], Param):
+            layers[path].set_value(torch.tensor(leaves["value"]).to(device))
+            continue
         if set(leaves) != {"kernel", "bias"}:
             raise KeyError(f"flax layer {path!r} needs both kernel and bias")
         kernel = torch.tensor(leaves["kernel"], dtype=torch.float32)
@@ -77,6 +91,9 @@ def dense_to_flax(module: nn.Module,
     out = {}
     for path, layer in _flax_dense(module).items():
         if not layer.materialized:
+            continue
+        if isinstance(layer, Param):
+            out[path] = layer.value.detach().cpu().numpy()
             continue
         out[f"{path}/kernel"] = layer.weight.detach().t().contiguous().cpu(
         ).numpy()
@@ -113,6 +130,9 @@ def _flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
         if path is None or not mod.materialized:
             continue
         prefix = f"{mod_name}." if mod_name else ""
+        if isinstance(mod, Param):
+            out[f"{prefix}value"] = (path, False)
+            continue
         out[f"{prefix}weight"] = (f"{path}/kernel", True)
         out[f"{prefix}bias"] = (f"{path}/bias", False)
     return out
@@ -185,9 +205,10 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
                          ):
     """A `TrainState` on `device` from the JAX package's state as numpy:
     `tables` {name: {"weights": (rows, dim), "slots": {slot: (rows, w)}}},
-    flat flax-named `dense_params` and `dense_slots` (sparse_as_dense
-    tables and their slots under `__embeddings__/`). The model's dense
-    module takes the parameters and becomes the state's."""
+    a hash table's also with "keys" (either layout) and "overflow", flat
+    flax-named `dense_params` and `dense_slots` (sparse_as_dense tables and
+    their slots under `__embeddings__/`). The model's dense module takes
+    the parameters and becomes the state's."""
     from .embedding import EmbeddingTableState
     from .model import TrainState
     module = model.module
@@ -195,10 +216,20 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
     module.to(device)
     out_tables = {}
     for name, t in tables.items():
-        weights = tables_from_numpy({"w": t["weights"]}, device=device)["w"]
-        slots = {k: torch.tensor(np.asarray(v, np.float32), device=device)
-                 for k, v in t["slots"].items()}
-        out_tables[name] = EmbeddingTableState(weights=weights, slots=slots)
+        weights = np.asarray(t["weights"])
+        slots = {k: np.asarray(v, np.float32) for k, v in t["slots"].items()}
+        keys = overflow = None
+        if t.get("keys") is not None:
+            keys, weights, slots = _single_lane(np.asarray(t["keys"]),
+                                                weights, slots)
+            keys = torch.tensor(keys, device=device)
+            overflow = torch.tensor(int(t.get("overflow", 0)),
+                                    dtype=torch.int32, device=device)
+        out_tables[name] = EmbeddingTableState(
+            weights=tables_from_numpy({"w": weights}, device=device)["w"],
+            slots={k: torch.tensor(v, device=device)
+                   for k, v in slots.items()},
+            keys=keys, overflow=overflow)
     return TrainState(
         step=int(step), dense=module,
         dense_slots=dense_slots_from_flax(dense_slots, module, device=device),
@@ -206,22 +237,50 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
         embeddings=tables_from_numpy(sad, device=device))
 
 
+def _single_lane(keys: np.ndarray, weights: np.ndarray, slots):
+    """A JAX hash table's keys -> (int64 keys, weights, slots) of the same
+    table with single-lane keys: such keys as they are, split-pair keys
+    re-inserted by their resident ids (rows of the slots no id takes keep
+    their values)."""
+    from .tables.hash_table import np_hash_insert, np_resident_ids
+    if keys.ndim == 1:
+        return keys.astype(np.int64), weights, slots
+    sel, ids = np_resident_ids(keys)
+    src = np.flatnonzero(sel)
+    out = np.full(keys.shape[0], -1, np.int64)
+    pos = np_hash_insert(out, ids)
+    ok = pos >= 0
+
+    def move(a):
+        moved = a.copy()
+        moved[pos[ok]] = a[src[ok]]
+        return moved
+
+    return out, move(weights), {k: move(v) for k, v in slots.items()}
+
+
 def train_state_to_jax(state) -> Dict:
     """The state as numpy in the JAX package's layout: {"step",
-    "model_version", "tables": {name: {"weights", "slots"}},
-    "dense_params": flat flax names, "dense_slots": flat flax names}.
-    Every array is a copy: the train step updates the state's tensors in
-    place, and a CPU tensor's `.numpy()` shares its memory."""
+    "model_version", "tables": {name: {"weights", "slots"}, with "keys"
+    (int64, single-lane) and "overflow" for a hash table}, "dense_params":
+    flat flax names, "dense_slots": flat flax names}. Every array is a
+    copy: the train step updates the state's tensors in place, and a CPU
+    tensor's `.numpy()` shares its memory."""
     def copies(flat):
         return {k: np.array(v, copy=True) for k, v in flat.items()}
 
+    def table(t):
+        out = {"weights": np.array(table_to_numpy(t.weights), copy=True),
+               "slots": copies({k: v.detach().cpu().numpy()
+                                for k, v in t.slots.items()})}
+        if t.keys is not None:
+            out["keys"] = t.keys.detach().cpu().numpy().copy()
+            out["overflow"] = int(t.overflow)
+        return out
+
     return {
         "step": int(state.step), "model_version": int(state.model_version),
-        "tables": {name: {"weights": np.array(table_to_numpy(t.weights),
-                                              copy=True),
-                          "slots": copies({k: v.detach().cpu().numpy()
-                                           for k, v in t.slots.items()})}
-                   for name, t in state.tables.items()},
+        "tables": {name: table(t) for name, t in state.tables.items()},
         "dense_params": copies(dense_to_flax(state.dense, state.embeddings)),
         "dense_slots": copies(dense_slots_to_flax(state.dense,
                                                   state.dense_slots)),

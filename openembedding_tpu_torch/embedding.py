@@ -1,10 +1,12 @@
 """Embedding variable spec, table state + the user-facing `Embedding` layer.
 
-Port of `openembedding_tpu/embedding.py` for array tables: the spec, the
-table state (weights + optimizer slots) and its init, the serving lookup,
-the training pull (`lookup_train`) and push (`apply_gradients`), the
-validity masks and the combiner pooling. The device hash table and
-host-cached tables are not ported yet (ROADMAP.md).
+Port of `openembedding_tpu/embedding.py`: the spec, the table state
+(weights + optimizer slots, and for a hash table its keys and overflow
+counter) and its init, the serving lookup, the training pull
+(`lookup_train`) and push (`apply_gradients`), the validity masks and the
+combiner pooling. Array tables index rows by id; hash tables
+(`input_dim=-1`, the 63-bit hashed id space) probe `tables/hash_table.py`.
+Host-cached tables are not ported yet (ROADMAP.md A.4).
 
 Ids are single-lane int64 tensors throughout the port: torch has int64 on
 every device, so the JAX package's split-pair uint32 id layout has no
@@ -23,8 +25,8 @@ from .initializers import Initializer, Uniform
 from .meta import DataType, EmbeddingVariableMeta, HASH_VOCABULARY_THRESHOLD
 from .optimizers import SparseOptimizer
 from .ops.sparse import lookup_rows, sparse_apply_dense_table
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md)"
+from .tables.hash_table import (fresh_keys, hash_apply_gradients,
+                                hash_lookup, hash_lookup_train)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,29 +104,27 @@ class EmbeddingSpec:
         }
 
 
-def _array_table_only(spec: EmbeddingSpec) -> None:
-    if spec.use_hash_table:
-        raise NotImplementedError(
-            f"hash-table variable {spec.name!r}: the device hash table "
-            f"{_NOT_PORTED}")
-
-
 def init_table(spec: EmbeddingSpec, generator: torch.Generator
                ) -> torch.Tensor:
-    """Materialize an array table's weights on the generator's device."""
-    _array_table_only(spec)
+    """Materialize a table's weights on the generator's device: the
+    vocabulary's rows, or a hash table's `capacity` rows (every slot's row
+    drawn now, the one an id that claims the slot starts from)."""
     return spec.initializer(generator, (spec.rows_per_shard(1),
                                         spec.output_dim), spec.dtype)
 
 
 @dataclasses.dataclass
 class EmbeddingTableState:
-    """One array table's training storage: weights (rows, dim) and the
-    optimizer's slots {name: (rows, width) float32}. The train step updates
-    both in place."""
+    """One table's training storage: weights (rows, dim) and the optimizer's
+    slots {name: (rows, width) float32}; a hash table also has `keys`
+    (capacity,) int64 (-1 empty) and `overflow`, a () int32 count of the ids
+    its pulls found no slot for (read by `Trainer.table_overflow`, never on
+    the step's path). The train step updates all of them in place."""
 
     weights: torch.Tensor
     slots: Dict[str, torch.Tensor]
+    keys: Optional[torch.Tensor] = None
+    overflow: Optional[torch.Tensor] = None
 
 
 def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
@@ -133,37 +133,71 @@ def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
     device) and the optimizer's slots at their initial values."""
     if spec.storage != "hbm":
         raise NotImplementedError(
-            f"variable {spec.name!r}: storage={spec.storage!r} {_NOT_PORTED}")
+            f"variable {spec.name!r}: storage={spec.storage!r} (host-cached "
+            "tables) is not ported yet (ROADMAP.md A.4)")
     weights = init_table(spec, generator)
     slots = optimizer.init_slots(weights.shape[0], spec.output_dim,
                                  spec.dtype, device=weights.device)
-    return EmbeddingTableState(weights=weights, slots=slots)
+    keys = overflow = None
+    if spec.use_hash_table:
+        keys = fresh_keys(weights.shape[0], device=weights.device)
+        overflow = torch.zeros((), dtype=torch.int32, device=weights.device)
+    return EmbeddingTableState(weights=weights, slots=slots, keys=keys,
+                               overflow=overflow)
 
 
-def lookup(spec: EmbeddingSpec, weights: torch.Tensor,
+def lookup(spec: EmbeddingSpec, state: EmbeddingTableState,
            ids: torch.Tensor) -> torch.Tensor:
-    """Single-shard array-table pull: ids (any shape) -> ids.shape + (dim,)."""
-    _array_table_only(spec)
-    return lookup_rows(weights, ids)
+    """Single-shard read-only pull: ids (any shape) -> ids.shape + (dim,).
+    Absent, negative and out-of-range ids give zero rows."""
+    flat = ids.reshape(-1)
+    if spec.use_hash_table:
+        rows = hash_lookup(state, flat)
+    else:
+        rows = lookup_rows(state.weights, flat)
+    return rows.reshape(tuple(ids.shape) + (spec.output_dim,))
 
 
 def lookup_train(spec: EmbeddingSpec, state: EmbeddingTableState,
-                 ids: torch.Tensor):
-    """Training pull -> (state, rows). Array tables never change on a pull,
-    so this is `lookup`; the rows are a plain tensor, not a view of the
-    table (the caller makes them the leaf it differentiates against)."""
-    return state, lookup(spec, state.weights, ids)
+                 ids: torch.Tensor, out_dim: Optional[int] = None):
+    """Training pull -> (state, rows, overflow, slot). Array tables never
+    change on a pull (overflow and slot are None); a hash table inserts
+    unseen ids and adds the pull's overflow () int32 to its counter, in
+    place, and `slot` holds the flat ids' slots, which `apply_gradients`
+    takes so the push does not probe again. The rows are a plain tensor,
+    not a view of the table (the caller makes them the leaf it
+    differentiates against). `out_dim`: the state holds the packed
+    weights+slots layout of `Trainer.train_many`; keep the weight
+    columns."""
+    flat = ids.reshape(-1)
+    overflow = slot = None
+    if spec.use_hash_table:
+        state, rows, overflow, slot = hash_lookup_train(state, flat,
+                                                        out_dim=out_dim)
+    else:
+        rows = lookup_rows(state.weights, flat)
+        if out_dim is not None:
+            rows = rows[:, :out_dim]
+    return state, rows.reshape(tuple(ids.shape) + (spec.output_dim,)), \
+        overflow, slot
 
 
 def apply_gradients(spec: EmbeddingSpec, state: EmbeddingTableState,
                     optimizer: SparseOptimizer, ids: torch.Tensor,
-                    grads: torch.Tensor) -> EmbeddingTableState:
+                    grads: torch.Tensor, slot: Optional[torch.Tensor] = None
+                    ) -> EmbeddingTableState:
     """Push + update, in place: duplicate ids' gradients summed, the
-    optimizer applied once per unique valid id; -1 pads and out-of-range
-    ids train nothing. Returns `state`."""
-    _array_table_only(spec)
+    optimizer applied once per unique valid id; -1 pads, out-of-range ids
+    and a hash table's absent ids train nothing. `slot`: a hash table's
+    slots of these ids from `lookup_train` (the keys unchanged since); the
+    push probes for them without it. Returns `state`."""
+    flat_ids = ids.reshape(-1)
+    flat_grads = grads.reshape(-1, spec.output_dim)
+    if spec.use_hash_table:
+        return hash_apply_gradients(state, optimizer, flat_ids, flat_grads,
+                                    slot=slot)
     sparse_apply_dense_table(optimizer, state.weights, state.slots,
-                             ids.reshape(-1), grads.reshape(-1, spec.output_dim))
+                             flat_ids, flat_grads)
     return state
 
 

@@ -7,8 +7,10 @@
         --device cpu --data examples/train100.tsv --batch-size 32 \\
         --vocabulary 1000 --steps 10
 
-A DeepFM (`--model`; the other families of the JAX zoo are not ported yet
-and raise) with one folded table of `--vocabulary` rows, trained by
+A CTR model of the zoo (`--model`: lr, wdl, deepfm, xdeepfm, dcn or dlrm;
+two_tower, sasrec and bert4rec are not ported yet and raise) at the JAX
+entry point's defaults, with one folded table of `--vocabulary` rows
+(`--dim` + 1 wide; LR's is 1 wide and takes no `--dim`), trained by
 `Trainer` with `--optimizer` on Criteo TSV files (`--data`, parsed by the
 native reader and rebatched by `CriteoBatcher`) or on the synthetic Zipfian
 stream (`--synthetic`, the default without `--data`). Steps run through
@@ -54,7 +56,8 @@ OPTIMIZERS = {
     "rmsprop": lambda lr: optimizers.RMSprop(learning_rate=lr),
 }
 
-# the JAX zoo's families; all but deepfm raise in `models.from_config`
+# the JAX zoo's families; two_tower, sasrec and bert4rec raise in
+# `models.from_config`
 FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
             "wdl", "xdeepfm")
 
@@ -164,8 +167,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
-    model = zoo.from_config({"family": args.model,
-                             "vocabulary": args.vocabulary, "dim": args.dim})
+    recipe = {"family": args.model, "vocabulary": args.vocabulary,
+              "dim": args.dim}
+    if args.model == "lr":
+        recipe.pop("dim")  # LR's table is the 1-wide first-order weight
+    model = zoo.from_config(recipe)
     if args.cache > 0 and args.vocabulary <= args.cache:
         spec = model.specs["categorical"]
         model.specs["categorical"] = dataclasses.replace(

@@ -97,22 +97,27 @@ def export_standalone(state: Union[WeightsState, TrainState],
                       *, model_sign: str = "") -> ModelMeta:
     """Write every embedding variable and the dense module into a
     self-contained directory, from fresh weights or from a training state.
-    Weights only (no optimizer slots); array tables only (the port has no
-    device hash table yet). A sparse_as_dense table is written as a plain
-    array table, and served like one."""
+    Weights only (no optimizer slots). A hash table writes its resident
+    ids sorted (`ids.npy`) and their rows (fresh weights from
+    `init_weights` hold no id). A sparse_as_dense table is written as a
+    plain array table, and served like one."""
+    from .checkpoint import compact_hash_table
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
     for name, spec in model.specs.items():
-        if spec.use_hash_table:
-            raise NotImplementedError(
-                f"variable {name!r}: exporting a hash table is not ported yet "
-                "(see ROADMAP.md)")
+        ids = None
         if isinstance(state, TrainState):
             weights = (state.embeddings[name] if spec.sparse_as_dense
                        else state.tables[name].weights)
+            if spec.use_hash_table:
+                ids, sel = compact_hash_table(state.tables[name])
+                weights = weights[torch.from_numpy(sel).to(weights.device)]
         else:
             weights = state.tables[name]
+            if spec.use_hash_table:
+                ids = np.zeros(0, np.int64)
+                weights = weights[:0]
         if weights.dtype != torch.float32:
             raise NotImplementedError(
                 f"variable {name!r}: the port exports float32 tables only, "
@@ -122,7 +127,10 @@ def export_standalone(state: Union[WeightsState, TrainState],
         meta.variables.append(ModelVariableMeta(
             variable_id=spec.variable_id, storage_name=name, meta=spec.meta,
             initializer=spec.initializer.to_config(),
-            table={"category": "array", "capacity": spec.capacity}))
+            table={"category": "hash" if ids is not None else "array",
+                   "capacity": spec.capacity}))
+        if ids is not None:
+            np.save(os.path.join(vdir, "ids.npy"), ids)
         np.save(os.path.join(vdir, "weights.npy"),
                 weights.detach().cpu().numpy())
 

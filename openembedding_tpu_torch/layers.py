@@ -1,9 +1,11 @@
-"""`Dense`: the port's counterpart of flax's `nn.Dense`.
+"""`Dense` and `Param`: the port's counterparts of flax's `nn.Dense` and of a
+raw `self.param`.
 
 A flax layer learns its input width from the first batch it sees (`init`);
-`Dense` does the same: its parameters are created by `materialize` (from a
-sample forward pass, with an explicit generator) or by loading weights
-(`convert.dense_from_flax`), and a forward before either raises.
+`Dense` and `Param` do the same: their parameters are created by
+`materialize` (from a sample forward pass, with an explicit generator) or by
+loading weights (`convert.dense_from_flax`), and a forward before either
+raises.
 
 Numerics follow `nn.Dense(features, dtype=compute_dtype,
 param_dtype=float32)`: parameters are stored in float32, and the input, the
@@ -71,13 +73,60 @@ class Dense(nn.Module):
         return y + self.bias.to(cd)
 
 
+class Param(nn.Module):
+    """A raw float32 parameter (flax's `self.param(name, init, shape)`),
+    created at its first use, whose shape the caller computes from its
+    inputs. `init`: "zeros" or "glorot_uniform" (flax's, on the last two
+    axes: fan_in = shape[-2] * the receptive field, fan_out = shape[-1] *
+    the receptive field, the receptive field the product of the leading
+    axes). Its flat flax name is the one its owner lists in `flax_dense()`;
+    `convert.py` carries it across unchanged (same layout in both)."""
+
+    def __init__(self, init: str):
+        super().__init__()
+        if init not in ("zeros", "glorot_uniform"):
+            raise ValueError(f"unknown Param init {init!r}")
+        self.init = init
+        self.register_parameter("value", None)
+        self._generator: Optional[torch.Generator] = None
+
+    @property
+    def materialized(self) -> bool:
+        return self.value is not None
+
+    def set_value(self, value: torch.Tensor) -> None:
+        self.value = nn.Parameter(value.to(torch.float32).contiguous())
+
+    def init_value(self, shape, generator: torch.Generator) -> None:
+        v = torch.zeros(shape, dtype=torch.float32, device=generator.device)
+        if self.init == "glorot_uniform":
+            receptive = math.prod(shape[:-2])
+            fan_avg = (shape[-2] + shape[-1]) * receptive / 2
+            limit = math.sqrt(3.0 / fan_avg)
+            v.uniform_(-limit, limit, generator=generator)
+        self.set_value(v)
+
+    def forward(self, shape) -> torch.Tensor:
+        shape = tuple(int(x) for x in shape)
+        if self.value is None:
+            if self._generator is None:
+                raise RuntimeError(
+                    "Param has no value: call layers.materialize or load "
+                    "weights with convert.dense_from_flax first")
+            self.init_value(shape, self._generator)
+        if tuple(self.value.shape) != shape:
+            raise ValueError(f"Param holds shape {tuple(self.value.shape)}, "
+                             f"its use needs {shape}")
+        return self.value
+
+
 @torch.no_grad()
 def materialize(module: nn.Module, *args, generator: torch.Generator,
                 **kwargs) -> None:
-    """Create every `Dense` parameter of `module` from one sample forward
-    pass (the counterpart of flax's `module.init(key, *args)`), drawing from
-    `generator` in call order."""
-    dense = [m for m in module.modules() if isinstance(m, Dense)]
+    """Create every `Dense` and `Param` parameter of `module` from one
+    sample forward pass (the counterpart of flax's `module.init(key,
+    *args)`), drawing from `generator` in call order."""
+    dense = [m for m in module.modules() if isinstance(m, (Dense, Param))]
     for m in dense:
         m._generator = generator
     try:

@@ -162,12 +162,16 @@ def apply_bytes(rows: np.ndarray, counts: np.ndarray, n_rows: int, dim: int,
 
 
 def state_bits(state) -> Dict[str, torch.Tensor]:
-    """Every tensor of a TrainState (tables, slots, dense parameters,
-    sparse_as_dense tables and their slots) by name."""
+    """Every tensor of a TrainState (tables, slots, a hash table's keys and
+    overflow counter, dense parameters, sparse_as_dense tables and their
+    slots) by name."""
     out = {}
     for name, t in state.tables.items():
         out[f"{name}/weights"] = t.weights
         out.update({f"{name}/{k}": v for k, v in t.slots.items()})
+        if t.keys is not None:
+            out[f"{name}/keys"] = t.keys
+            out[f"{name}/overflow"] = t.overflow
     for pname, p in dense_leaves(state.dense, state.embeddings):
         out[f"dense/{pname}"] = p.detach()
         out.update({f"dense/{pname}/{k}": v
@@ -362,7 +366,9 @@ def bench_train(b: _Bench, vocab: int, batch_size: int, iters: int) -> None:
                "timer": "host_clock"}
         if mode == "graph":
             rec.update(captures=step.captures, replays=step.replays,
-                       launches_per_replay=step.launches_per_replay)
+                       graph_launches=step.graph_launches,
+                       launches_captured=dict(step.launches_captured),
+                       launches_replayed=dict(step.launches_replayed))
         b.emit(rec)
         finals[mode] = state
     want = state_bits(finals["eager"])

@@ -38,8 +38,10 @@ from .embedding import (Embedding, EmbeddingSpec, EmbeddingTableState,
                         apply_gradients, combine, init_table,
                         init_table_state, lookup, lookup_train)
 from .layers import materialize
-from .ops.sparse import (lookup_rows_trainable, pack_table, packed_layout,
-                         sparse_apply_packed_table, unpack_table)
+from .ops.sparse import (lookup_rows, lookup_rows_trainable, pack_table,
+                         packed_layout, sparse_apply_packed_table,
+                         unpack_table)
+from .tables.hash_table import hash_apply_gradients_packed
 from .optimizers import Adagrad, SparseOptimizer
 from .utils.fs import local_path
 
@@ -182,11 +184,17 @@ def _materialize_dense(model: EmbeddingModel, tables: Dict[str, torch.Tensor],
     """Create the dense module's parameters on `device` from one forward
     pass over `sample_batch` (already transformed), drawing from a
     generator seeded from `seed`. `tables` holds every variable's weights,
-    sparse_as_dense ones included."""
-    embedded = {
-        name: lookup(spec, tables[name], _to_device(
-            sample_batch["sparse"][spec.feature_name], device))
-        for name, spec in model.specs.items()}
+    sparse_as_dense ones included. A hash table holds no id yet, so its
+    rows are zeros, as the JAX package's init feeds them."""
+    embedded = {}
+    for name, spec in model.specs.items():
+        ids = _to_device(sample_batch["sparse"][spec.feature_name], device)
+        if spec.use_hash_table:
+            embedded[name] = torch.zeros(
+                tuple(ids.shape) + (spec.output_dim,), dtype=spec.dtype,
+                device=device)
+        else:
+            embedded[name] = lookup_rows(tables[name], ids)
     attach_ids(embedded, model, sample_batch, device)
     dense = sample_batch.get("dense")
     if dense is not None:
@@ -324,6 +332,8 @@ def _state_key(state: TrainState) -> tuple:
     for ts in state.tables.values():
         ptrs += [ts.weights.data_ptr()] + [v.data_ptr()
                                            for v in ts.slots.values()]
+        ptrs += [t.data_ptr() for t in (ts.keys, ts.overflow)
+                 if t is not None]
     for name, p in dense_leaves(state.dense, state.embeddings):
         ptrs += [p.data_ptr()] + [v.data_ptr()
                                   for v in state.dense_slots[name].values()]
@@ -406,7 +416,8 @@ class Trainer:
 
     def save(self, state: TrainState, path: str, **kw):
         """`checkpoint.save_server_model` of the state into the local
-        directory `path` (remote URIs: ROADMAP.md item 7)."""
+        directory `path` (remote URIs: ROADMAP.md item 7); pass
+        `include_optimizer=False` to leave the optimizer slots out."""
         from .checkpoint import save_server_model
         return save_server_model(state, self.model, local_path(path), **kw)
 
@@ -415,6 +426,30 @@ class Trainer:
         into `state`, in place; returns it."""
         from .checkpoint import load_server_model
         return load_server_model(state, self.model, local_path(path))
+
+    # -- overflow governance (the JAX package's hooks) ----------------------
+
+    @staticmethod
+    def overflow_count(metrics) -> int:
+        """Exchange-bucket drops in a step's or window's metrics: always 0
+        on one device, as in the JAX package's single-device Trainer (its
+        MeshTrainer reads a real counter)."""
+        del metrics
+        return 0
+
+    def check_overflow(self, metrics, **kw) -> bool:
+        """The overflow-policy hook: nothing to do on one device."""
+        del metrics, kw
+        return False
+
+    def table_overflow(self, state: TrainState, name: str) -> int:
+        """Lifetime count of the ids a hash table's pulls found no slot for
+        (0 for an array table); reads the device counter back to the
+        host."""
+        ts = state.tables.get(name)
+        if ts is None or ts.overflow is None:
+            return 0
+        return int(ts.overflow)
 
     # -- the packed weights+slots layout of train_many ----------------------
 
@@ -429,44 +464,50 @@ class Trainer:
                 out[name] = lay
         return out
 
-    def _packed_pull(self, spec: EmbeddingSpec, table: EmbeddingTableState,
-                     ids: torch.Tensor) -> torch.Tensor:
-        """Pull from the packed layout: one gather of whole packed rows, of
-        which the weight columns are kept."""
-        return lookup(spec, table.weights, ids)[..., :spec.output_dim]
-
     def _packed_apply(self, spec: EmbeddingSpec, table: EmbeddingTableState,
-                      ids: torch.Tensor, grads: torch.Tensor, layout) -> None:
+                      ids: torch.Tensor, grads: torch.Tensor, layout,
+                      slot: Optional[torch.Tensor]) -> None:
+        flat_ids = ids.reshape(-1)
+        flat_grads = grads.reshape(-1, spec.output_dim)
+        if spec.use_hash_table:
+            hash_apply_gradients_packed(table, self.opt_for(spec), flat_ids,
+                                        flat_grads, layout, spec.output_dim,
+                                        slot=slot)
+            return
         sparse_apply_packed_table(
             self.opt_for(spec), table.weights, layout, spec.output_dim,
-            ids.reshape(-1), grads.reshape(-1, spec.output_dim))
+            flat_ids, flat_grads)
 
     # -- steps ---------------------------------------------------------------
 
     def _step(self, state: TrainState, b: Dict[str, Any],
-              packed: Dict[str, tuple]) -> Tuple[torch.Tensor, torch.Tensor]:
+              packed: Dict[str, tuple]
+              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """One step on a batch already on the device: transform -> pull ->
         forward/backward -> dense apply + sparse apply, in place -> (loss,
-        logits). It copies nothing from the host and reads nothing back, so
-        it can be captured as a CUDA graph. `packed`: {name: column layout}
-        of the tables whose state holds the packed array. The four phases
-        are `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
-        `trainer.dense_apply`, `trainer.sparse_apply`)."""
+        logits, stats); stats holds `<table>_overflow`, the ids each hash
+        table's pull found no slot for this step. It copies nothing from the
+        host and reads nothing back, so it can be captured as a CUDA graph.
+        `packed`: {name: column layout} of the tables whose state holds the
+        packed array. A hash table probes once a step: its push takes the
+        slots its pull found (`at`), as the keys do not change between
+        them. The four phases are `torch.profiler` ranges
+        (`trainer.pull`, `trainer.compute`, `trainer.dense_apply`,
+        `trainer.sparse_apply`)."""
         b = _transformed(self.model, b)
         ps_specs = self.model.ps_specs()
         sad_specs = self.model.sad_specs()
         with record_function("trainer.pull"):
             ids = {name: b["sparse"][spec.feature_name]
                    for name, spec in self.model.specs.items()}
-            pulled = {}
+            pulled, at, stats = {}, {}, {}
             for name, spec in ps_specs.items():
-                if name in packed:
-                    rows = self._packed_pull(spec, state.tables[name],
-                                             ids[name])
-                else:
-                    _, rows = lookup_train(spec, state.tables[name],
-                                           ids[name])
+                _, rows, overflow, at[name] = lookup_train(
+                    spec, state.tables[name], ids[name],
+                    out_dim=spec.output_dim if name in packed else None)
                 pulled[name] = rows.requires_grad_()
+                if overflow is not None:
+                    stats[f"{name}_overflow"] = overflow
             # each sparse_as_dense table enters autograd as a leaf that
             # shares its storage (dense_apply writes the table itself); its
             # pulled rows carry the gradient back to it
@@ -490,26 +531,28 @@ class Trainer:
             for name, spec in ps_specs.items():
                 if name in packed:
                     self._packed_apply(spec, state.tables[name], ids[name],
-                                       pulled[name].grad, packed[name])
+                                       pulled[name].grad, packed[name],
+                                       at[name])
                 else:
                     apply_gradients(spec, state.tables[name],
                                     self.opt_for(spec), ids[name],
-                                    pulled[name].grad)
-        return loss.detach(), logits.detach()
+                                    pulled[name].grad, slot=at[name])
+        return loss.detach(), logits.detach(), stats
 
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One synchronous step: the batch to the device (`trainer.h2d`),
         then `_step`, in place. Returns (state, {"loss": (), "logits":
-        (B,), "stats": {}}); nothing is read back to the host. "stats" is
-        empty, as in the JAX package's single-device step without its
-        numerics sentinel (ROADMAP.md item 1.5)."""
+        (B,), "stats": {"<table>_overflow": () int32 per hash table}});
+        nothing is read back to the host. The JAX package's single-device
+        step has no overflow stats (ROADMAP.md §C); the numerics sentinel's
+        stats are not ported (ROADMAP.md item 1.5)."""
         with record_function("trainer.h2d"):
             b = self._device_batch(batch)
-        loss, logits = self._step(state, b, {})
+        loss, logits, stats = self._step(state, b, {})
         state.step += 1
         state.model_version += 1
-        return state, {"loss": loss, "logits": logits, "stats": {}}
+        return state, {"loss": loss, "logits": logits, "stats": stats}
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -518,7 +561,7 @@ class Trainer:
         for name, spec in self.model.ps_specs().items():
             ids = b["sparse"][spec.feature_name]
             embedded[name] = combine(
-                spec, ids, lookup(spec, state.tables[name].weights, ids))
+                spec, ids, lookup(spec, state.tables[name], ids))
         for name, spec in self.model.sad_specs().items():
             ids = b["sparse"][spec.feature_name]
             embedded[name] = combine(
@@ -527,20 +570,31 @@ class Trainer:
         logits = state.dense(embedded, b.get("dense"))
         return {"logits": logits, "loss": self._loss(logits, b)}
 
-    def _many(self, state: TrainState, b: Dict[str, Any]) -> torch.Tensor:
+    def _many(self, state: TrainState, b: Dict[str, Any]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The K steps of `train_many` on a stacked batch already on the
-        device -> losses (K,). Packs at entry, runs the steps on the packed
-        arrays, copies the values back into the split tensors at exit; the
-        state's split table objects are back in place whatever happens."""
+        device -> (losses (K,), overflow () int32: the steps' `_overflow`
+        stats summed). Packs at entry, runs the steps on the packed arrays
+        (a hash table keeps its keys and counter apart, updated in place),
+        copies the values back into the split tensors at exit; the state's
+        split table objects are back in place whatever happens."""
         layouts = self._packed_layouts(state)
         split = {name: state.tables[name] for name in layouts}
+        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
         try:
             for name, lay in layouts.items():
                 ts = split[name]
                 state.tables[name] = EmbeddingTableState(
-                    weights=pack_table(ts.weights, ts.slots, lay), slots={})
-            losses = [self._step(state, _batch_slice(b, k), layouts)[0]
-                      for k in range(b["label"].shape[0])]
+                    weights=pack_table(ts.weights, ts.slots, lay), slots={},
+                    keys=ts.keys, overflow=ts.overflow)
+            losses = []
+            for k in range(b["label"].shape[0]):
+                loss, _, stats = self._step(state, _batch_slice(b, k),
+                                            layouts)
+                losses.append(loss)
+                for key, v in stats.items():
+                    if key.endswith("_overflow"):
+                        overflow = overflow + v
             for name, lay in layouts.items():
                 spec = self.model.specs[name]
                 w, slots = unpack_table(state.tables[name].weights, lay,
@@ -550,7 +604,7 @@ class Trainer:
                     split[name].slots[k].copy_(v)
         finally:
             state.tables.update(split)
-        return torch.stack(losses)
+        return torch.stack(losses), overflow
 
     def train_many(self, state: TrainState, batches
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -561,16 +615,15 @@ class Trainer:
         packed at entry, copied back into the state's own split tensors at
         exit, so the state outside this function keeps the split layout.
         Equal to K `train_step` calls, bit for bit.
-        Returns (state, {"loss": (K,), "overflow": ()}); "overflow" counts
-        exchange-bucket drops over the window, always 0 on one device."""
+        Returns (state, {"loss": (K,), "overflow": ()}); "overflow" sums the
+        steps' `<table>_overflow` stats, the ids the hash tables' pulls found
+        no slot for in the window (0 without hash tables)."""
         b = self._device_batch(batches)
-        losses = self._many(state, b)
+        losses, overflow = self._many(state, b)
         k_steps = losses.shape[0]
         state.step += k_steps
         state.model_version += k_steps
-        return state, {"loss": losses,
-                       "overflow": torch.zeros((), dtype=torch.int32,
-                                               device=self.device)}
+        return state, {"loss": losses, "overflow": overflow}
 
     # -- compiled steps ------------------------------------------------------
 
@@ -596,47 +649,66 @@ class CompiledStep:
     - The first call for a state and a batch structure (keys, leaf shapes
       and dtypes) runs the eager function once on a side stream (the
       warm-up; it is that call's real step) and then captures it on the same
-      stream. A call with another state object, a state whose tensors were
-      replaced (`checkpoint.load_server_model` rebinds some), or other
-      shapes captures anew.
-    - Every later call copies the batch into the graph's static device
+      stream. The graph is kept for that structure, so a loop whose last
+      batch of a pass is padded (it carries a "weight") keeps two graphs, as
+      a jitted function keeps a compile per shape. Each graph holds its own
+      memory pool, so at most `MAX_GRAPHS` are kept: a new structure beyond
+      them drops the oldest graph. A call with another state object or a
+      state whose tensors were replaced (`checkpoint.load_server_model`
+      rebinds some) drops every graph and captures anew.
+    - Every later call copies the batch into its graph's static device
       buffers (outside the graph), replays the graph (one dispatch) and
       advances the state's step counters.
-    - `metrics` are the graph's static outputs ("loss" and "logits"; for a
-      window "loss" (K,) and "overflow"). The next call overwrites them: a
-      caller who keeps them across calls clones them.
+    - `metrics` are the graph's static outputs ("loss", "logits" and
+      "stats"; for a window "loss" (K,) and "overflow"). The next call with
+      the same batch structure overwrites them: a caller who keeps them
+      across calls clones them.
     - Every update of the captured function writes in place, so a replay
-      reads the state as the previous call left it. The graph holds the
-      state it was captured on, its buffers and the memory of its
-      intermediates until it is captured anew or this object is dropped.
+      reads the state as the previous call left it. The graphs hold the
+      state they were captured on, their buffers and the memory of their
+      intermediates until they are captured anew or this object is
+      dropped.
     - A capture that fails raises; nothing falls back to eager.
-    - Kernel wrappers count launches while the graph is captured, not when
-      it replays: `launches_per_replay` holds what one replay launches,
-      `replays` how many replays ran, `captures` how many captures.
+    - Kernel wrappers count launches while a graph is captured, not when it
+      replays: `captures` and `replays` count the captures and the replays,
+      `launches_captured` / `launches_replayed` sum what the captures
+      counted and what the replays launched, per kernel, and
+      `graph_launches` lists what one replay of each kept graph launches.
+      The launches that ran are the wrappers' counts less
+      `launches_captured` plus `launches_replayed`.
 
     On a Trainer made with device="cpu" a call runs the eager function."""
+
+    MAX_GRAPHS = 4
 
     def __init__(self, trainer: Trainer, *, many: bool):
         self.trainer = trainer
         self.many = many
         self.captures = 0
         self.replays = 0
-        self.launches_per_replay: Dict[str, int] = {}
+        self.launches_captured: Dict[str, int] = {}
+        self.launches_replayed: Dict[str, int] = {}
         self._stream = None
         self._release()
 
     def _release(self) -> None:
-        self._graph = self._key = self._state = None
-        self._static_in = self._static_out = None
+        # batch key -> (graph, static inputs, static outputs, launches)
+        self._graphs: Dict[Any, tuple] = {}
+        self._state = self._state_ptrs = None
+
+    @property
+    def graph_launches(self) -> List[Dict[str, int]]:
+        """What one replay of each kept graph launches, per kernel, in the
+        order of their captures."""
+        return [dict(g[3]) for g in self._graphs.values()]
 
     def _run(self, state: TrainState, b) -> Dict[str, torch.Tensor]:
         tr = self.trainer
         if self.many:
-            return {"loss": tr._many(state, b),
-                    "overflow": torch.zeros((), dtype=torch.int32,
-                                            device=tr.device)}
-        loss, logits = tr._step(state, b, {})
-        return {"loss": loss, "logits": logits, "stats": {}}
+            losses, overflow = tr._many(state, b)
+            return {"loss": losses, "overflow": overflow}
+        loss, logits, stats = tr._step(state, b, {})
+        return {"loss": loss, "logits": logits, "stats": stats}
 
     def _advance(self, state: TrainState, batch) -> None:
         k = len(batch["label"]) if self.many else 1
@@ -649,22 +721,27 @@ class CompiledStep:
         if tr.device.type != "cuda":
             return (tr.train_many(state, batch) if self.many
                     else tr.train_step(state, batch))
-        key = (_batch_key(batch), _state_key(state))
-        if (self._graph is None or state is not self._state
-                or key != self._key):
+        key = _batch_key(batch)
+        if state is not self._state or _state_key(state) != self._state_ptrs:
+            self._release()  # the old graphs' memory goes first
+        if key not in self._graphs:
+            if len(self._graphs) == self.MAX_GRAPHS:
+                del self._graphs[next(iter(self._graphs))]
             return self._capture(state, batch, key)
+        graph, static_in, static_out, launches = self._graphs[key]
         with record_function("trainer.h2d"):
-            _copy_batch(self._static_in, batch)
+            _copy_batch(static_in, batch)
         with record_function("trainer.replay"):
-            self._graph.replay()
+            graph.replay()
         self.replays += 1
+        for k, n in launches.items():
+            self.launches_replayed[k] = self.launches_replayed.get(k, 0) + n
         self._advance(state, batch)
-        return state, self._static_out
+        return state, static_out
 
     def _capture(self, state: TrainState, batch, key):
         from .ops import launch_counts
         tr = self.trainer
-        self._release()  # the old graph's memory goes first
         if self._stream is None:
             self._stream = torch.cuda.Stream(tr.device)
         stream = self._stream
@@ -683,9 +760,11 @@ class CompiledStep:
                               capture_error_mode="thread_local"):
             static_out = self._run(state, static_in)
         after = launch_counts()
-        self.launches_per_replay = {k: after[k] - before[k] for k in after}
+        launches = {k: after[k] - before[k] for k in after}
+        for k, n in launches.items():
+            self.launches_captured[k] = self.launches_captured.get(k, 0) + n
         self.captures += 1
-        self._graph, self._key, self._state = graph, key, state
-        self._static_in, self._static_out = static_in, static_out
+        self._state, self._state_ptrs = state, _state_key(state)
+        self._graphs[key] = (graph, static_in, static_out, launches)
         self._advance(state, batch)
         return state, out

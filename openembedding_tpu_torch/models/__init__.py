@@ -1,15 +1,20 @@
-"""Model zoo of the port. Slice 1 ports DeepFM; the other families of the
-JAX package's zoo are queued in ROADMAP.md."""
+"""Model zoo of the port: the CTR families of the JAX package's zoo (LR,
+Wide&Deep, DeepFM, xDeepFM, DCN, DLRM). The sequence models and the two-tower
+retrieval model are queued in ROADMAP.md."""
 
 import torch
 
-from .ctr import (MLP, DeepFM, make_deepfm, CRITEO_NUM_SPARSE,
-                  CRITEO_NUM_DENSE)
+from .ctr import (MLP, DCN, DLRM, DeepFM, LogisticRegression, WideDeep,
+                  XDeepFM, CRITEO_NUM_DENSE, CRITEO_NUM_SPARSE, make_dcn,
+                  make_deepfm, make_dlrm, make_lr, make_wdl, make_xdeepfm)
 
-_FAMILIES = {"deepfm": make_deepfm}
+_FAMILIES = {"lr": make_lr, "wdl": make_wdl, "deepfm": make_deepfm,
+             "xdeepfm": make_xdeepfm, "dcn": make_dcn, "dlrm": make_dlrm}
 # families of the JAX package's zoo that the port does not have yet
-_NOT_PORTED = ("lr", "wdl", "xdeepfm", "dcn", "dlrm", "two_tower", "sasrec",
-               "bert4rec")
+_NOT_PORTED = ("two_tower", "sasrec", "bert4rec")
+# config keys that hold layer widths (JSON lists -> tuples)
+_WIDTHS = ("hidden", "cin_layers", "bottom", "top")
+
 
 def from_config(config: dict, **overrides):
     """Rebuild a zoo model from its `EmbeddingModel.config` recipe (the
@@ -24,10 +29,13 @@ def from_config(config: dict, **overrides):
     if family not in _FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
     cfg["compute_dtype"] = getattr(torch, cfg.get("compute_dtype", "bfloat16"))
-    if "hidden" in cfg:
-        cfg["hidden"] = tuple(cfg["hidden"])
+    for key in _WIDTHS:
+        if key in cfg:
+            cfg[key] = tuple(cfg[key])
     return _FAMILIES[family](**cfg)
 
 
-__all__ = ["MLP", "DeepFM", "make_deepfm", "from_config",
+__all__ = ["MLP", "LogisticRegression", "WideDeep", "DeepFM", "XDeepFM",
+           "DCN", "DLRM", "make_lr", "make_wdl", "make_deepfm",
+           "make_xdeepfm", "make_dcn", "make_dlrm", "from_config",
            "CRITEO_NUM_SPARSE", "CRITEO_NUM_DENSE"]

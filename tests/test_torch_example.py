@@ -155,7 +155,7 @@ def test_unported_flags_raise(flag):
 
 def test_other_families_and_no_card_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        criteo_deepctr.main(BASE + ["--model", "wdl", "--steps", "1"])
+        criteo_deepctr.main(BASE + ["--model", "two_tower", "--steps", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         criteo_deepctr.main(["--data", TRAIN100, "--steps", "1"])

@@ -159,7 +159,7 @@ def test_from_config_ports_deepfm_only():
     assert m.module.compute_dtype == torch.float32
     assert m.module.hidden == (8,)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.from_config({"family": "wdl", "vocabulary": 10})
+        models.from_config({"family": "sasrec", "vocabulary": 10})
     with pytest.raises(ValueError, match="unknown model family"):
         models.from_config({"family": "nope"})
 

@@ -222,7 +222,7 @@ def test_compiled_steps_on_the_cpu_give_the_eager_results():
     assert torch.equal(ma["loss"], mb["loss"]) and mb["loss"].shape == (4,)
     assert b.step == a.step == 7
     for d in (step, many):
-        assert (d.captures, d.replays, d.launches_per_replay) == (0, 0, {})
+        assert (d.captures, d.replays, d.graph_launches) == (0, 0, [])
     got, want = convert.train_state_to_jax(b), convert.train_state_to_jax(a)
     np.testing.assert_array_equal(got["tables"]["categorical"]["weights"],
                                   want["tables"]["categorical"]["weights"])

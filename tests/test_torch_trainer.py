@@ -23,6 +23,7 @@ Tolerances, each measured:
   2e-3, 2e-3, 1e-4, 2e-2 and 1e-2.
 """
 
+import dataclasses
 import json
 import os
 
@@ -264,15 +265,18 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Hash tables are not ported and raise. (batch_transform and
-    sparse_as_dense tables are ported: tests/test_torch_sparse_as_dense.py.)"""
+    """Host-cached tables are not ported and raise. (batch_transform and
+    sparse_as_dense tables are ported: tests/test_torch_sparse_as_dense.py;
+    hash tables: tests/test_torch_hashed.py.)"""
     model = make_deepfm(VOCAB, DIM, hidden=(16, 16))
     model.batch_transform = lambda b: b
     Trainer(model, device="cpu").init(_batches(steps=1)[0])
-    hashed = make_deepfm(VOCAB, DIM, hidden=(16, 16), hashed=True,
+    cached = make_deepfm(VOCAB, DIM, hidden=(16, 16), hashed=True,
                          capacity=4096)
+    cached.specs["categorical"] = dataclasses.replace(
+        cached.specs["categorical"], storage="host_cached")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(hashed, device="cpu").init(_batches(steps=1)[0])
+        Trainer(cached, device="cpu").init(_batches(steps=1)[0])
 
 
 def test_per_table_optimizer_reaches_the_spec_and_the_step():
