@@ -158,7 +158,29 @@ final line:
    gather a step (and one at init) and one apply a step; the graph run's
    export served over REST, its logits equal to `eval_step`'s; ms, device
    ms and idle share a step per family;
-12. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+12. mesh   — the mesh path (`openembedding_tpu_torch.parallel`), each
+   run bit-equal to the same run through the plain versions. mesh1:
+   `make_deepfm(1 << 24, 9)` through `MeshTrainer` on a one-rank NCCL
+   group (`case_mesh1` of `bench.py`), the train phase's batches: 24
+   eager steps and two windows of 16, then the same through
+   `jit_train_step` and `jit_train_many` (no collective at S = 1), one
+   gather and one apply a step; the single-device Trainer from the same
+   state (its largest difference reported), ms a step, device ms and idle
+   share beside the array flagship's graph step. mesh4-staged: four gloo
+   ranks spawned on the one card (`multihost.run_local`; the kernels were
+   built before they start), the same table at 2^22 rows a shard, global
+   batch 4096 (1,024 a rank): four eager steps at the fp32 wire and four
+   at the default bf16 wire (a float32 tower), and two steps of the
+   hashed flagship (2^22 slots a shard); each rank holds its steps bit-equal to the plain
+   versions (keys and overflow too) and launches both kernels; step 0's
+   rows (fp32 wire) within rtol 1e-5 / atol 1e-6 of the single-device
+   Trainer with its loss scaled by 4, from the same shards interleaved;
+   ms a step and the bytes staged through the host. The entry point's
+   `--mesh` at one rank on the TSV: a graph run saved (sharded) after one
+   pass, loaded, 16 steps more, held to one uninterrupted plain run. NCCL
+   across cards (`jit_train_step` captured) only where the machine has
+   two cards or more; otherwise the phase says it did not run;
+13. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -2190,6 +2212,427 @@ def phase_zoo(torch, mb, ops, data, tsv: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+MESH_STAGED = 4           # ranks of the staged run on the one card (gloo)
+MESH_STAGED_STEPS = 4     # its eager steps per wire format
+MESH_HASH_STEPS = 2       # the hashed flagship's steps at 4 ranks
+MESH_ENTRY_SAVE = EXAMPLE_BATCHES  # the entry point saves after one pass
+MESH_ENTRY_STEPS = 16     # then loads and runs 16 more
+
+
+def _mesh_launches(counted: dict) -> dict:
+    check(counted["gather_rows_windows"] == 0,
+          f"the mesh path launches no window gather ({counted})")
+    return {k: counted[k] for k in KERNELS}
+
+
+def mesh_one(torch, mb, ops, data, optimizers, array_graph) -> dict:
+    """`case_mesh1` at full width: `make_deepfm(2^24, 9)` through
+    MeshTrainer on a one-rank NCCL group, the train phase's batches: eager
+    steps and windows, the plain versions, both graph drivers; against the
+    single-device Trainer from the same state."""
+    import torch.distributed as dist
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer, make_mesh
+    from openembedding_tpu_torch.parallel import multihost
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-pg-")
+    multihost.initialize("nccl", init_file=os.path.join(tmp, "store"),
+                         rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        check(mesh.size == 1 and mesh.backend == "nccl",
+              f"a one-rank NCCL mesh ({mesh})")
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                              mesh=mesh)
+        steps = TRAIN_STEPS + MANY_WINDOWS * MANY_STEPS
+        batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                             seed=TRAIN_SEED, steps=steps))
+        windows = _windows(batches)
+        state = trainer.init(batches[0])
+        check(state.tables["categorical"].weights.shape == (VOCAB, DIM + 1),
+              "one shard of one rank is the whole table")
+        ref, graph_state, single_state = (state.clone(), state.clone(),
+                                          state.clone())
+        to_np = lambda ls: torch.stack(ls).cpu().numpy()
+
+        ops.reset_launch_counts()  # the path's run: counts read just after
+        losses = []
+        state, seconds = _timed_steps(torch, trainer.train_step, state,
+                                      batches, losses)
+        state, _ = _run_windows(torch, trainer.train_many, state, windows,
+                                losses)
+        launches = _mesh_launches(ops.launch_counts())
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] == steps, f"mesh1: {k} launched "
+                  f"{launches[k]} times in {steps} steps")
+        losses = to_np(losses)
+        check(np.isfinite(losses).all(), "mesh1: finite losses")
+
+        ref_losses = []
+        with ops.plain_versions():
+            for b in batches:
+                ref, m = trainer.train_step(ref, b)
+                ref_losses.append(m["loss"])
+        rec = _compare(torch, mb, state, losses, ref, to_np(ref_losses),
+                       "vs_plain")
+
+        step, many = trainer.jit_train_step(), trainer.jit_train_many()
+        graph_losses = []
+        ops.reset_launch_counts()
+        graph_state, graph_seconds = _timed_steps(torch, step, graph_state,
+                                                  batches, graph_losses)
+        graph_state, many_seconds = _run_windows(torch, many, graph_state,
+                                                 windows, graph_losses)
+        graphs = {"step": graph_record(step), "many": graph_record(many)}
+        graph_launches = _mesh_launches(ran_launches(
+            ops.launch_counts(), graphs.values()))
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(graph_launches[k] == steps, f"mesh1 graphs: {k} ran "
+                  f"{graph_launches[k]} times in {steps} steps")
+        rec.update(_compare(torch, mb, graph_state, to_np(graph_losses),
+                            state, losses, "graphs_vs_eager"))
+
+        # the single-device Trainer from the same state
+        single = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+        single_losses = []
+        for b in batches:
+            single_state, m = single.train_step(single_state, b)
+            single_losses.append(m["loss"])
+        got, want = mb.state_bits(state), mb.state_bits(single_state)
+        diffs = {k: float((got[k].double() - want[k].double()).abs().max())
+                 for k in got}
+        single_losses = to_np(single_losses)
+        rec["vs_single_device_max_abs_diff"] = max(diffs.values())
+        rec["vs_single_device_loss_max_abs_diff"] = float(
+            np.abs(losses - single_losses).max())
+        rec["vs_single_device_bit_equal"] = bool(
+            all(torch.equal(mb.bits(got[k]), mb.bits(want[k])) for k in got)
+            and np.array_equal(losses.view(np.int32),
+                               single_losses.view(np.int32)))
+
+        def one_replay():
+            step(graph_state, batches[0])
+            torch.cuda.synchronize()
+
+        prof = profile_device(torch, one_replay, calls=5, unit="step")
+        timed = TRAIN_STEPS - WARM_STEPS
+        graph_ms = graph_seconds * 1e3 / timed
+        rec.update({
+            "run": "mesh1", "steps": steps, "launches": launches,
+            "graph_launches": graph_launches, "graphs": graphs,
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "eager_ms_per_step": seconds * 1e3 / timed,
+            "graph_step_ms": graph_ms,
+            "graph_many_ms_per_step": many_seconds * 1e3 / MANY_STEPS,
+            "graph_step_device_ms": prof["profile_device_ms_per_step"],
+            "graph_step_idle_share": 1.0 - prof[
+                "profile_device_ms_per_step"] / graph_ms,
+            "graph_step_top_device_ops": prof["profile_top_device_ops"],
+            "array_flagship_graph_in_memory": array_graph["in_memory"]})
+        del state, ref, graph_state, single_state, step, many
+        return rec
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _staged_run(torch, mb, ops, trainer, state, batches):
+    """Eager steps on this rank, counts set to 0 just before and read just
+    after, then the same steps through the plain versions from a clone,
+    bit-equal -> (state, losses, launches, ms a step, staged bytes a step,
+    the comparison)."""
+    ref = state.clone()
+    mesh = trainer.mesh
+    ops.reset_launch_counts()
+    staged0 = mesh.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = _mesh_launches(ops.launch_counts())
+    staged = (mesh.staged_bytes - staged0) / len(batches)
+    ref_losses = []
+    with ops.plain_versions():
+        for b in batches:
+            ref, m = trainer.train_step(ref, b)
+            ref_losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    cmp = _compare(torch, mb, state, losses, ref,
+                   torch.stack(ref_losses).cpu().numpy(), "vs_plain")
+    return state, losses, launches, ms, staged, cmp
+
+
+def mesh_staged_rank(mesh):
+    """One rank of the staged run (gloo, its tensors on the card): the
+    flagship at both wire formats, then the hashed flagship. Returns numpy
+    and plain numbers only."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.staged and mesh.size == MESH_STAGED, f"a staged mesh {mesh}")
+    out = {"rank": mesh.rank, "runs": []}
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=MESH_STAGED_STEPS))
+    batches = [local_batch(b, mesh) for b in globals_]
+    for wire in ("fp32", None):
+        # a float32 tower: its products do not round with the batch size,
+        # so step 0 holds to the single-device run's at the fp32 bound
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM,
+                            compute_dtype=torch.float32)
+        trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                              mesh=mesh, wire=wire)
+        state = trainer.init(batches[0])
+        check(state.tables["categorical"].weights.shape
+              == (VOCAB // MESH_STAGED, DIM + 1), "a rank holds one shard")
+        state, losses, launches, ms, staged, cmp = _staged_run(
+            torch, mb, ops, trainer, state, batches[:1])
+        # step 0's rows of the ids this rank owns, for the parent's
+        # single-device run
+        g = np.unique(globals_[0]["sparse"]["categorical"])
+        own = g[g % mesh.size == mesh.rank]
+        rows0 = state.tables["categorical"].weights[
+            torch.from_numpy(own // mesh.size).to(mesh.device)].cpu().numpy()
+        state, more, more_launches, ms, staged, cmp2 = _staged_run(
+            torch, mb, ops, trainer, state, batches[1:])
+        out["runs"].append({
+            "wire": trainer.wire_for("categorical"),
+            "losses": np.concatenate([losses, more]).tolist(),
+            "launches": {k: launches[k] + more_launches[k]
+                         for k in launches},
+            "ms_per_step": ms, "staged_bytes_per_step": staged,
+            "step0_ids": own, "step0_rows": rows0, **cmp,
+            **{k + "_later": v for k, v in cmp2.items()}})
+        del trainer, state
+        torch.cuda.empty_cache()
+    hashed = list(data.synthetic_criteo(BATCH, id_space=HASH_ID_SPACE,
+                                        seed=TRAIN_SEED,
+                                        steps=MESH_HASH_STEPS))
+    model = make_deepfm(VOCAB, DIM, hashed=True, capacity=HASH_CAPACITY)
+    trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                          mesh=mesh)
+    hb = [local_batch(b, mesh) for b in hashed]
+    state = trainer.init(hb[0])
+    check(state.tables["categorical"].keys.shape
+          == (HASH_CAPACITY // MESH_STAGED,), "a rank holds one hash shard")
+    state, losses, launches, ms, staged, cmp = _staged_run(
+        torch, mb, ops, trainer, state, hb)
+    ts = state.tables["categorical"]
+    out["runs"].append({
+        "wire": "hash " + trainer.wire_for("categorical"),
+        "losses": losses.tolist(), "launches": launches, "ms_per_step": ms,
+        "staged_bytes_per_step": staged,
+        "resident": int((ts.keys >= 0).sum()),
+        "overflow": int(ts.overflow), **cmp})
+    return out
+
+
+def _step0_single(torch, optimizers, data):
+    """The single-device Trainer's step 0 from the staged run's initial
+    state (its shards drawn again here from their generators, in id
+    order), its loss scaled by S -> (the table after the step, the loss /
+    S)."""
+    from openembedding_tpu_torch.embedding import init_table_state
+    from openembedding_tpu_torch.model import (Trainer, _table_generator,
+                                               binary_logloss)
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel.sharded import deinterleave_rows
+    S = MESH_STAGED
+    model = make_deepfm(vocabulary=VOCAB, dim=DIM,
+                        compute_dtype=torch.float32)
+    model.loss_fn = lambda lo, la, w=None: S * binary_logloss(lo, la, w)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    batch = next(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                       seed=TRAIN_SEED, steps=1))
+    state = trainer.init(batch)
+    spec = model.specs["categorical"]
+    shards = [init_table_state(spec, trainer.opt_for(spec), _table_generator(
+        trainer.seed, spec, trainer.device, (r, S)), num_shards=S).weights
+              for r in range(S)]
+    state.tables["categorical"].weights.copy_(
+        deinterleave_rows(torch.cat(shards), S, VOCAB))
+    del shards
+    state, m = trainer.train_step(state, batch)
+    w = state.tables["categorical"].weights
+    return w, float(m["loss"]) / S
+
+
+def mesh_staged(torch, optimizers, data) -> dict:
+    """Four ranks on the one card over gloo, staged through the host."""
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(mesh_staged_rank, MESH_STAGED, backend="gloo",
+                      device="cuda", timeout_s=600, threads=0)
+    wall = time.perf_counter() - t0
+    w, loss = _step0_single(torch, optimizers, data)
+    rec = {"run": "mesh4-staged", "ranks": MESH_STAGED,
+           "wall_seconds": wall, "per_rank": []}
+    worst = 0.0
+    for out in ranks:
+        for run in out["runs"]:
+            for k in ("gather_rows", "fused_sparse_apply"):
+                check(run["launches"][k] > 0, f"rank {out['rank']} "
+                      f"({run['wire']}) launched {k}")
+            if "step0_ids" in run:
+                want = w[torch.from_numpy(run["step0_ids"]).to(w.device)]
+                got = torch.from_numpy(run["step0_rows"]).to(w.device)
+                diff = float((got - want).abs().max())
+                run["step0_vs_single_device_max_abs_diff"] = diff
+                run["step0_loss_vs_single_device"] = [run["losses"][0],
+                                                      loss]
+                del run["step0_ids"], run["step0_rows"]
+                # the bf16 wire rounds the pulled rows and the pushed
+                # grads: only the fp32 wire is held to the fp32 bound
+                if run["wire"] == "fp32":
+                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                          f"rank {out['rank']}: step-0 rows within rtol "
+                          "1e-5 / atol 1e-6 of the single-device Trainer "
+                          f"with its loss scaled by S ({diff})")
+                    check(abs(run["losses"][0] - loss) <= 1e-5 * abs(loss),
+                          f"rank {out['rank']}: step-0 loss "
+                          f"{run['losses'][0]} against {loss}")
+                    worst = max(worst, diff)
+            rec["per_rank"].append({"rank": out["rank"], **run})
+    rec["step0_fp32_vs_single_device_max_abs_diff"] = worst
+    del w
+    return rec
+
+
+def mesh_entry(torch, mb, ops, tsv: str) -> dict:
+    """The entry point's `--mesh` at one rank on the seeded TSV: a graph
+    run saved after one pass, then loaded and run 16 steps more, held to
+    one uninterrupted run through the plain versions."""
+    import torch.distributed as dist
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-mesh-")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+        base = ["--mesh", "--data", tsv, "--vocabulary", str(VOCAB),
+                "--dim", str(DIM), "--batch-size", str(BATCH)]
+        saved, l1 = _run_main(ops, ex, base + [
+            "--steps", str(MESH_ENTRY_SAVE), "--save", ckpt])
+        check(sorted(os.listdir(os.path.join(ckpt, "variable_0")))
+              == ["shard_00000_of_00001"], "a sharded checkpoint")
+        loaded, l2 = _run_main(ops, ex, base + [
+            "--steps", str(MESH_ENTRY_STEPS), "--load", ckpt])
+        total = MESH_ENTRY_SAVE + MESH_ENTRY_STEPS
+        with ops.plain_versions():
+            plain = ex.main(base + ["--steps", str(total), "--eager"])
+        launches = {k: l1[k] + l2[k] for k in KERNELS}
+        check(launches["gather_rows_windows"] == 0
+              and launches["gather_rows"] == total + 2
+              and launches["fused_sparse_apply"] == total,
+              f"--mesh: one gather a step (and one at each init), one "
+              f"apply a step ({launches})")
+        rec = {"run": "entry --mesh", "steps": total, "launches": launches,
+               "saved_graph": saved["graph"], "loaded_graph": loaded["graph"],
+               "steady_ms_per_step": loaded["steady_seconds"] * 1e3
+               / max(loaded["steady_steps"], 1)}
+        both = np.concatenate([saved["losses"], loaded["losses"]])
+        rec.update(_compare(torch, mb, loaded["state"], both,
+                            plain["state"], plain["losses"],
+                            "save_load_vs_plain"))
+        return rec
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_nccl_rank(mesh, steps):
+    """One rank of the NCCL run across cards: eager steps against the same
+    steps through `jit_train_step`, bit-equal."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = [local_batch(b, mesh) for b in data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=steps)]
+    trainer = MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                          optimizers.Adagrad(learning_rate=0.05), mesh=mesh)
+    state = trainer.init(batches[0])
+    graph_state = state.clone()
+    # step 0 apart: NCCL sets its communicators up at the first collective
+    state, first, launches, _, _, cmp = _staged_run(
+        torch, mb, ops, trainer, state, batches[:1])
+    state, more, more_launches, ms, _, cmp2 = _staged_run(
+        torch, mb, ops, trainer, state, batches[1:])
+    losses = np.concatenate([first, more])
+    launches = {k: launches[k] + more_launches[k] for k in launches}
+    cmp.update({k + "_later": v for k, v in cmp2.items()})
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()
+    graph_losses = []
+    for i, b in enumerate(batches):
+        if i == 1:  # after the capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        graph_state, m = step(graph_state, b)
+        graph_losses.append(m["loss"].clone())
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    graph = graph_record(step)
+    ran = ran_launches(ops.launch_counts(), [graph])
+    cmp.update(_compare(torch, mb, graph_state,
+                        torch.stack(graph_losses).cpu().numpy(), state,
+                        losses, "graph_vs_eager"))
+    return {"rank": mesh.rank, "eager_ms_per_step": ms,
+            "graph_ms_per_step": graph_ms, "launches": launches,
+            "graph_launches": ran, **cmp}
+
+
+def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
+               array_graph: dict) -> dict:
+    """The mesh path (`openembedding_tpu_torch.parallel`): mesh1, the staged
+    four-rank run, the entry point's --mesh, and NCCL across cards where
+    the machine has them -> {kernel: launches of the phase}."""
+    t0 = time.perf_counter()
+    one = mesh_one(torch, mb, ops, data, optimizers, array_graph)
+    emit({"phase": "mesh", **one})
+    torch.cuda.empty_cache()
+    staged = mesh_staged(torch, optimizers, data)
+    emit({"phase": "mesh", **staged})
+    torch.cuda.empty_cache()
+    entry = mesh_entry(torch, mb, ops, tsv)
+    emit({"phase": "mesh", **entry})
+    torch.cuda.empty_cache()
+    launches = {k: one["launches"][k] + one["graph_launches"][k]
+                + entry["launches"][k] for k in KERNELS}
+    for rank in staged["per_rank"]:
+        for k in KERNELS:
+            launches[k] += rank["launches"][k]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        from openembedding_tpu_torch.parallel.multihost import run_local
+        S = min(4, cards)
+        nccl = run_local(mesh_nccl_rank, S, backend="nccl", device="cuda",
+                         args=(MESH_STAGED_STEPS,), timeout_s=600, threads=0)
+        for r in nccl:
+            for k in KERNELS:
+                launches[k] += r["launches"][k] + r["graph_launches"][k]
+        emit({"phase": "mesh", "run": f"nccl x{S}", "per_rank": nccl})
+    else:
+        emit({"phase": "mesh", "run": "nccl across cards",
+              "not_run": f"the machine has {cards} card: NCCL refuses two "
+              "ranks of one communicator on one card"})
+    emit({"phase": "mesh", "launches": launches,
+          "wall_seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -2354,6 +2797,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         zoo_launches = phase_zoo(torch, mb, ops, data, tsv)
         torch.cuda.empty_cache()
+        mesh_launches = phase_mesh(torch, mb, ops, data, optimizers, tsv,
+                                   array_graph)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -2364,8 +2810,9 @@ def main() -> int:
                    "hash": hash_launches[k],
                    "lr_example": lr_launches[k],
                    "zoo": zoo_launches[k],
+                   "mesh": mesh_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
-    for path in ("hash", "lr_example", "zoo"):
+    for path in ("hash", "lr_example", "zoo", "mesh"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

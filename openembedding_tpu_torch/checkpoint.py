@@ -22,7 +22,8 @@ re-inserting its ids (`tables/hash_table.np_hash_insert`, the JAX package's
 host insert): the loaded table equals the saved one in its id -> row
 contents, and the JAX package's load of the same files slot for slot; the
 overflow counter restarts at the ids that found no slot. A checkpoint
-written by either package loads in the other. One device only.
+written by either package loads in the other. One device; the mesh's
+per-shard checkpoints are `parallel/checkpoint.py`'s.
 """
 
 from __future__ import annotations
@@ -98,21 +99,14 @@ def save_server_model(state, model, path: str, *,
                       include_optimizer: bool = True,
                       model_sign: str = "") -> ModelMeta:
     """Dump a `TrainState` into `path` (see the module docstring)."""
-    from .convert import dense_slots_to_flax, dense_to_flax, table_to_numpy
-    from .export import MODEL_CONFIG_FILE
+    from .convert import table_to_numpy
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
     for name, spec in model.specs.items():
         vdir = os.path.join(path, f"variable_{spec.variable_id}")
         os.makedirs(vdir, exist_ok=True)
-        meta.variables.append(ModelVariableMeta(
-            variable_id=spec.variable_id, storage_name=name, meta=spec.meta,
-            optimizer=spec.optimizer.to_config() if spec.optimizer else {},
-            initializer=spec.initializer.to_config(),
-            table={"category": "hash" if spec.use_hash_table else "array",
-                   "capacity": spec.capacity,
-                   "sparse_as_dense": spec.sparse_as_dense}))
+        meta.variables.append(variable_meta(spec))
         if spec.sparse_as_dense:
             continue  # its table is in dense_params.npz
         ts = state.tables[name]
@@ -127,6 +121,28 @@ def save_server_model(state, model, path: str, *,
         if include_optimizer:
             for slot_name, arr in slots.items():
                 np.save(os.path.join(vdir, f"slot_{slot_name}.npy"), arr)
+    write_dense_and_meta(state, model, path, meta, include_optimizer)
+    return meta
+
+
+def variable_meta(spec) -> ModelVariableMeta:
+    """A variable's entry in `model_meta`."""
+    return ModelVariableMeta(
+        variable_id=spec.variable_id, storage_name=spec.name, meta=spec.meta,
+        optimizer=spec.optimizer.to_config() if spec.optimizer else {},
+        initializer=spec.initializer.to_config(),
+        table={"category": "hash" if spec.use_hash_table else "array",
+               "capacity": spec.capacity,
+               "sparse_as_dense": spec.sparse_as_dense})
+
+
+def write_dense_and_meta(state, model, path: str, meta: ModelMeta,
+                         include_optimizer: bool, **extra) -> None:
+    """`dense_params.npz`, `dense_slots.npz` (with the optimizer),
+    `model_meta` (its `extra`: step, model_version, include_optimizer and
+    `extra`) and `model_config.json` (when the model has a recipe)."""
+    from .convert import dense_slots_to_flax, dense_to_flax
+    from .export import MODEL_CONFIG_FILE
     dense = dense_to_flax(state.dense, state.embeddings)
     np.savez(os.path.join(path, "dense_params.npz"), **dense)
     if include_optimizer:
@@ -138,12 +154,11 @@ def save_server_model(state, model, path: str, *,
         d = json.loads(meta.to_json())
         d["extra"] = {"step": int(state.step),
                       "model_version": int(state.model_version),
-                      "include_optimizer": include_optimizer}
+                      "include_optimizer": include_optimizer, **extra}
         json.dump(d, f, indent=2, sort_keys=True)
     if model.config is not None:
         with open(os.path.join(path, MODEL_CONFIG_FILE), "w") as f:
             json.dump(model.config, f, indent=2, sort_keys=True)
-    return meta
 
 
 def load_server_model(state, model, path: str):
@@ -153,14 +168,45 @@ def load_server_model(state, model, path: str):
     checkpoint, or saved with another shape (another optimizer), keeps the
     state's value; so does every row of a hash table that no loaded id
     takes."""
-    from .convert import (dense_from_flax, dense_slots_from_flax,
-                          tables_from_numpy)
+    from .convert import tables_from_numpy
+    _, extra = read_meta(path, model)
+    device = load_dense(state, model, path)
+    for name, spec in model.ps_specs().items():
+        vdir = os.path.join(path, f"variable_{spec.variable_id}")
+        ts = state.tables[name]
+        w = tables_from_numpy({"w": np.load(os.path.join(vdir, "weights.npy"))},
+                              device=device)["w"]
+        slot_files = {k: os.path.join(vdir, f"slot_{k}.npy") for k in ts.slots}
+        slots = {k: torch.from_numpy(np.load(p)).to(device)
+                 for k, p in slot_files.items() if os.path.exists(p)}
+        if spec.use_hash_table:
+            load_hash_table(ts, np.load(os.path.join(vdir, "ids.npy")), w,
+                            slots)
+            continue
+        ts.weights.copy_(w)
+        for k, v in slots.items():
+            ts.slots[k].copy_(v)
+    state.step = int(extra.get("step", 0))
+    state.model_version = int(extra.get("model_version", 0))
+    return state
+
+
+def read_meta(path: str, model):
+    """A checkpoint's (ModelMeta, extra), checked against the model."""
     with open(os.path.join(path, MODEL_META_FILE)) as f:
         raw = f.read()
     meta = ModelMeta.from_json(raw)
-    extra = json.loads(raw).get("extra", {})
     _check_meta(meta, model)
+    return meta, json.loads(raw).get("extra", {})
 
+
+def load_dense(state, model, path: str) -> torch.device:
+    """The dense part of a checkpoint into `state`, in place: the dense
+    params, the sparse_as_dense tables and the dense slots (a slot missing
+    from the checkpoint, or saved with another shape, keeps the state's
+    value). Returns the state's device."""
+    from .convert import (dense_from_flax, dense_slots_from_flax,
+                          tables_from_numpy)
     device = next(state.dense.parameters()).device
     z = np.load(os.path.join(path, "dense_params.npz"))
     sad = dense_from_flax({k: z[k] for k in z.files}, state.dense)
@@ -180,25 +226,7 @@ def load_server_model(state, model, path: str):
                 new = loaded.get(pname, {}).get(sname)
                 if new is not None and new.shape == old.shape:
                     slots[sname] = new
-
-    for name, spec in model.ps_specs().items():
-        vdir = os.path.join(path, f"variable_{spec.variable_id}")
-        ts = state.tables[name]
-        w = tables_from_numpy({"w": np.load(os.path.join(vdir, "weights.npy"))},
-                              device=device)["w"]
-        slot_files = {k: os.path.join(vdir, f"slot_{k}.npy") for k in ts.slots}
-        slots = {k: torch.from_numpy(np.load(p)).to(device)
-                 for k, p in slot_files.items() if os.path.exists(p)}
-        if spec.use_hash_table:
-            load_hash_table(ts, np.load(os.path.join(vdir, "ids.npy")), w,
-                            slots)
-            continue
-        ts.weights.copy_(w)
-        for k, v in slots.items():
-            ts.slots[k].copy_(v)
-    state.step = int(extra.get("step", 0))
-    state.model_version = int(extra.get("model_version", 0))
-    return state
+    return device
 
 
 def load_hash_table(ts, ids: np.ndarray, weights: torch.Tensor,

@@ -285,3 +285,47 @@ def train_state_to_jax(state) -> Dict:
         "dense_slots": copies(dense_slots_to_flax(state.dense,
                                                   state.dense_slots)),
     }
+
+
+def mesh_state_from_jax(jax_state: Mapping, model, num_shards: int,
+                        rank: int, *, device):
+    """Rank `rank`'s `TrainState` of a `parallel.MeshTrainer` over
+    `num_shards` ranks, from the JAX MeshTrainer's state as numpy (the
+    arguments of `train_state_from_jax`, each table's arrays global and
+    shard-major, (S * rows_per_shard, ...)): rows `[r*rps, (r+1)*rps)` of
+    every table array, and the replicated dense params and slots."""
+    def shard(a):
+        a = np.asarray(a)
+        rps = a.shape[0] // num_shards
+        return a[rank * rps:(rank + 1) * rps]
+
+    tables = {}
+    for name, t in jax_state["tables"].items():
+        out = {"weights": shard(t["weights"]),
+               "slots": {k: shard(v) for k, v in t["slots"].items()}}
+        if t.get("keys") is not None:
+            out["keys"], out["overflow"] = shard(t["keys"]), t["overflow"]
+        tables[name] = out
+    rest = {k: v for k, v in jax_state.items() if k != "tables"}
+    return train_state_from_jax(model, tables=tables, device=device, **rest)
+
+
+def mesh_state_to_jax(rank_states) -> Dict:
+    """The inverse of `mesh_state_from_jax`: the ranks' states (in rank
+    order, each as `train_state_to_jax` gives it on its rank) as one state
+    in the JAX MeshTrainer's layout, every table array assembled
+    shard-major in rank order, the dense params, slots and counters rank
+    0's."""
+    parts = list(rank_states)
+    out = dict(parts[0])
+    out["tables"] = {}
+    for name, t in parts[0]["tables"].items():
+        every = [p["tables"][name] for p in parts]
+        table = {"weights": np.concatenate([e["weights"] for e in every]),
+                 "slots": {k: np.concatenate([e["slots"][k] for e in every])
+                           for k in t["slots"]}}
+        if "keys" in t:
+            table["keys"] = np.concatenate([e["keys"] for e in every])
+            table["overflow"] = t["overflow"]
+        out["tables"][name] = table
+    return out

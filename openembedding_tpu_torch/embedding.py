@@ -104,12 +104,13 @@ class EmbeddingSpec:
         }
 
 
-def init_table(spec: EmbeddingSpec, generator: torch.Generator
-               ) -> torch.Tensor:
+def init_table(spec: EmbeddingSpec, generator: torch.Generator,
+               num_shards: int = 1) -> torch.Tensor:
     """Materialize a table's weights on the generator's device: the
     vocabulary's rows, or a hash table's `capacity` rows (every slot's row
-    drawn now, the one an id that claims the slot starts from)."""
-    return spec.initializer(generator, (spec.rows_per_shard(1),
+    drawn now, the one an id that claims the slot starts from); with
+    `num_shards`, one shard's `rows_per_shard(num_shards)` rows."""
+    return spec.initializer(generator, (spec.rows_per_shard(num_shards),
                                         spec.output_dim), spec.dtype)
 
 
@@ -128,14 +129,16 @@ class EmbeddingTableState:
 
 
 def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
-                     generator: torch.Generator) -> EmbeddingTableState:
+                     generator: torch.Generator,
+                     num_shards: int = 1) -> EmbeddingTableState:
     """Weights from the spec's initializer (drawn from `generator`, on its
-    device) and the optimizer's slots at their initial values."""
+    device) and the optimizer's slots at their initial values; with
+    `num_shards`, one shard of the table (`init_table`)."""
     if spec.storage != "hbm":
         raise NotImplementedError(
             f"variable {spec.name!r}: storage={spec.storage!r} (host-cached "
             "tables) is not ported yet (ROADMAP.md A.4)")
-    weights = init_table(spec, generator)
+    weights = init_table(spec, generator, num_shards)
     slots = optimizer.init_slots(weights.shape[0], spec.output_dim,
                                  spec.dtype, device=weights.device)
     keys = overflow = None

@@ -1,11 +1,14 @@
-"""Criteo CTR training on one device: the port of the single-device flow of
-`examples/criteo_deepctr.py`.
+"""Criteo CTR training: the port of `examples/criteo_deepctr.py`, on one
+device or, with `--mesh`, over the ranks of a `torch.distributed` group.
 
     python -m openembedding_tpu_torch.examples.criteo_deepctr \\
         --data day_0.tsv --vocabulary 16777216 --prefetch --steps 1000
     python -m openembedding_tpu_torch.examples.criteo_deepctr \\
         --device cpu --data examples/train100.tsv --batch-size 32 \\
         --vocabulary 1000 --steps 10
+    torchrun --nproc-per-node 4 -m \\
+        openembedding_tpu_torch.examples.criteo_deepctr --mesh \\
+        --data day_0.tsv --vocabulary 16777216 --steps 1000
 
 A CTR model of the zoo (`--model`: lr, wdl, deepfm, xdeepfm, dcn or dlrm;
 two_tower, sasrec and bert4rec are not ported yet and raise) at the JAX
@@ -23,6 +26,16 @@ Flag map to the reference benchmark, as in the JAX script:
   --prefetch    batches reach the card through pinned memory on a side stream
                 (`data.prefetch_to_device`)
   --save/--load/--export  checkpoint, resume, standalone serving export
+  --mesh        `parallel.MeshTrainer` over the world group (tables
+                row-sharded, the batch data-parallel): under torchrun S
+                ranks, NCCL on cards (rank r on cuda:<LOCAL_RANK>), gloo on
+                the CPU; with no launcher a one-rank group. Every rank reads
+                the same stream and keeps its rows (`multihost.local_batch`,
+                so --batch-size is the global batch). --capacity-factor and
+                --on-overflow size and govern the exchange buckets (the
+                drops are checked every 20 steps and every window).
+                --save/--load write and read the sharded checkpoint; --export
+                writes it too, and rank 0 exports from it.
 
 It prints the loss every 20 steps, then examples/s, the train AUC and the
 paths it wrote. The JAX script's flags whose modules the port lacks raise
@@ -63,9 +76,6 @@ FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
 
 # flag -> (its default, what is missing, the ROADMAP.md item)
 NOT_PORTED = {
-    "mesh": (False, "the mesh path (MeshTrainer)", "3"),
-    "capacity_factor": (0.0, "the mesh path's exchange buckets", "3"),
-    "on_overflow": ("count", "the mesh path's exchange buckets", "3"),
     "offload": (0, "host-cached tables", "4"),
     "persist": ("", "persistence (persist.py)", "3"),
     "persist_steps": (50, "persistence (persist.py)", "3"),
@@ -114,11 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' must "
                          "be asked for)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="MeshTrainer over the torch.distributed world "
+                         "group (one rank without a launcher)")
+    ap.add_argument("--capacity-factor", type=float, default=0.0)
+    ap.add_argument("--on-overflow", default="count",
+                    choices=["count", "grow", "raise"])
     g = ap.add_argument_group("not ported (raise NotImplementedError)")
-    g.add_argument("--mesh", action="store_true")
-    g.add_argument("--capacity-factor", type=float, default=0.0)
-    g.add_argument("--on-overflow", default="count",
-                   choices=["count", "grow", "raise"])
     g.add_argument("--offload", type=int, default=0, metavar="SLOTS")
     g.add_argument("--persist", default="")
     g.add_argument("--persist-steps", type=int, default=50)
@@ -130,6 +142,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--trace-dump", default="", metavar="PATH")
     g.add_argument("--skew-report", action="store_true")
     return ap
+
+
+def build_model(args, recipe):
+    """The zoo model of the recipe, its table sparse_as_dense under
+    --cache."""
+    model = zoo.from_config(recipe)
+    if args.cache > 0 and args.vocabulary <= args.cache:
+        spec = model.specs["categorical"]
+        model.specs["categorical"] = dataclasses.replace(
+            spec, sparse_as_dense=True)
+    return model
 
 
 def _refuse_unported(args) -> None:
@@ -164,22 +187,34 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.mesh and args.export and not args.save:
+        parser.error("--export under --mesh exports from the sharded "
+                     "checkpoint: give --save too")
     device = resolve_device(args.device)
     recipe = {"family": args.model, "vocabulary": args.vocabulary,
               "dim": args.dim}
     if args.model == "lr":
         recipe.pop("dim")  # LR's table is the 1-wide first-order weight
-    model = zoo.from_config(recipe)
+    model = build_model(args, recipe)
     if args.cache > 0 and args.vocabulary <= args.cache:
-        spec = model.specs["categorical"]
-        model.specs["categorical"] = dataclasses.replace(
-            spec, sparse_as_dense=True)
         print(f"cache mode: categorical ({args.vocabulary}) is "
               "dense-mirrored")
-    trainer = Trainer(model, OPTIMIZERS[args.optimizer](args.learning_rate),
-                      device=device)
+    opt = OPTIMIZERS[args.optimizer](args.learning_rate)
+    mesh = None
+    if args.mesh:
+        from ..parallel import MeshTrainer, make_mesh, multihost
+        multihost.initialize("nccl" if device.type == "cuda" else "gloo")
+        mesh = make_mesh(device=args.device)
+        trainer = MeshTrainer(model, opt, mesh=mesh,
+                              capacity_factor=args.capacity_factor,
+                              on_overflow=args.on_overflow)
+        print(f"mesh: rank {mesh.rank} of {mesh.size} ({mesh.backend}, "
+              f"{mesh.device}), tables row-sharded, batch data-parallel")
+    else:
+        trainer = Trainer(model, opt, device=device)
 
     if args.data:
         # native="on": a reader that does not build fails the run
@@ -190,15 +225,44 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         batches = synthetic_criteo(args.batch_size, id_space=args.vocabulary,
                                    ids_dtype=np.int32)
+    if mesh is not None:
+        batches = _local_batches(batches, mesh)
+        device = mesh.device
     if args.prefetch:
         batches = prefetch_to_device(batches, device=device)
     try:
-        return _train(args, model, trainer, batches, device)
+        return _train(args, model, trainer, batches, device, recipe)
     finally:
         batches.close()
 
 
-def _train(args, model, trainer, batches, device) -> dict:
+def _local_batches(batches, mesh):
+    """This rank's rows of every global batch."""
+    from ..parallel.multihost import local_batch
+    for b in batches:
+        yield local_batch(b, mesh)
+
+
+def _drops(m) -> torch.Tensor:
+    """A step's or window's exchange drops, summed on the device (nothing
+    read back): what `MeshTrainer.check_overflow` is fed."""
+    parts = [v for k, v in m.get("stats", {}).items()
+             if k.endswith("_overflow")]
+    if "overflow" in m:
+        parts.append(m["overflow"])
+    return sum(p.to(torch.int64) for p in parts)
+
+
+def _check_drops(trainer, pending) -> None:
+    """Drive the mesh's overflow policy with the drops since the last
+    check."""
+    if trainer.check_overflow({"overflow": pending}):
+        print(f"  exchange capacity grew to f={trainer.capacity_factor} "
+              "(the graphs capture anew)")
+
+
+def _train(args, model, trainer, batches, device, recipe) -> dict:
+    mesh = getattr(trainer, "mesh", None) is not None
     first = next(batches)
     state = trainer.init(first)
     if args.load:
@@ -216,6 +280,8 @@ def _train(args, model, trainer, batches, device) -> dict:
                 window.append(next(batches))
             state, m = many(state, stack_batches(window))
             losses.append(m["loss"].clone())
+            if mesh:
+                _check_drops(trainer, _drops(m))
             if not done:  # the steady rate leaves out the first window
                 _sync(device)
                 t1 = time.perf_counter()
@@ -230,6 +296,7 @@ def _train(args, model, trainer, batches, device) -> dict:
         driver = step
         state, m = step(state, first)
         losses.append(m["loss"].clone().reshape(1))
+        pending = _drops(m) if mesh else None
         _sync(device)
         t1, steady_steps = time.perf_counter(), args.steps - 1
         for i in range(1, args.steps):
@@ -238,9 +305,16 @@ def _train(args, model, trainer, batches, device) -> dict:
             losses.append(m["loss"].clone().reshape(1))
             labels.append(batch["label"])
             scores.append(m["logits"].reshape(-1).clone())
+            if mesh:
+                pending = pending + _drops(m)
             if i % 20 == 0:
                 print(f"step {i}: loss {float(m['loss']):.4f}")
+                if mesh:
+                    _check_drops(trainer, pending)
+                    pending = pending * 0
         loss = float(m["loss"])  # fences the device work
+        if mesh:
+            _check_drops(trainer, pending)
         mode = ""
     t2 = time.perf_counter()
     seconds, steady_seconds = t2 - t0, t2 - t1
@@ -262,7 +336,18 @@ def _train(args, model, trainer, batches, device) -> dict:
         print(f"checkpoint -> {args.save}")
     if args.export:
         from ..export import export_standalone
-        export_standalone(state, model, args.export)
+        if mesh:
+            # the whole tables on rank 0, from the sharded checkpoint
+            if trainer.mesh.rank == 0:
+                one = Trainer(build_model(args, recipe), trainer.optimizer,
+                              device=device)
+                whole = one.load(one.init(first), args.save)
+                export_standalone(whole, one.model, args.export)
+                del one, whole
+            from ..parallel.collectives import barrier
+            barrier(trainer.mesh)
+        else:
+            export_standalone(state, model, args.export)
         print(f"standalone serving export -> {args.export}")
     return {"model": model, "trainer": trainer, "state": state,
             "driver": driver, "steps": trained,

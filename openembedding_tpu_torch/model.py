@@ -133,6 +133,16 @@ class EmbeddingModel:
         """Every other variable: tables pulled and pushed row by row."""
         return {n: s for n, s in self.specs.items() if not s.sparse_as_dense}
 
+    def dim_groups(self) -> List[List[str]]:
+        """The pulled and pushed tables' names grouped by width, in
+        declaration order: the unit of the mesh's fused exchange (the tables
+        of a group share its three all_to_alls a step,
+        `parallel/sharded.grouped_*`)."""
+        groups: Dict[int, List[str]] = {}
+        for name, spec in self.ps_specs().items():
+            groups.setdefault(spec.output_dim, []).append(name)
+        return list(groups.values())
+
 
 @dataclasses.dataclass
 class WeightsState:
@@ -145,14 +155,19 @@ class WeightsState:
     model_version: int = 0
 
 
-def _table_generator(seed: int, spec: EmbeddingSpec, device
-                     ) -> torch.Generator:
+def _table_generator(seed: int, spec: EmbeddingSpec, device,
+                     shard: Tuple[int, int] = (0, 1)) -> torch.Generator:
     """A table's own generator; a sparse_as_dense table draws from stream
     7919 + variable id, as the JAX package folds its key for them (the two
-    frameworks' draws differ, only their distributions match)."""
+    frameworks' draws differ, only their distributions match). `shard`
+    (r, S): shard r of a table split in S (`parallel.MeshTrainer`) draws
+    from its own stream, so no rank builds the whole table; shard 0 of 1 is
+    the whole table's."""
     stream = spec.variable_id + (7919 if spec.sparse_as_dense else 0)
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed * 131071 + stream)
+    r, num = shard
+    key = seed * 131071 + stream
+    gen.manual_seed(key if num == 1 else (key * 65537 + r) * 4099 + num)
     return gen
 
 
@@ -376,6 +391,10 @@ class Trainer:
         self.seed = seed
         self.device = resolve_device(device)
 
+    # bumped when what a captured step holds stops being valid (the mesh's
+    # bucket capacity grew): every `CompiledStep` then captures anew
+    graph_epoch = 0
+
     def opt_for(self, spec: EmbeddingSpec) -> SparseOptimizer:
         return spec.optimizer or self.optimizer
 
@@ -423,9 +442,15 @@ class Trainer:
 
     def load(self, state: TrainState, path: str) -> TrainState:
         """`checkpoint.load_server_model` from the local directory `path`
-        into `state`, in place; returns it."""
+        into `state`, in place; returns it. A sharded checkpoint (written by
+        `parallel.MeshTrainer.save` at any mesh size) loads through
+        `parallel/checkpoint.load_sharded`, as in the JAX package."""
         from .checkpoint import load_server_model
-        return load_server_model(state, self.model, local_path(path))
+        from .parallel.checkpoint import checkpoint_layout, load_sharded
+        path = local_path(path)
+        if checkpoint_layout(path) == "sharded":
+            return load_sharded(state, self.model, path)
+        return load_server_model(state, self.model, path)
 
     # -- overflow governance (the JAX package's hooks) ----------------------
 
@@ -478,6 +503,65 @@ class Trainer:
             self.opt_for(spec), table.weights, layout, spec.output_dim,
             flat_ids, flat_grads)
 
+    # -- the step's hooks (MeshTrainer overrides them, as the JAX package's
+    # MeshTrainer does) ------------------------------------------------------
+
+    def tables_pull(self, state: TrainState, ids: Dict[str, torch.Tensor],
+                    packed: Dict[str, tuple]):
+        """Pull every table's rows for the batch -> ({name: rows}, {name:
+        plan}, stats). One device: each table's own pull; a hash table's
+        plan is the slots its pull found (the push takes them), and its
+        overflow is the stat `<table>_overflow`."""
+        pulled, plans, stats = {}, {}, {}
+        for name, spec in self.model.ps_specs().items():
+            _, pulled[name], overflow, plans[name] = lookup_train(
+                spec, state.tables[name], ids[name],
+                out_dim=spec.output_dim if name in packed else None)
+            if overflow is not None:
+                stats[f"{name}_overflow"] = overflow
+        return pulled, plans, stats
+
+    def tables_apply(self, state: TrainState, ids: Dict[str, torch.Tensor],
+                     grads: Dict[str, torch.Tensor], plans,
+                     packed: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+        """Push every table's row gradients and update it in place ->
+        stats (none on one device)."""
+        for name, spec in self.model.ps_specs().items():
+            if name in packed:
+                self._packed_apply(spec, state.tables[name], ids[name],
+                                   grads[name], packed[name], plans[name])
+            else:
+                apply_gradients(spec, state.tables[name], self.opt_for(spec),
+                                ids[name], grads[name], slot=plans[name])
+        return {}
+
+    def reduce_dense_grads(self, state: TrainState,
+                           sad_leaves: Dict[str, torch.Tensor]) -> None:
+        """Reduce the dense gradients in place before the dense apply: the
+        parameters' `.grad` and the sparse_as_dense leaves'. Nothing to do
+        on one device."""
+        del state, sad_leaves
+
+    def reduce_module_state(self, module: nn.Module) -> None:
+        """Frozen state that the forward pass updates (none in the port's
+        modules). Nothing to do on one device."""
+        del module
+
+    def reduce_metrics(self, loss: torch.Tensor,
+                       stats: Dict[str, torch.Tensor]):
+        """-> (the loss to report, the stats). As they are on one device."""
+        return loss, stats
+
+    def hot_sync(self, state: TrainState) -> TrainState:
+        """Write replicated hot rows back into their shards: the identity,
+        the port has no hot rows (ROADMAP.md item 3)."""
+        return state
+
+    def externalize(self, state: TrainState) -> TrainState:
+        """The state as a snapshot writer sees it: the identity (no hot rows
+        and no ZeRO-sharded dense slots in the port)."""
+        return self.hot_sync(state)
+
     # -- steps ---------------------------------------------------------------
 
     def _step(self, state: TrainState, b: Dict[str, Any],
@@ -485,29 +569,26 @@ class Trainer:
               ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """One step on a batch already on the device: transform -> pull ->
         forward/backward -> dense apply + sparse apply, in place -> (loss,
-        logits, stats); stats holds `<table>_overflow`, the ids each hash
-        table's pull found no slot for this step. It copies nothing from the
-        host and reads nothing back, so it can be captured as a CUDA graph.
-        `packed`: {name: column layout} of the tables whose state holds the
-        packed array. A hash table probes once a step: its push takes the
-        slots its pull found (`at`), as the keys do not change between
-        them. The four phases are `torch.profiler` ranges
+        logits, stats); on one device stats holds `<table>_overflow`, the
+        ids each hash table's pull found no slot for this step. It copies
+        nothing from the host and reads nothing back, so it can be captured
+        as a CUDA graph. `packed`: {name: column layout} of the tables whose
+        state holds the packed array. A hash table probes once a step: its
+        push takes the slots its pull found, as the keys do not change
+        between them. The pull and the push go through `tables_pull` and
+        `tables_apply`, the dense gradients through `reduce_dense_grads`,
+        the loss and stats through `reduce_metrics` (the hooks MeshTrainer
+        overrides). The four phases are `torch.profiler` ranges
         (`trainer.pull`, `trainer.compute`, `trainer.dense_apply`,
         `trainer.sparse_apply`)."""
         b = _transformed(self.model, b)
-        ps_specs = self.model.ps_specs()
         sad_specs = self.model.sad_specs()
         with record_function("trainer.pull"):
             ids = {name: b["sparse"][spec.feature_name]
                    for name, spec in self.model.specs.items()}
-            pulled, at, stats = {}, {}, {}
-            for name, spec in ps_specs.items():
-                _, rows, overflow, at[name] = lookup_train(
-                    spec, state.tables[name], ids[name],
-                    out_dim=spec.output_dim if name in packed else None)
-                pulled[name] = rows.requires_grad_()
-                if overflow is not None:
-                    stats[f"{name}_overflow"] = overflow
+            pulled, plans, stats = self.tables_pull(state, ids, packed)
+            for rows in pulled.values():
+                rows.requires_grad_()
             # each sparse_as_dense table enters autograd as a leaf that
             # shares its storage (dense_apply writes the table itself); its
             # pulled rows carry the gradient back to it
@@ -523,21 +604,19 @@ class Trainer:
             logits = state.dense(embedded, b.get("dense"))
             loss = self._loss(logits, b)
             loss.backward()
+            self.reduce_dense_grads(state, sad_leaves)
         with record_function("trainer.dense_apply"):
             dense_apply(self.optimizer, state.dense, state.dense_slots,
                         state.embeddings,
                         {n: leaf.grad for n, leaf in sad_leaves.items()})
+            self.reduce_module_state(state.dense)
         with record_function("trainer.sparse_apply"), torch.no_grad():
-            for name, spec in ps_specs.items():
-                if name in packed:
-                    self._packed_apply(spec, state.tables[name], ids[name],
-                                       pulled[name].grad, packed[name],
-                                       at[name])
-                else:
-                    apply_gradients(spec, state.tables[name],
-                                    self.opt_for(spec), ids[name],
-                                    pulled[name].grad, slot=at[name])
-        return loss.detach(), logits.detach(), stats
+            stats.update(self.tables_apply(
+                state, ids, {name: pulled[name].grad
+                             for name in self.model.ps_specs()},
+                plans, packed))
+        loss, stats = self.reduce_metrics(loss.detach(), stats)
+        return loss, logits.detach(), stats
 
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -655,7 +734,8 @@ class CompiledStep:
       memory pool, so at most `MAX_GRAPHS` are kept: a new structure beyond
       them drops the oldest graph. A call with another state object or a
       state whose tensors were replaced (`checkpoint.load_server_model`
-      rebinds some) drops every graph and captures anew.
+      rebinds some), or after the trainer's `graph_epoch` moved (a mesh
+      whose exchange capacity grew), drops every graph and captures anew.
     - Every later call copies the batch into its graph's static device
       buffers (outside the graph), replays the graph (one dispatch) and
       advances the state's step counters.
@@ -695,6 +775,7 @@ class CompiledStep:
         # batch key -> (graph, static inputs, static outputs, launches)
         self._graphs: Dict[Any, tuple] = {}
         self._state = self._state_ptrs = None
+        self._epoch = self.trainer.graph_epoch
 
     @property
     def graph_launches(self) -> List[Dict[str, int]]:
@@ -722,7 +803,8 @@ class CompiledStep:
             return (tr.train_many(state, batch) if self.many
                     else tr.train_step(state, batch))
         key = _batch_key(batch)
-        if state is not self._state or _state_key(state) != self._state_ptrs:
+        if (state is not self._state or _state_key(state) != self._state_ptrs
+                or tr.graph_epoch != self._epoch):
             self._release()  # the old graphs' memory goes first
         if key not in self._graphs:
             if len(self._graphs) == self.MAX_GRAPHS:

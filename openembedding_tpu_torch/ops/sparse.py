@@ -91,7 +91,8 @@ def scatter_rows(weights: torch.Tensor, rows: torch.Tensor,
 
 
 def _dedup_routed(n_rows: int, row_ids: torch.Tensor, grads: torch.Tensor,
-                  pre_counts: Optional[torch.Tensor]):
+                  pre_counts: Optional[torch.Tensor],
+                  dead_apart: bool = False):
     """Dedup + routing prologue of the apply -> (g, counts, idx).
 
     Routing invariants (as in the JAX package):
@@ -100,12 +101,24 @@ def _dedup_routed(n_rows: int, row_ids: torch.Tensor, grads: torch.Tensor,
       so id -1 would otherwise train the last row;
     - slots of out-of-range unique ids get count 0 after the segment sums;
     - every invalid unique slot i maps to the distinct out-of-range row
-      n_rows + i, so `idx` is ascending and duplicate-free."""
+      n_rows + i, so `idx` is ascending and duplicate-free.
+
+    `dead_apart`: each padding slot routes to its own key n_rows + i
+    instead, so no segment holds them all. The segment sum adds a segment
+    on one thread, and the mesh owner's receive buffer is mostly padding:
+    one shared segment of about 60,000 rows took 1.7 ms a step on an H100
+    80GB HBM3 (`chip_smoke.py`'s mesh phase). Counts, idx and the live
+    rows' sums are the same either way; only the sums at count-0 slots,
+    which no update reads, differ."""
     n = row_ids.shape[0]
     if pre_counts is None:
         pre_counts = torch.ones(n, dtype=torch.int32, device=row_ids.device)
-    keys = torch.where((pre_counts > 0) & (row_ids >= 0), row_ids,
-                       torch.full_like(row_ids, n_rows))
+    if dead_apart:
+        dead = n_rows + torch.arange(n, dtype=row_ids.dtype,
+                                     device=row_ids.device)
+    else:
+        dead = torch.full_like(row_ids, n_rows)
+    keys = torch.where((pre_counts > 0) & (row_ids >= 0), row_ids, dead)
     uniq = unique_with_counts(keys)
     g = uniq.segment_reduce(grads)
     counts = uniq.segment_reduce(pre_counts.to(torch.int32))
@@ -124,6 +137,7 @@ def sparse_apply_dense_table(
     row_ids: torch.Tensor,
     grads: torch.Tensor,
     pre_counts: Optional[torch.Tensor] = None,
+    dead_apart: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fused sparse update of an array table, in place.
 
@@ -132,9 +146,10 @@ def sparse_apply_dense_table(
     multiplicity already accumulated upstream, default 1 per occurrence,
     0 = pad. Duplicate gradients are summed and the optimizer runs once per
     unique row, in float32 whatever the table's dtype; untouched rows stay
-    bit-identical. Returns (weights, slots), the tensors given."""
+    bit-identical. `dead_apart`: see `_dedup_routed`. Returns (weights,
+    slots), the tensors given."""
     g, counts, idx = _dedup_routed(weights.shape[0], row_ids, grads,
-                                   pre_counts)
+                                   pre_counts, dead_apart)
     # through the module attribute, so a caller can swap in the plain version
     return apply.fused_sparse_apply(optimizer, weights, slots, idx,
                                     g.float(), counts)

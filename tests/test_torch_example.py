@@ -142,7 +142,6 @@ def test_eager_and_graph_drivers_agree_on_the_cpu():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh"], ["--capacity-factor", "1.5"], ["--on-overflow", "grow"],
     ["--offload", "64"], ["--persist", "/tmp/p"], ["--persist-steps", "5"],
     ["--persist-incremental"], ["--report-interval", "1"],
     ["--metrics-log", "m.jsonl"], ["--profile", "trace"],

@@ -42,7 +42,15 @@ def test_every_module_imports_without_jax():
             "openembedding_tpu_torch.models.ctr",
             "openembedding_tpu_torch.optimizers",
             "openembedding_tpu_torch.ops.apply",
-            "openembedding_tpu_torch.ops.dedup"} <= set(mods)
+            "openembedding_tpu_torch.ops.dedup",
+            "openembedding_tpu_torch.ops.wire",
+            "openembedding_tpu_torch.parallel",
+            "openembedding_tpu_torch.parallel.mesh",
+            "openembedding_tpu_torch.parallel.collectives",
+            "openembedding_tpu_torch.parallel.multihost",
+            "openembedding_tpu_torch.parallel.sharded",
+            "openembedding_tpu_torch.parallel.trainer",
+            "openembedding_tpu_torch.parallel.checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
