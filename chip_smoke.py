@@ -175,11 +175,25 @@ final line:
    versions (keys and overflow too) and launches both kernels; step 0's
    rows (fp32 wire) within rtol 1e-5 / atol 1e-6 of the single-device
    Trainer with its loss scaled by 4, from the same shards interleaved;
-   ms a step and the bytes staged through the host. The entry point's
-   `--mesh` at one rank on the TSV: a graph run saved (sharded) after one
-   pass, loaded, 16 steps more, held to one uninterrupted plain run. NCCL
-   across cards (`jit_train_step` captured) only where the machine has
-   two cards or more; otherwise the phase says it did not run;
+   ms a step and the bytes staged through the host. mesh4-placement: the
+   same four ranks, table and batch, 4 eager steps of each placement
+   configuration (`PLACE_CONFIGS`): (a) the int8 wire with error
+   feedback, (b) 1,024 hot rows (the run's most frequent ids) at fp32,
+   (c) 256 migration rows at fp32, the moves from `plan_migration` over
+   step 0's `shard_positions`, (d) all three with the int8 hot reduce;
+   each bit-equal to the same steps through the plain versions, (b) and
+   (c) after `hot_sync` bit-equal to the run without placement and their
+   sharded saves byte-identical to its save; every rank launches both
+   kernels, and a step the gathers and applies of its paths (the owner's,
+   the residuals' read, the cache's, the annex's); ms a step, staged
+   bytes against `wire.exchange_cost`, hot hit ratio, `hot_unique`,
+   `hot_bytes_saved`, shard imbalance before and after the moves, peak
+   memory. The entry point's `--mesh` at one rank on the TSV: a graph run
+   saved (sharded) after one pass, loaded, 16 steps more, held to one
+   uninterrupted plain run. NCCL across cards (`jit_train_step` captured;
+   and (d) across a `refresh_hot_rows` and a `migrate_rows`, one capture,
+   bit-equal to eager) only where the machine has two cards or more;
+   otherwise the phase says it did not run;
 13. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
@@ -2508,6 +2522,270 @@ def mesh_staged(torch, optimizers, data) -> dict:
     return rec
 
 
+PLACE_STEPS = 4           # eager steps of each placement configuration
+PLACE_HOT = 1024          # hot rows: the run's 1,024 most frequent ids
+PLACE_MIG = 256           # migration annex rows
+# name -> MeshTrainer arguments; each run installs its placement through
+# `place`: the hot set before step 0, the moves before step 1
+PLACE_CONFIGS = {
+    "a int8+ef": dict(wire="int8"),
+    "b hot fp32": dict(wire="fp32", hot_rows=PLACE_HOT),
+    "c mig fp32": dict(wire="fp32", mig_rows=PLACE_MIG),
+    "d int8 hot mig hot_wire int8": dict(
+        wire="int8", hot_rows=PLACE_HOT, mig_rows=PLACE_MIG,
+        hot_wire="int8"),
+}
+
+
+def _imbalance(positions) -> float:
+    p = np.asarray(positions, np.float64)
+    return float(p.max() / p.mean())
+
+
+def place_run(torch, trainer, state, batches, hot_ids, moves):
+    """The placement run's steps on this rank: the hot set (if any) before
+    step 0, the moves (if any; `moves(stats of step 0)` gives them) before
+    step 1 -> (state, losses (n,) numpy, the steps' stats as numpy, the
+    moves)."""
+    if trainer.hot_enabled:
+        state = trainer.refresh_hot_rows(state,
+                                         hot_ids={"categorical": hot_ids})
+    losses, stats, made = [], [], None
+    for k, b in enumerate(batches):
+        if k == 1 and trainer.mig_enabled:
+            made = moves(stats[0])
+            state = trainer.migrate_rows(state, moves={"categorical": made})
+        state, m = trainer.train_step(state, b)
+        losses.append(m["loss"])
+        stats.append({key: v.cpu().numpy() for key, v in m["stats"].items()})
+    return state, torch.stack(losses).cpu().numpy(), stats, made
+
+
+def _table_bits(torch, mb, state) -> dict:
+    """The state's tensors a run without placement also holds (its own
+    placement state left out)."""
+    return {k: v for k, v in mb.state_bits(state).items()
+            if "/hot/" not in k and "/mig/" not in k
+            and not k.endswith("/ef")}
+
+
+def _save_files(path) -> dict:
+    """{file: bytes} of a sharded save; an .npz by its arrays' bytes (a zip
+    member carries its write time), `model_meta` left out (a random model
+    sign)."""
+    out = {}
+    for root, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(root, name)
+            rel = os.path.relpath(full, path)
+            if name.endswith(".npz"):
+                with np.load(full) as z:
+                    out[rel] = {k: z[k].tobytes() for k in z.files}
+            elif name != "model_meta":
+                with open(full, "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def mesh_placement_rank(mesh, tmp: str):
+    """One rank of the placement run (gloo, its tensors on the card): the
+    flagship at 2^22 rows a shard, four configurations of `PLACE_CONFIGS`,
+    each through the kernels and again through the plain versions from the
+    same state, bit-equal; (b) and (c), after `hot_sync`, against the run
+    without placement, bit-equal, and their sharded saves against its
+    save. Returns numpy and plain numbers only."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.ops import wire as wire_mod
+    from openembedding_tpu_torch.parallel import MeshTrainer, collectives
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.placement import (candidate_weights,
+                                                   plan_migration)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S = mesh.size
+    check(mesh.staged and S == MESH_STAGED, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=PLACE_STEPS))
+    batches = [local_batch(b, mesh) for b in globals_]
+    ids = np.concatenate([b["sparse"]["categorical"].reshape(-1)
+                          for b in globals_])
+    uniq, cnt = np.unique(ids, return_counts=True)
+    order = np.argsort(-cnt, kind="stable")
+    hot_ids = uniq[order][:PLACE_HOT].astype(np.int64)
+    ranked = list(zip(uniq[order][:PLACE_HOT * 8].tolist(),
+                      cnt[order][:PLACE_HOT * 8].astype(float).tolist()))
+
+    def moves_for(hot):
+        def moves(stats0):
+            cand = candidate_weights(ranked, hot)
+            got, own, projected = plan_migration(
+                stats0["categorical/shard_positions"], cand, num_shards=S,
+                max_moves=PLACE_MIG, target=1.0,
+                total=float(ids.size))
+            moves.projected = projected
+            return got, own
+        return moves
+
+    out = {"rank": mesh.rank, "runs": []}
+    base = None
+    for name, kw in PLACE_CONFIGS.items():
+        # a model each: a state's dense module is its model's module
+        trainer = MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                              optimizers.Adagrad(learning_rate=0.05),
+                              mesh=mesh, **kw)
+        if base is None:
+            # the run without placement, (b) and (c)'s reference
+            plain_trainer = MeshTrainer(
+                make_deepfm(vocabulary=VOCAB, dim=DIM),
+                optimizers.Adagrad(learning_rate=0.05), mesh=mesh,
+                wire="fp32")
+            base = plain_trainer.init(batches[0])
+            base, base_losses, _, _ = place_run(
+                torch, plain_trainer, base, batches, None, None)
+            plain_trainer.save(base, os.path.join(tmp, "base"))
+        state = trainer.init(batches[0])
+        ref = state.clone()
+        moves = moves_for(hot_ids if trainer.hot_enabled else None)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        staged0 = mesh.staged_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses, stats, made = place_run(torch, trainer, state,
+                                               batches, hot_ids, moves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _mesh_launches(ops.launch_counts())
+        staged = mesh.staged_bytes - staged0
+        peak = torch.cuda.max_memory_allocated()
+        # the steps alone: each again, timed, from a copy (placement
+        # changes stay out of the timed steps)
+        timed = state.clone()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        staged1 = mesh.staged_bytes
+        t1 = time.perf_counter()
+        for b in batches:
+            timed, _ = trainer.train_step(timed, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / len(batches)
+        step_staged = (mesh.staged_bytes - staged1) / len(batches)
+        step_launches = _mesh_launches(ops.launch_counts())
+        del timed
+        # a step's launches name its paths: the owner's serve and apply,
+        # the residuals' read (int8 with EF), the hot cache's gather and
+        # apply, the annex's serve and apply
+        ef, hot, mig = (trainer.ef_for("categorical"), trainer.hot_enabled,
+                        trainer.mig_enabled)
+        want = {"gather_rows": len(batches) * (1 + ef + hot + mig),
+                "gather_rows_windows": 0,
+                "fused_sparse_apply": len(batches) * (1 + hot + mig)}
+        check(step_launches == want, f"{name}: a step launches the "
+              f"kernels of its paths ({step_launches}, want {want})")
+        with ops.plain_versions():
+            ref, ref_losses, _, _ = place_run(torch, trainer, ref,
+                                              batches, hot_ids, moves)
+        cmp = _compare(torch, mb, state, losses, ref, ref_losses,
+                       "vs_plain")
+        del ref
+        st = stats[-1]
+        dim = DIM + 1
+        cap = batches[0]["sparse"]["categorical"].size  # exact buckets
+        fmt = trainer.wire_for("categorical")
+        rec = {"config": name, "wire": fmt, "hot_wire": kw.get("hot_wire"),
+               "ef": ef, "losses": losses.tolist(), "launches": launches,
+               "timed_steps_launches": step_launches,
+               "ms_per_step": ms, "place_run_seconds": wall,
+               "staged_bytes_per_step": step_staged,
+               "staged_bytes_place_run": staged,
+               "exchange_cost_bytes_per_step": wire_mod.exchange_cost(
+                   [{"dim": dim, "cap": cap, "pair": False,
+                     "id_itemsize": 8}], S, fmt)["bytes_per_step"],
+               "peak_memory_bytes": peak,
+               "shard_positions": [s["categorical/shard_positions"].tolist()
+                                   for s in stats], **cmp}
+        if trainer.hot_enabled:
+            hot_fmt = kw.get("hot_wire") or fmt
+            rec.update({
+                "hot_hit_ratio": [float(s["categorical/hot_hits"])
+                                  / float(s["categorical/pull_indices"])
+                                  for s in stats],
+                "hot_unique": [int(s["categorical/hot_unique"])
+                               for s in stats],
+                "hot_bytes_saved": [float(s["categorical/hot_bytes_saved"])
+                                    for s in stats],
+                "hot_reduce_cost_bytes": wire_mod.hot_reduce_cost(
+                    [{"dim": dim, "hot": PLACE_HOT}], S, hot_fmt)["bytes"]})
+        if trainer.mig_enabled:
+            rec.update({
+                "moves": int(len(made[0])),
+                "imbalance_step0": _imbalance(
+                    stats[0]["categorical/shard_positions"]),
+                "imbalance_after": [_imbalance(
+                    s["categorical/shard_positions"]) for s in stats[1:]],
+                "imbalance_projected": moves.projected,
+                "mig_unique": [int(s["categorical/mig_unique"])
+                               for s in stats],
+                "mig_hits": [int(s["categorical/mig_hits"]) for s in stats]})
+        if name[0] in "bc":
+            # after hot_sync, bit-equal to the run without placement, and
+            # so is its sharded save (the save runs hot_sync itself)
+            state = trainer.hot_sync(state)
+            got, want = _table_bits(torch, mb, state), \
+                _table_bits(torch, mb, base)
+            unequal = sorted(k for k in want if not torch.equal(
+                mb.bits(got[k]), mb.bits(want[k])))
+            same_losses = np.array_equal(losses.view(np.int32),
+                                         base_losses.view(np.int32))
+            check(same_losses and not unequal and got.keys() == want.keys(),
+                  f"{name}: after hot_sync equal to the run without "
+                  f"placement (losses {same_losses}, unequal {unequal})")
+            trainer.save(state, os.path.join(tmp, name[0]))
+            same_files = None
+            if mesh.rank == 0:
+                a = _save_files(os.path.join(tmp, name[0]))
+                b = _save_files(os.path.join(tmp, "base"))
+                same_files = a.keys() == b.keys() and all(
+                    a[k] == b[k] for k in a)
+                check(same_files, f"{name}: its save equals the save of "
+                      "the run without placement, byte for byte")
+                shutil.rmtree(os.path.join(tmp, name[0]), ignore_errors=True)
+            collectives.barrier(mesh)
+            rec.update(equal_to_no_placement=True,
+                       save_byte_identical=same_files)
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] > 0, f"rank {mesh.rank} ({name}) launched {k}")
+        out["runs"].append(rec)
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_placement(torch) -> dict:
+    """Four ranks on the one card over gloo: the placement run."""
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-place-")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_local(mesh_placement_rank, MESH_STAGED, backend="gloo",
+                          device="cuda", args=(tmp,), timeout_s=900,
+                          threads=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"run": "mesh4-placement", "ranks": MESH_STAGED,
+           "wall_seconds": time.perf_counter() - t0, "per_rank": ranks}
+    for name in PLACE_CONFIGS:
+        runs = [r["runs"][i] for r in ranks
+                for i, run in enumerate(r["runs"]) if run["config"] == name]
+        # the stats are summed over the ranks: every rank reports the same
+        check(all(run["losses"] == runs[0]["losses"] for run in runs),
+              f"{name}: the ranks report one loss")
+    return rec
+
+
 def mesh_entry(torch, mb, ops, tsv: str) -> dict:
     """The entry point's `--mesh` at one rank on the seeded TSV: a graph
     run saved after one pass, then loaded and run 16 steps more, held to
@@ -2589,9 +2867,67 @@ def mesh_nccl_rank(mesh, steps):
     cmp.update(_compare(torch, mb, graph_state,
                         torch.stack(graph_losses).cpu().numpy(), state,
                         losses, "graph_vs_eager"))
+    placed = nccl_placement(torch, mb, ops, mesh, batches)
+    for k in KERNELS:
+        launches[k] += placed["launches"][k]
+        ran[k] += placed["graph_launches"][k]
     return {"rank": mesh.rank, "eager_ms_per_step": ms,
             "graph_ms_per_step": graph_ms, "launches": launches,
-            "graph_launches": ran, **cmp}
+            "graph_launches": ran, "placement": placed, **cmp}
+
+
+def nccl_placement(torch, mb, ops, mesh, batches) -> dict:
+    """Configuration (d) of the placement run (int8 wire with residuals,
+    hot rows, migration, the int8 hot reduce) over NCCL: eager steps, then
+    the same steps through `jit_train_step`, with a hot set installed
+    before step 0, moves before step 2 and another hot set before step 3.
+    The placement writes into the captured tensors, so the step captures
+    once; bit-equal to eager."""
+    from openembedding_tpu_torch import data, optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    S = mesh.size
+    # the sets from the global batches: every rank installs the same
+    ids = np.concatenate([b["sparse"]["categorical"].reshape(-1)
+                          for b in data.synthetic_criteo(
+                              BATCH, id_space=VOCAB, seed=TRAIN_SEED,
+                              steps=len(batches))])
+    uniq, cnt = np.unique(ids, return_counts=True)
+    top = uniq[np.argsort(-cnt, kind="stable")].astype(np.int64)
+    hot = {0: top[:PLACE_HOT], 3: top[PLACE_HOT // 2:PLACE_HOT * 3 // 2]}
+    mv = top[PLACE_HOT * 2:PLACE_HOT * 2 + PLACE_MIG]
+    moves = {2: (mv, (mv + 1) % S)}
+    trainer = MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                          optimizers.Adagrad(learning_rate=0.05), mesh=mesh,
+                          **PLACE_CONFIGS["d int8 hot mig hot_wire int8"])
+    state = trainer.init(batches[0])
+    graph_state = state.clone()
+
+    def run(st, step):
+        losses = []
+        for k, b in enumerate(batches):
+            if k in hot:
+                st = trainer.refresh_hot_rows(st,
+                                              hot_ids={"categorical": hot[k]})
+            if k in moves:
+                st = trainer.migrate_rows(st,
+                                          moves={"categorical": moves[k]})
+            st, m = step(st, b)
+            losses.append(m["loss"].clone())
+        return st, torch.stack(losses).cpu().numpy()
+
+    ops.reset_launch_counts()
+    state, losses = run(state, trainer.train_step)
+    launches = _mesh_launches(ops.launch_counts())
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()
+    graph_state, graph_losses = run(graph_state, step)
+    graph = graph_record(step)
+    ran = ran_launches(_mesh_launches(ops.launch_counts()), [graph])
+    cmp = _compare(torch, mb, graph_state, graph_losses, state, losses,
+                   "placement_graph_vs_eager")
+    return {"steps": len(batches), "launches": launches,
+            "graph_launches": ran, "graph": graph, **cmp}
 
 
 def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
@@ -2606,6 +2942,9 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
     staged = mesh_staged(torch, optimizers, data)
     emit({"phase": "mesh", **staged})
     torch.cuda.empty_cache()
+    placement = mesh_placement(torch)
+    emit({"phase": "mesh", **placement})
+    torch.cuda.empty_cache()
     entry = mesh_entry(torch, mb, ops, tsv)
     emit({"phase": "mesh", **entry})
     torch.cuda.empty_cache()
@@ -2614,6 +2953,10 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
     for rank in staged["per_rank"]:
         for k in KERNELS:
             launches[k] += rank["launches"][k]
+    for rank in placement["per_rank"]:
+        for run in rank["runs"]:
+            for k in KERNELS:
+                launches[k] += run["launches"][k]
     cards = torch.cuda.device_count()
     if cards >= 2:
         from openembedding_tpu_torch.parallel.multihost import run_local

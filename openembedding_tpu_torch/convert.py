@@ -207,8 +207,11 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
     `tables` {name: {"weights": (rows, dim), "slots": {slot: (rows, w)}}},
     a hash table's also with "keys" (either layout) and "overflow", flat
     flax-named `dense_params` and `dense_slots` (sparse_as_dense tables and
-    their slots under `__embeddings__/`). The model's dense module takes
-    the parameters and becomes the state's."""
+    their slots under `__embeddings__/`). A table's "ef" (rows, dim), "hot"
+    {keys, rank, ids, weights, slots} and "mig" {keys, rank, ids, owners,
+    weights, slots} come across where given (the mesh's placement state,
+    single-lane probe keys). The model's
+    dense module takes the parameters and becomes the state's."""
     from .embedding import EmbeddingTableState
     from .model import TrainState
     module = model.module
@@ -229,12 +232,50 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
             weights=tables_from_numpy({"w": weights}, device=device)["w"],
             slots={k: torch.tensor(v, device=device)
                    for k, v in slots.items()},
-            keys=keys, overflow=overflow)
+            keys=keys, overflow=overflow,
+            ef=(None if t.get("ef") is None else
+                torch.tensor(np.asarray(t["ef"], np.float32), device=device)),
+            hot=_placement_from_jax(model.specs[name], t.get("hot"), "hot",
+                                    device),
+            mig=_placement_from_jax(model.specs[name], t.get("mig"), "mig",
+                                    device))
     return TrainState(
         step=int(step), dense=module,
         dense_slots=dense_slots_from_flax(dense_slots, module, device=device),
         tables=out_tables, model_version=int(model_version),
         embeddings=tables_from_numpy(sad, device=device))
+
+
+def _placement_from_jax(spec, part, kind: str, device):
+    """A JAX `HotRows` / `MigRows` as numpy -> the port's, on `device`."""
+    if part is None:
+        return None
+    from .embedding import HotRows, MigRows
+    names = ("keys", "rank", "ids") + (("owners",) if kind == "mig" else ())
+    ident = {k: np.asarray(part[k]) for k in names}
+    if ident["keys"].ndim == 2:
+        raise ValueError(
+            f"{spec.name!r}: the {kind} probe table has split-pair keys; "
+            "carry the state across from a JAX run with x64 on")
+    rows = {"weights": tables_from_numpy({"w": np.asarray(part["weights"])},
+                                         device=device)["w"],
+            "slots": {k: torch.tensor(np.asarray(v, np.float32),
+                                      device=device)
+                      for k, v in part["slots"].items()}}
+    tensors = {k: torch.tensor(v, device=device) for k, v in ident.items()}
+    cls = HotRows if kind == "hot" else MigRows
+    return cls(**tensors, **rows)
+
+
+def _placement_to_jax(part) -> Optional[Dict]:
+    if part is None:
+        return None
+    import dataclasses
+    out = {f.name: getattr(part, f.name) for f in dataclasses.fields(part)}
+    return {k: ({n: v.detach().cpu().numpy().copy() for n, v in t.items()}
+                if k == "slots" else
+                np.array(table_to_numpy(t), copy=True))
+            for k, t in out.items()}
 
 
 def _single_lane(keys: np.ndarray, weights: np.ndarray, slots):
@@ -262,7 +303,8 @@ def _single_lane(keys: np.ndarray, weights: np.ndarray, slots):
 def train_state_to_jax(state) -> Dict:
     """The state as numpy in the JAX package's layout: {"step",
     "model_version", "tables": {name: {"weights", "slots"}, with "keys"
-    (int64, single-lane) and "overflow" for a hash table}, "dense_params":
+    (int64, single-lane) and "overflow" for a hash table, and "ef", "hot"
+    and "mig" where the table has them}, "dense_params":
     flat flax names, "dense_slots": flat flax names}. Every array is a
     copy: the train step updates the state's tensors in place, and a CPU
     tensor's `.numpy()` shares its memory."""
@@ -276,6 +318,11 @@ def train_state_to_jax(state) -> Dict:
         if t.keys is not None:
             out["keys"] = t.keys.detach().cpu().numpy().copy()
             out["overflow"] = int(t.overflow)
+        if t.ef is not None:
+            out["ef"] = t.ef.detach().cpu().numpy().copy()
+        for kind in ("hot", "mig"):
+            if getattr(t, kind) is not None:
+                out[kind] = _placement_to_jax(getattr(t, kind))
         return out
 
     return {
@@ -293,7 +340,8 @@ def mesh_state_from_jax(jax_state: Mapping, model, num_shards: int,
     `num_shards` ranks, from the JAX MeshTrainer's state as numpy (the
     arguments of `train_state_from_jax`, each table's arrays global and
     shard-major, (S * rows_per_shard, ...)): rows `[r*rps, (r+1)*rps)` of
-    every table array, and the replicated dense params and slots."""
+    every table array (the residuals "ef" and the migration annex too),
+    and the replicated dense params, slots, hot caches and directories."""
     def shard(a):
         a = np.asarray(a)
         rps = a.shape[0] // num_shards
@@ -305,6 +353,14 @@ def mesh_state_from_jax(jax_state: Mapping, model, num_shards: int,
                "slots": {k: shard(v) for k, v in t["slots"].items()}}
         if t.get("keys") is not None:
             out["keys"], out["overflow"] = shard(t["keys"]), t["overflow"]
+        if t.get("ef") is not None:
+            out["ef"] = shard(t["ef"])
+        if t.get("hot") is not None:
+            out["hot"] = t["hot"]
+        if t.get("mig") is not None:
+            out["mig"] = {**t["mig"], "weights": shard(t["mig"]["weights"]),
+                          "slots": {k: shard(v) for k, v
+                                    in t["mig"]["slots"].items()}}
         tables[name] = out
     rest = {k: v for k, v in jax_state.items() if k != "tables"}
     return train_state_from_jax(model, tables=tables, device=device, **rest)
@@ -314,8 +370,9 @@ def mesh_state_to_jax(rank_states) -> Dict:
     """The inverse of `mesh_state_from_jax`: the ranks' states (in rank
     order, each as `train_state_to_jax` gives it on its rank) as one state
     in the JAX MeshTrainer's layout, every table array assembled
-    shard-major in rank order, the dense params, slots and counters rank
-    0's."""
+    shard-major in rank order (the residuals and the migration annex
+    too), the dense params, slots, counters, hot caches and directories
+    rank 0's."""
     parts = list(rank_states)
     out = dict(parts[0])
     out["tables"] = {}
@@ -327,5 +384,14 @@ def mesh_state_to_jax(rank_states) -> Dict:
         if "keys" in t:
             table["keys"] = np.concatenate([e["keys"] for e in every])
             table["overflow"] = t["overflow"]
+        if "ef" in t:
+            table["ef"] = np.concatenate([e["ef"] for e in every])
+        if "hot" in t:
+            table["hot"] = t["hot"]
+        if "mig" in t:
+            table["mig"] = {**t["mig"], "weights": np.concatenate(
+                [e["mig"]["weights"] for e in every]), "slots": {
+                k: np.concatenate([e["mig"]["slots"][k] for e in every])
+                for k in t["mig"]["slots"]}}
         out["tables"][name] = table
     return out

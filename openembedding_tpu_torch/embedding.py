@@ -115,25 +115,87 @@ def init_table(spec: EmbeddingSpec, generator: torch.Generator,
 
 
 @dataclasses.dataclass
+class HotRows:
+    """The replicated hot-row cache of one table on the mesh
+    (`MeshTrainer(hot_rows=H)`, `parallel/sharded.py`): H heavy-hitter
+    rows held alike on every rank, so their pulls gather locally and never
+    cross the wire, and their gradients are reduced over the ranks like
+    dense ones. Membership is a small open-addressing probe table built on
+    the host (`sharded.build_hot_identity`): `keys` (C = max(2H, 8),) the
+    hot ids (int32 for an array table, the table's key dtype for a hash
+    table; -1 empty), `rank` (C,) int32 each probe slot's cache row (H =
+    empty), `ids` (H,) the hot ids by rank (-1 padding). `weights` (H, dim)
+    and `slots` {name: (H, width)} are the cached rows and their optimizer
+    state. Never serialized: `MeshTrainer.hot_sync` writes the rows back
+    into their owner shards first."""
+
+    keys: torch.Tensor
+    rank: torch.Tensor
+    ids: torch.Tensor
+    weights: torch.Tensor
+    slots: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class MigRows:
+    """The migration directory and annex of one table on the mesh
+    (`MeshTrainer(mig_rows=M)`): up to M cold rows re-homed off their
+    `id % S` shard. The directory is replicated: `keys` (C = max(2M, 8),)
+    and `rank` (C,) int32 as in `HotRows`, `ids` (M,) the migrated ids by
+    rank (-1 padding) and `owners` (M,) int32 each one's assigned shard
+    (-1 padding). `weights` (M, dim) and `slots` are this rank's annex: a
+    rank's copy of rank m is live where it is m's assigned owner. Never
+    serialized (`MeshTrainer.hot_sync` writes the rows back home)."""
+
+    keys: torch.Tensor
+    rank: torch.Tensor
+    ids: torch.Tensor
+    owners: torch.Tensor
+    weights: torch.Tensor
+    slots: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
 class EmbeddingTableState:
     """One table's training storage: weights (rows, dim) and the optimizer's
     slots {name: (rows, width) float32}; a hash table also has `keys`
     (capacity,) int64 (-1 empty) and `overflow`, a () int32 count of the ids
     its pulls found no slot for (read by `Trainer.table_overflow`, never on
-    the step's path). The train step updates all of them in place."""
+    the step's path). On the mesh a table may also carry `hot` (the
+    replicated hot-row cache), `mig` (the migration directory and annex)
+    and `ef` (rows, dim) float32, the error-feedback residuals of the int8
+    pull wire, laid out like `weights` and saved like an optimizer slot
+    (the reserved name `__ef__`). The train step updates all of them in
+    place."""
 
     weights: torch.Tensor
     slots: Dict[str, torch.Tensor]
     keys: Optional[torch.Tensor] = None
     overflow: Optional[torch.Tensor] = None
+    hot: Optional[HotRows] = None
+    mig: Optional[MigRows] = None
+    ef: Optional[torch.Tensor] = None
+
+    def tensors(self) -> list:
+        """Every tensor of the state, in a fixed order (what a captured
+        graph reads and writes)."""
+        out = [self.weights, *self.slots.values(), self.keys, self.overflow,
+               self.ef]
+        for part in (self.hot, self.mig):
+            if part is not None:
+                out += [getattr(part, f.name) for f in dataclasses.fields(
+                    part) if f.name != "slots"] + list(part.slots.values())
+        return [t for t in out if t is not None]
 
 
 def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
                      generator: torch.Generator,
-                     num_shards: int = 1) -> EmbeddingTableState:
+                     num_shards: int = 1,
+                     error_feedback: bool = False) -> EmbeddingTableState:
     """Weights from the spec's initializer (drawn from `generator`, on its
     device) and the optimizer's slots at their initial values; with
-    `num_shards`, one shard of the table (`init_table`)."""
+    `num_shards`, one shard of the table (`init_table`).
+    `error_feedback`: a zero `ef` residual beside the weights."""
     if spec.storage != "hbm":
         raise NotImplementedError(
             f"variable {spec.name!r}: storage={spec.storage!r} (host-cached "
@@ -145,8 +207,11 @@ def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
     if spec.use_hash_table:
         keys = fresh_keys(weights.shape[0], device=weights.device)
         overflow = torch.zeros((), dtype=torch.int32, device=weights.device)
+    ef = (torch.zeros((weights.shape[0], spec.output_dim),
+                      dtype=torch.float32, device=weights.device)
+          if error_feedback else None)
     return EmbeddingTableState(weights=weights, slots=slots, keys=keys,
-                               overflow=overflow)
+                               overflow=overflow, ef=ef)
 
 
 def lookup(spec: EmbeddingSpec, state: EmbeddingTableState,

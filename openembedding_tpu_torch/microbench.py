@@ -163,7 +163,8 @@ def apply_bytes(rows: np.ndarray, counts: np.ndarray, n_rows: int, dim: int,
 
 def state_bits(state) -> Dict[str, torch.Tensor]:
     """Every tensor of a TrainState (tables, slots, a hash table's keys and
-    overflow counter, dense parameters, sparse_as_dense tables and their
+    overflow counter, a mesh table's residuals, hot cache and migration
+    directory and annex, dense parameters, sparse_as_dense tables and their
     slots) by name."""
     out = {}
     for name, t in state.tables.items():
@@ -172,6 +173,15 @@ def state_bits(state) -> Dict[str, torch.Tensor]:
         if t.keys is not None:
             out[f"{name}/keys"] = t.keys
             out[f"{name}/overflow"] = t.overflow
+        if t.ef is not None:
+            out[f"{name}/ef"] = t.ef
+        for kind in ("hot", "mig"):
+            part = getattr(t, kind)
+            if part is not None:
+                out.update({f"{name}/{kind}/{k}": v for k, v in vars(
+                    part).items() if k != "slots"})
+                out.update({f"{name}/{kind}/{k}": v
+                            for k, v in part.slots.items()})
     for pname, p in dense_leaves(state.dense, state.embeddings):
         out[f"dense/{pname}"] = p.detach()
         out.update({f"dense/{pname}/{k}": v

@@ -340,15 +340,12 @@ def _batch_key(tree):
 
 def _state_key(state: TrainState) -> tuple:
     """Which tensors a captured graph reads and writes: the address of every
-    table, slot, dense parameter and dense slot of the state. Loading a
-    checkpoint rebinds some of them, and a graph would then update the old
-    ones."""
+    table, slot, placement and residual tensor, dense parameter and dense
+    slot of the state. Loading a checkpoint rebinds some of them, and a
+    graph would then update the old ones."""
     ptrs = []
     for ts in state.tables.values():
-        ptrs += [ts.weights.data_ptr()] + [v.data_ptr()
-                                           for v in ts.slots.values()]
-        ptrs += [t.data_ptr() for t in (ts.keys, ts.overflow)
-                 if t is not None]
+        ptrs += [t.data_ptr() for t in ts.tensors()]
     for name, p in dense_leaves(state.dense, state.embeddings):
         ptrs += [p.data_ptr()] + [v.data_ptr()
                                   for v in state.dense_slots[name].values()]
@@ -553,13 +550,14 @@ class Trainer:
         return loss, stats
 
     def hot_sync(self, state: TrainState) -> TrainState:
-        """Write replicated hot rows back into their shards: the identity,
-        the port has no hot rows (ROADMAP.md item 3)."""
+        """Write replicated hot rows back into their shards: the identity
+        on one device, which holds no placement state
+        (`parallel.MeshTrainer.hot_sync` is the mesh's)."""
         return state
 
     def externalize(self, state: TrainState) -> TrainState:
-        """The state as a snapshot writer sees it: the identity (no hot rows
-        and no ZeRO-sharded dense slots in the port)."""
+        """The state as a snapshot writer sees it: `hot_sync`'s (the port
+        has no ZeRO-sharded dense slots)."""
         return self.hot_sync(state)
 
     # -- steps ---------------------------------------------------------------

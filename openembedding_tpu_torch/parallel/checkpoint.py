@@ -18,6 +18,13 @@ dense files. The disk layout is the JAX package's (meta `tpu-1`,
         id l*S + s, the reference's `id % S` interleave)
     <path>/variable_<id>/shard_<s>_of_<S>/ids.npy, weights.npy, slot_*.npy
         hash tables: the shard compacted, id-sorted
+        slot___ef__.npy: a table's int8-wire error-feedback residuals
+        (`EmbeddingTableState.ef`), saved and loaded like an optimizer
+        slot under the reserved name `__ef__`, as the JAX package does;
+        a target without `ef` ignores the file, and a checkpoint without
+        it leaves the target's residuals as they are. The placement state
+        (`hot`, `mig`) is never written: `MeshTrainer.save` writes it
+        back into the shards first.
 
 `load_sharded` restores such a checkpoint at ANY target mesh size: an
 index remap for array tables (id = l*S + s = m*T + t), a re-insert for
@@ -29,6 +36,7 @@ target shard). It also reads a single-device checkpoint
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import uuid
@@ -43,6 +51,7 @@ from ..convert import table_to_numpy, tables_from_numpy
 from ..meta import ModelMeta
 
 DEFAULT_CHUNK_ROWS = 1 << 16
+EF_SLOT = "__ef__"
 
 
 def _shard_dir(vdir: str, shard: int, num_shards: int) -> str:
@@ -104,7 +113,8 @@ def save_sharded(state, model, path: str, *, num_shards: int = 1,
         ts = state.tables[name]
         arrays = {"weights": ts.weights}
         if include_optimizer:
-            arrays.update({f"slot_{k}": v for k, v in ts.slots.items()})
+            arrays.update({f"slot_{k}": v
+                           for k, v in _slots_with_ef(ts).items()})
         if spec.use_hash_table:
             pos, ids = _resident(ts.keys, chunk_rows)
             np.save(os.path.join(sdir, "ids.npy"), ids)
@@ -121,6 +131,13 @@ def save_sharded(state, model, path: str, *, num_shards: int = 1,
         write_dense_and_meta(state, model, path, meta, include_optimizer,
                              layout="sharded")
     return meta
+
+
+def _slots_with_ef(ts) -> Dict[str, torch.Tensor]:
+    """The table's slots, with its residuals as the slot `__ef__`."""
+    if ts.ef is None:
+        return dict(ts.slots)
+    return {**ts.slots, EF_SLOT: ts.ef}
 
 
 def checkpoint_layout(path: str) -> str:
@@ -183,8 +200,9 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
                 f"variable {name!r}: checkpoint has {len(src)} shard dirs, "
                 f"its meta says {S} (an incomplete dump?)")
         ts = state.tables[name]
+        slots = _slots_with_ef(ts)
         first = next(iter(src.values()))
-        names = ["weights"] + [f"slot_{k}" for k in ts.slots if os.path.exists(
+        names = ["weights"] + [f"slot_{k}" for k in slots if os.path.exists(
             os.path.join(first, f"slot_{k}.npy"))]
         if spec.use_hash_table:
             ids, parts = [], {n: [] for n in names}
@@ -199,11 +217,13 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
             rows = {n: tables_from_numpy({"a": np.concatenate(p)},
                                          device=device)["a"]
                     for n, p in parts.items()}
-            load_hash_table(ts, np.concatenate(ids), rows.pop("weights"),
+            # the residuals ride as a slot: the load writes `ts.ef` itself
+            view = dataclasses.replace(ts, slots=slots)
+            load_hash_table(view, np.concatenate(ids), rows.pop("weights"),
                             {n[len("slot_"):]: v for n, v in rows.items()})
             continue
         for n in names:
-            dst = ts.weights if n == "weights" else ts.slots[n[len("slot_"):]]
+            dst = ts.weights if n == "weights" else slots[n[len("slot_"):]]
             dst.copy_(tables_from_numpy({"a": _array_target_shard(
                 rank, T, dst.shape[0], src, f"{n}.npy", S, spec.input_dim)},
                 device=device)["a"])

@@ -77,16 +77,20 @@ def all_gather(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
     return [_from_wire(mesh, p, x) for p in parts]
 
 
+def rank_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """((p0 + p1) + p2) + ...: the ranks' parts added in rank order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 def dense_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks, added in rank order: bit for bit the same
     on every rank and from run to run."""
     if mesh.size == 1:
         return x
-    parts = all_gather(mesh, x)
-    out = parts[0]
-    for p in parts[1:]:
-        out = out + p
-    return out
+    return rank_sum(all_gather(mesh, x))
 
 
 def psum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:

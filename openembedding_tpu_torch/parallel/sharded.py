@@ -1,7 +1,7 @@
 """Sharded pull and push: the reference's parameter-server wire protocol as
 collectives between the mesh's ranks (port of
-`openembedding_tpu/parallel/sharded.py`, without hot rows, migration, the
-pipelined prefetch and the int8 wire, which ROADMAP.md item 3 lists).
+`openembedding_tpu/parallel/sharded.py`, without the pipelined prefetch,
+ROADMAP.md item 3).
 
 Each rank holds one shard of every table (the ids with `id % S == rank`,
 at local row `id // S`) and one slice of the batch. These functions run on
@@ -34,14 +34,43 @@ PUSH and UPDATE, reusing the pull's plan:
 So three all_to_alls per dim-group a step: tables of one width share each
 of them (`grouped_lookup_train` / `grouped_apply_gradients`), each table a
 fixed segment of the concatenated buffer. Rows and grads travel in the
-wire format (`ops/wire.py`: fp32, or bf16 encoded at the sending edge).
-`S == 1` routes by identity: no collective, no bucket scatter, fp32.
+wire format (`ops/wire.py`: fp32, or bf16 or int8 encoded at the sending
+edge). With int8, a table carrying `ef` ships q(w + ef) from the owner
+and keeps ef' = (w + ef) - deq(q) (error feedback), and the grad push
+rounds stochastically (the wire's hash dither). `S == 1` routes by
+identity: no collective, no bucket scatter, fp32.
 
 Static capacity: each (source, owner) bucket holds `cap` ids;
 `capacity_factor` f sizes it to ceil(f * n / S) (f = 0: cap = n, never
 drops). An id past a full bucket pulls zeros and drops its gradient, and
 is counted in `pull_overflow` / `push_overflow`. Out-of-vocabulary ids of
 an array table pull zeros and train nothing, as on one device.
+
+SKEW-AWARE PLACEMENT (the JAX package's hot rows and cold-tail migration):
+
+- A table with a replicated hot cache (`EmbeddingTableState.hot`) probes
+  each id against the hot set (`_hot_probe`, a 16-round probe of a small
+  table) before the sort. Hot positions route to the pseudo-owner S: no
+  bucket slot, no wire bytes, no owner load. Their rows gather from the
+  local cache (`_merge_hot_rows`, the gather kernel), and their gradients
+  are summed into an (H, dim) aggregate, reduced over the ranks in rank
+  order (`collectives.dense_sum`; the int8 `hot_wire` an all_to_all, a
+  per-rank sum and an all_gather of encoded rows) and applied alike on
+  every rank by the fused apply over rows `arange(H)` (`_hot_apply`).
+  At the fp32 wire the sums fold the ranks in the order the cold owner's
+  segment sum does, so an array table's run with hot rows equals one
+  without, bit for bit, once `hot_writeback` has written the cache back
+  (a hash table may give a promoted id another slot, and so another
+  initial row, than its first pull would).
+- A table with a migration directory (`EmbeddingTableState.mig`) probes
+  each id against it too, and a migrated id routes to its assigned owner
+  (`unique_and_route(owner=...)`): no extra collective or byte. The owner
+  serves and trains it in its annex (`mig.weights`, the gather and the
+  fused apply kernels) and masks it out of the main table, so a hash
+  table never inserts it again. `mig_writeback` restores the home rows.
+- The lifecycle runs between steps (`build_hot_identity`, `hot_gather`,
+  `hot_writeback`, `build_mig_identity`, `mig_gather`, `mig_writeback`):
+  contents change, tensors do not, so no captured graph goes stale.
 """
 
 from __future__ import annotations
@@ -50,22 +79,37 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..embedding import EmbeddingSpec, EmbeddingTableState
+import numpy as np
+
+from ..embedding import EmbeddingSpec, EmbeddingTableState, HotRows, MigRows
+from ..ops import apply as apply_mod
 from ..ops import wire as wire_mod
 from ..ops.dedup import (BucketResult, UniqueResult, bucket_validity,
-                         concat_owner_buckets, split_owner_buckets, unbucket,
-                         unique_and_route, unique_with_counts)
+                         carry_to_unique, concat_owner_buckets,
+                         split_owner_buckets, unbucket, unique_and_route,
+                         unique_with_counts)
 from ..ops.sparse import lookup_rows, sparse_apply_dense_table
-from ..tables.hash_table import hash_lookup, hash_lookup_train
+from ..tables.hash_table import (hash_find, hash_find_or_insert, hash_lookup,
+                                 hash_lookup_train, np_hash_insert,
+                                 shard_probe)
 from . import collectives as coll
 from .mesh import Mesh
+
+# probe rounds of the hot set's and the migration directory's tables (C =
+# max(2H, 8) slots); `build_hot_identity` places ids within the same budget,
+# so the device probe reaches every placed id
+HOT_NUM_PROBES = 16
 
 
 class ExchangePlan(NamedTuple):
     """The routing a pull and its push share: the client's dedup and
     buckets, the ids this rank serves and the capacity; `slot`, for a hash
     table after a training pull, the slot of each received id (`capacity`
-    where it is invalid or overflowed), which the push applies at."""
+    where it is invalid, overflowed or migrated), which the push applies
+    at. With a hot cache, `hot_slot` (n,) holds each unique slot's cache
+    row (`hot_rows` = H for a cold one); with a migration directory,
+    `mig_moved` (n,) int32 is 1 where the directory routed the unique id
+    off its `id % S` home (accounting only)."""
 
     uniq: UniqueResult
     buckets: BucketResult
@@ -73,6 +117,9 @@ class ExchangePlan(NamedTuple):
     recv_valid: torch.Tensor  # (S, cap)
     cap: int
     slot: Optional[torch.Tensor] = None
+    hot_slot: Optional[torch.Tensor] = None
+    hot_rows: int = 0
+    mig_moved: Optional[torch.Tensor] = None
 
 
 def _bucket_capacity(n: int, num_shards: int, capacity_factor: float) -> int:
@@ -116,47 +163,132 @@ def _identity_plan(spec: EmbeddingSpec, flat: torch.Tensor) -> ExchangePlan:
     return ExchangePlan(uniq, buckets, recv_ids, recv_valid, n)
 
 
+def _probe_rank(keys: torch.Tensor, rank: torch.Tensor, empty: int,
+                flat: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Each position's rank in a placement probe table (`empty` where it
+    misses; invalid positions probe -1 and always miss)."""
+    C = keys.shape[0]
+    probe = torch.where(valid, flat, torch.full_like(flat, -1))
+    pslot = hash_find(keys, probe, num_probes=HOT_NUM_PROBES)
+    return torch.where(pslot < C, rank[torch.clamp(pslot, 0, C - 1)].long(),
+                       torch.full_like(pslot, empty))
+
+
+def _hot_probe(hot: HotRows, flat: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Each position's hot cache row in [0, H] (H: a miss)."""
+    return _probe_rank(hot.keys, hot.rank, hot.weights.shape[0], flat, valid)
+
+
+def _mig_find(mig: MigRows, flat: torch.Tensor, valid: torch.Tensor):
+    """Each position's directory entry -> (found, rank (M where not),
+    owner (-1 where not))."""
+    M = mig.ids.shape[0]
+    rank = _probe_rank(mig.keys, mig.rank, M, flat, valid)
+    found = rank < M
+    owner = torch.where(found, mig.owners[torch.clamp(rank, 0, M - 1)].long(),
+                        torch.full_like(rank, -1))
+    return found, rank, owner
+
+
+def _route_owner(mig: MigRows, flat: torch.Tensor, valid: torch.Tensor,
+                 S: int):
+    """Each position's owner under the directory: the assigned owner where
+    it hits, the `id % S` home elsewhere, S where invalid -> (owner,
+    moved: the directory routed it off its home)."""
+    home = torch.remainder(flat, S)
+    found, _, own = _mig_find(mig, flat, valid)
+    moved = found & (own != home)
+    owner = torch.where(valid & found, own,
+                        torch.where(valid, home, torch.full_like(home, S)))
+    return owner, moved
+
+
 def _client_route(spec: EmbeddingSpec, flat: torch.Tensor, S: int,
-                  capacity_factor: float):
+                  capacity_factor: float, hot: Optional[HotRows] = None,
+                  mig: Optional[MigRows] = None):
     """The client's dedup and owner routing: a plan without its id
-    exchange -> (uniq, buckets, cap)."""
+    exchange -> (uniq, buckets, cap, hot_slot, mig_moved), the last two
+    None without a cache or a directory. Hot positions route to the
+    pseudo-owner S (no bucket slot) and keep their unique slots."""
     cap = _bucket_capacity(flat.shape[0], S, capacity_factor)
-    uniq, buckets = unique_and_route(flat, _id_valid(spec, flat), S, cap)
-    return uniq, buckets, cap
+    valid = _id_valid(spec, flat)
+    if hot is None and mig is None:
+        uniq, buckets = unique_and_route(flat, valid, S, cap)
+        return uniq, buckets, cap, None, None
+    owner = moved = None
+    if mig is not None:
+        owner, moved = _route_owner(mig, flat, valid, S)
+    if hot is None:
+        uniq, buckets = unique_and_route(flat, valid, S, cap, owner=owner)
+        return uniq, buckets, cap, None, carry_to_unique(
+            uniq, moved.to(torch.int32), 0)
+    H = hot.weights.shape[0]
+    hr = _hot_probe(hot, flat, valid)
+    uniq, buckets = unique_and_route(flat, valid & (hr >= H), S, cap,
+                                     owner=owner)
+    hot_slot = carry_to_unique(uniq, hr, H)
+    mig_moved = None if moved is None else carry_to_unique(
+        uniq, (moved & (hr >= H)).to(torch.int32), 0)
+    return uniq, buckets, cap, hot_slot, mig_moved
+
+
+_S1_REFUSALS = {
+    "hot": "hot-row replication needs S >= 2: on a 1-device mesh the "
+           "shard and the cache are the same memory, and two copies of a "
+           "row can only diverge (MeshTrainer disables hot_rows at mesh "
+           "size 1)",
+    "mig": "cold-tail re-sharding needs S >= 2: on a 1-device mesh there "
+           "is nowhere to migrate a row to (MeshTrainer disables mig_rows "
+           "at mesh size 1)"}
 
 
 def make_plan(spec: EmbeddingSpec, ids: torch.Tensor, *, mesh: Mesh,
-              capacity_factor: float = 0.0) -> ExchangePlan:
+              capacity_factor: float = 0.0, hot: Optional[HotRows] = None,
+              mig: Optional[MigRows] = None) -> ExchangePlan:
     """Dedup the rank's ids, bucket them by owner and exchange the buckets
-    (one all_to_all); `S == 1` is the identity plan."""
+    (one all_to_all); `S == 1` is the identity plan. `hot`: the table's
+    cache (hot positions leave the exchange); `mig`: its directory
+    (migrated ids route to their assigned owner). Both need S >= 2."""
     flat = flatten_ids(spec, ids)
     if mesh.size == 1:
+        if hot is not None:
+            raise ValueError(_S1_REFUSALS["hot"])
+        if mig is not None:
+            raise ValueError(_S1_REFUSALS["mig"])
         return _identity_plan(spec, flat)
-    uniq, buckets, cap = _client_route(spec, flat, mesh.size,
-                                       capacity_factor)
+    uniq, buckets, cap, hot_slot, moved = _client_route(
+        spec, flat, mesh.size, capacity_factor, hot, mig)
     recv_ids = coll.all_to_all(mesh, buckets.bucket_ids)
     return ExchangePlan(uniq, buckets, recv_ids, bucket_validity(recv_ids),
-                        cap)
+                        cap, None, hot_slot,
+                        0 if hot is None else hot.weights.shape[0], moved)
 
 
 def grouped_make_plans(specs, ids_list, *, mesh: Mesh,
-                       capacity_factor: float = 0.0) -> List[ExchangePlan]:
+                       capacity_factor: float = 0.0, hots=None,
+                       migs=None) -> List[ExchangePlan]:
     """Plans for a dim-group of tables with ONE id all_to_all: each table
-    routes as in `make_plan`, and its (S, cap_t) buckets ride as a fixed
-    segment of one concatenated buffer."""
+    routes as in `make_plan` (with its cache `hots[i]` and directory
+    `migs[i]`), and its (S, cap_t) buckets ride as a fixed segment of one
+    concatenated buffer."""
+    hots = hots if hots is not None else [None] * len(specs)
+    migs = migs if migs is not None else [None] * len(specs)
     if mesh.size == 1:
         return [make_plan(spec, ids, mesh=mesh,
-                          capacity_factor=capacity_factor)
-                for spec, ids in zip(specs, ids_list)]
+                          capacity_factor=capacity_factor, hot=hot, mig=mig)
+                for spec, ids, hot, mig in zip(specs, ids_list, hots, migs)]
     parts = [_client_route(spec, flatten_ids(spec, ids), mesh.size,
-                           capacity_factor)
-             for spec, ids in zip(specs, ids_list)]
-    wire_ids = concat_owner_buckets([b.bucket_ids for _, b, _ in parts])
+                           capacity_factor, hot, mig)
+             for spec, ids, hot, mig in zip(specs, ids_list, hots, migs)]
+    wire_ids = concat_owner_buckets([p[1].bucket_ids for p in parts])
     recv = coll.all_to_all(mesh, wire_ids)
     segs = split_owner_buckets(recv, [(cap, b.bucket_ids.dtype)
-                                      for _, b, cap in parts])
-    return [ExchangePlan(uniq, buckets, seg, bucket_validity(seg), cap)
-            for (uniq, buckets, cap), seg in zip(parts, segs)]
+                                      for _, b, cap, _, _ in parts])
+    return [ExchangePlan(uniq, buckets, seg, bucket_validity(seg), cap, None,
+                         hs, 0 if hot is None else hot.weights.shape[0], mv)
+            for (uniq, buckets, cap, hs, mv), seg, hot
+            in zip(parts, segs, hots)]
 
 
 def exchange_load_stats(plan: ExchangePlan, *, mesh: Mesh
@@ -182,6 +314,27 @@ def exchange_load_stats(plan: ExchangePlan, *, mesh: Mesh
             "bucket_fill": fill}
 
 
+def write_rows(dst: torch.Tensor, idx: torch.Tensor,
+               values: torch.Tensor) -> None:
+    """dst[idx[i]] = values[i] in place, dropping every i with idx[i] out
+    of [0, rows): the JAX package's `.at[idx].set(mode="drop")`. Rows that
+    repeat must repeat one value. Nothing is read back to the host (a graph
+    captures it): a dropped write goes to the first kept write's row with
+    that write's value, or rewrites row 0 with itself when none is kept."""
+    rows = dst.shape[0]
+    keep = (idx >= 0) & (idx < rows)
+    # (1,) tensors, not 0-d ones: indexing by a 0-d tensor reads it back
+    first = torch.argmax(keep.to(torch.int8)).reshape(1)
+    any_kept = keep.any()
+    vals = values.to(dst.dtype)
+    head = idx.index_select(0, first)
+    fill_idx = torch.where(any_kept, head, torch.zeros_like(head))
+    fill_val = torch.where(any_kept, vals.index_select(0, first), dst[:1])
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    dst[torch.where(keep, idx, fill_idx).long()] = torch.where(
+        keep.reshape(shape), vals, fill_val)
+
+
 def _serve_rows(spec: EmbeddingSpec, state: EmbeddingTableState,
                 plan: ExchangePlan, *, train: bool, mesh: Mesh,
                 fmt: str = "fp32") -> Tuple[torch.Tensor, ExchangePlan]:
@@ -189,12 +342,26 @@ def _serve_rows(spec: EmbeddingSpec, state: EmbeddingTableState,
     as the (S, cap, W) payload in wire format `fmt` (encoded here, at the
     owner's edge). A hash table's training pull inserts unseen ids, adds
     the overflow of all the ranks to its counter, and returns the plan with
-    the received ids' slots. -> (payload, plan)."""
+    the received ids' slots. With a directory, received migrated ids read
+    the annex (the gather kernel) and are masked out of the main table, so
+    a hash table never inserts them. A training pull at a narrow format
+    with `state.ef` ships q(w + ef) and keeps ef' = (w + ef) - deq(q) at
+    the row (annex and invalid slots take no residual; a hash table's
+    residual sits at the row's slot, taken from the pull's probe).
+    -> (payload, plan)."""
     S = mesh.size
     flat_recv = plan.recv_ids.reshape(-1)
     flat_valid = plan.recv_valid.reshape(-1)
+    need_ef = train and fmt != "fp32" and state.ef is not None
+    ef_idx = None
+    mig = state.mig
+    m_found = None
+    main_valid = flat_valid
+    if mig is not None:
+        m_found, m_rank, _ = _mig_find(mig, flat_recv, flat_valid)
+        main_valid = flat_valid & ~m_found
     if spec.use_hash_table:
-        probe = torch.where(flat_valid, flat_recv,
+        probe = torch.where(main_valid, flat_recv,
                             torch.full_like(flat_recv, -1))
         if train:
             state, rows, overflow, slot = hash_lookup_train(state, probe)
@@ -203,24 +370,137 @@ def _serve_rows(spec: EmbeddingSpec, state: EmbeddingTableState,
                 # the increments of all the ranks
                 state.overflow.add_(coll.psum(mesh, overflow) - overflow)
             plan = plan._replace(slot=slot)
+            ef_idx = slot  # `capacity` (dropped) where invalid or annex
         else:
             rows = hash_lookup(state, probe)
     else:
-        local = torch.where(flat_valid, torch.div(flat_recv, S,
+        local = torch.where(main_valid, torch.div(flat_recv, S,
                                                   rounding_mode="floor"),
                             torch.full_like(flat_recv, -1))
         rows = lookup_rows(state.weights, local)
+        if need_ef:
+            ef_idx = torch.where(main_valid, local,
+                                 torch.full_like(local, state.ef.shape[0]))
+    if m_found is not None:
+        M = mig.weights.shape[0]
+        arows = lookup_rows(mig.weights, torch.where(
+            m_found, m_rank, torch.full_like(m_rank, M)))
+        rows = torch.where(m_found[:, None], arows.to(rows.dtype), rows)
     if fmt == "fp32":
         return rows.reshape(S, plan.cap, spec.output_dim), plan
-    enc = wire_mod.pack_inband(rows.float(), fmt)
+    x = rows.float()
+    if need_ef:
+        # out-of-range rows gather zeros and drop their write; the
+        # receive slots of one id gather the same w + ef and so write the
+        # same residual
+        x = x + lookup_rows(state.ef, ef_idx)
+        enc = wire_mod.pack_inband(x, fmt)
+        write_rows(state.ef, ef_idx,
+                   wire_mod.residual(x, enc, spec.output_dim, fmt))
+    else:
+        enc = wire_mod.pack_inband(x, fmt)
     return enc.reshape(S, plan.cap, -1), plan
 
 
+def _merge_hot_rows(plan: ExchangePlan, uniq_rows: torch.Tensor,
+                    hot: Optional[HotRows]) -> torch.Tensor:
+    """Overlay the local cache's rows (the gather kernel, row H a zero
+    miss) on the exchange's unique rows, whose hot slots came back
+    zero."""
+    if hot is None or plan.hot_slot is None:
+        return uniq_rows
+    H = hot.weights.shape[0]
+    hrows = lookup_rows(hot.weights, plan.hot_slot)
+    return torch.where((plan.hot_slot < H)[:, None],
+                       hrows.to(uniq_rows.dtype), uniq_rows)
+
+
+def _hot_pull_stats(spec: EmbeddingSpec, plan: ExchangePlan,
+                    flat: torch.Tensor, fmt: str) -> Dict[str, torch.Tensor]:
+    """`hot_hits` (positions served by the cache), `hot_unique` (rows that
+    skipped the wire) and `hot_bytes_saved` (those rows times the bytes
+    one row's id, pulled row and pushed grad would have cost)."""
+    H = plan.hot_rows
+    hm = (plan.hot_slot < H) & (plan.uniq.counts > 0)
+    hot_unique = torch.sum(hm).to(torch.int32)
+    hot_hits = torch.sum(torch.where(hm, plan.uniq.counts,
+                                     torch.zeros_like(plan.uniq.counts))
+                         ).to(torch.int32)
+    w = wire_mod.wire_dtype(fmt).itemsize
+    per_row = (wire_mod.id_wire_itemsize(False, flat.element_size())
+               + wire_mod.rows_wire_width(spec.output_dim, fmt) * w
+               + wire_mod.grads_wire_width(spec.output_dim, fmt) * w)
+    return {"hot_unique": hot_unique, "hot_hits": hot_hits,
+            "hot_bytes_saved": hot_unique.to(torch.float32) * float(per_row)}
+
+
+def _mig_pull_stats(plan: ExchangePlan) -> Dict[str, torch.Tensor]:
+    """`mig_unique` (rows the directory routed off their home this step)
+    and `mig_hits` (the positions they took)."""
+    mm = (plan.mig_moved > 0) & (plan.uniq.counts > 0)
+    return {"mig_unique": torch.sum(mm).to(torch.int32),
+            "mig_hits": torch.sum(torch.where(
+                mm, plan.uniq.counts, torch.zeros_like(plan.uniq.counts))
+            ).to(torch.int32)}
+
+
+def _hot_apply(spec: EmbeddingSpec, optimizer, hot: HotRows,
+               plan: ExchangePlan, g: torch.Tensor, mesh: Mesh,
+               fmt: str = "fp32") -> None:
+    """The hot rows' update, in place on every rank alike: the unique
+    slots' grad sums scattered into the (H, dim) aggregate, summed over
+    the ranks in rank order (the order the cold owner's source-major
+    segment sum folds them in), the counts as an exact int32 sum, then the
+    fused apply over rows `arange(H)` with the replicated slots (count-0
+    rows stay as they are). `fmt`: bf16 rounds the aggregate to bfloat16
+    and the sum once more; int8
+    encodes the (Hp, W) aggregate, all_to_all's it so rank r holds every
+    rank's rows [r Hp/S, (r+1) Hp/S), decodes and sums them in float32,
+    re-encodes the sums and all_gathers them in rank order. Every rank
+    decodes the same bits, so the replicas stay equal."""
+    S = mesh.size
+    H = hot.weights.shape[0]
+    dim = spec.output_dim
+    hm = plan.hot_slot < H
+    tgt = torch.where(hm, plan.hot_slot, torch.full_like(plan.hot_slot, H))
+    # slot H is the spare row the cold slots write into, cut off after
+    hg = torch.zeros((H + 1, dim), dtype=torch.float32, device=g.device)
+    hg[tgt] = g.float()
+    hc = torch.zeros(H + 1, dtype=torch.int32, device=g.device)
+    hc[tgt] = torch.where(hm, plan.uniq.counts,
+                          torch.zeros_like(plan.uniq.counts)).to(torch.int32)
+    hg, hc = hg[:H], hc[:H]
+    if fmt == "fp32":
+        tg = coll.dense_sum(mesh, hg)
+    elif fmt == "bf16":
+        # summed in float32 and rounded once, as XLA's all-reduce of a
+        # bfloat16 buffer (its float normalization widens it)
+        tg = coll.dense_sum(mesh, hg.to(torch.bfloat16).float()).to(
+            torch.bfloat16).float()
+    else:
+        Hp = -(-H // S) * S
+        hp = torch.nn.functional.pad(hg, (0, 0, 0, Hp - H)) if Hp != H else hg
+        enc = wire_mod.pack_inband(hp, "int8")
+        W = enc.shape[1]
+        parts = coll.all_to_all(mesh, enc.reshape(S, Hp // S, W))
+        dec = wire_mod.unpack_inband(parts.reshape(-1, W), dim,
+                                     "int8").reshape(S, Hp // S, dim)
+        partial = coll.rank_sum(list(dec.unbind(0)))
+        full = torch.cat(coll.all_gather(
+            mesh, wire_mod.pack_inband(partial, "int8")))
+        tg = wire_mod.unpack_inband(full, dim, "int8")[:H]
+    tc = coll.psum(mesh, hc)
+    rows = torch.arange(H, dtype=torch.int64, device=g.device)
+    apply_mod.fused_sparse_apply(optimizer, hot.weights, hot.slots, rows,
+                                 tg.contiguous(), tc.contiguous())
+
+
 def _reassemble(plan: ExchangePlan, rows: torch.Tensor, out_shape, dim: int,
-                mesh: Mesh, fmt: str = "fp32") -> torch.Tensor:
+                mesh: Mesh, fmt: str = "fp32",
+                hot: Optional[HotRows] = None) -> torch.Tensor:
     """The client's side: rows back over the all_to_all (decoded here),
-    unbucketed, duplicates expanded. At S == 1 the served rows are the
-    unique rows."""
+    unbucketed, the cache's rows overlaid, duplicates expanded. At S == 1
+    the served rows are the unique rows."""
     if mesh.size == 1:
         uniq_rows = rows[0]
     else:
@@ -230,11 +510,13 @@ def _reassemble(plan: ExchangePlan, rows: torch.Tensor, out_shape, dim: int,
                 back.reshape(-1, back.shape[-1]), dim,
                 fmt).reshape(back.shape[0], -1, dim)
         uniq_rows = unbucket(back, plan.buckets.owner, plan.buckets.slot)
+    uniq_rows = _merge_hot_rows(plan, uniq_rows, hot)
     out = uniq_rows[plan.uniq.inverse]
     return out.reshape(tuple(out_shape) + (dim,))
 
 
-def _pull_stats(spec, ids, plan, load_stats, mesh) -> Dict[str, torch.Tensor]:
+def _pull_stats(spec, ids, plan, load_stats, mesh,
+                fmt: str = "fp32") -> Dict[str, torch.Tensor]:
     dev = ids.device
     stats = {
         # a fill on the device: a host tensor could not be captured
@@ -243,6 +525,11 @@ def _pull_stats(spec, ids, plan, load_stats, mesh) -> Dict[str, torch.Tensor]:
         "pull_unique": plan.uniq.num_unique.to(torch.int32),
         "pull_overflow": plan.buckets.overflow,
     }
+    if plan.hot_slot is not None:
+        stats.update(_hot_pull_stats(spec, plan, flatten_ids(spec, ids),
+                                     fmt))
+    if plan.mig_moved is not None:
+        stats.update(_mig_pull_stats(plan))
     if load_stats:
         stats.update(exchange_load_stats(plan, mesh=mesh))
     return stats
@@ -250,6 +537,11 @@ def _pull_stats(spec, ids, plan, load_stats, mesh) -> Dict[str, torch.Tensor]:
 
 def _fmt(mesh: Mesh, wire: Optional[str]) -> str:
     return wire_mod.wire_format(wire) if mesh.size > 1 else "fp32"
+
+
+def _hot_fmt(fmt: str, hot_wire: Optional[str]) -> str:
+    """The hot reduce's format: `hot_wire`, else the table's wire."""
+    return wire_mod.wire_format(hot_wire) if hot_wire is not None else fmt
 
 
 def sharded_lookup_train(spec: EmbeddingSpec, state: EmbeddingTableState,
@@ -260,24 +552,30 @@ def sharded_lookup_train(spec: EmbeddingSpec, state: EmbeddingTableState,
     """Training pull of one table -> (state, rows ids.shape + (dim,), stats,
     plan); the plan goes to `sharded_apply_gradients` for the same batch.
     `wire`: the rows' format (None: `$OETPU_WIRE`, then bf16)."""
-    plan = make_plan(spec, ids, mesh=mesh, capacity_factor=capacity_factor)
+    plan = make_plan(spec, ids, mesh=mesh, capacity_factor=capacity_factor,
+                     hot=state.hot, mig=state.mig)
     fmt = _fmt(mesh, wire)
     rows, plan = _serve_rows(spec, state, plan, train=True, mesh=mesh,
                              fmt=fmt)
-    out = _reassemble(plan, rows, ids.shape, spec.output_dim, mesh, fmt)
+    out = _reassemble(plan, rows, ids.shape, spec.output_dim, mesh, fmt,
+                      hot=state.hot)
     if fmt != "fp32":
         out = out.to(spec.dtype)
-    return state, out, _pull_stats(spec, ids, plan, load_stats, mesh), plan
+    return state, out, _pull_stats(spec, ids, plan, load_stats, mesh,
+                                   fmt), plan
 
 
 def sharded_lookup(spec: EmbeddingSpec, state: EmbeddingTableState,
                    ids: torch.Tensor, *, mesh: Mesh,
                    capacity_factor: float = 0.0) -> torch.Tensor:
     """Read-only pull (eval, serving): inserts nothing; absent hash ids
-    pull zeros. fp32 wire."""
-    plan = make_plan(spec, ids, mesh=mesh, capacity_factor=capacity_factor)
+    pull zeros; hot rows read the cache, migrated rows the annex. fp32
+    wire."""
+    plan = make_plan(spec, ids, mesh=mesh, capacity_factor=capacity_factor,
+                     hot=state.hot, mig=state.mig)
     rows, plan = _serve_rows(spec, state, plan, train=False, mesh=mesh)
-    return _reassemble(plan, rows, ids.shape, spec.output_dim, mesh)
+    return _reassemble(plan, rows, ids.shape, spec.output_dim, mesh,
+                       hot=state.hot)
 
 
 def _client_grads(spec, plan, grads):
@@ -295,15 +593,22 @@ def sharded_apply_gradients(spec: EmbeddingSpec, state: EmbeddingTableState,
                             grads: torch.Tensor, *, mesh: Mesh,
                             capacity_factor: float = 0.0,
                             plan: Optional[ExchangePlan] = None,
-                            wire: Optional[str] = "fp32"):
+                            wire: Optional[str] = "fp32",
+                            hot_wire: Optional[str] = None):
     """Push and fused update of one table, in place -> (state, stats).
-    Pass the pull's `plan` to skip a second dedup and id exchange."""
+    Pass the pull's `plan` to skip a second dedup and id exchange. int8
+    grads round stochastically; `hot_wire`: the hot reduce's format
+    (None: `wire`'s)."""
     S = mesh.size
     fmt = _fmt(mesh, wire)
     if plan is None:
         plan = make_plan(spec, ids, mesh=mesh,
-                         capacity_factor=capacity_factor)
+                         capacity_factor=capacity_factor, hot=state.hot,
+                         mig=state.mig)
     g, counts = _client_grads(spec, plan, grads)
+    if plan.hot_slot is not None and state.hot is not None:
+        _hot_apply(spec, optimizer, state.hot, plan, g, mesh,
+                   _hot_fmt(fmt, hot_wire))
     if S == 1:
         # identity routing: the unique slots are the owner's receive buffer
         rids, rg, rc = plan.uniq.unique_ids, g, counts
@@ -320,7 +625,8 @@ def sharded_apply_gradients(spec: EmbeddingSpec, state: EmbeddingTableState,
         rc = flat[:, spec.output_dim:].contiguous().view(
             torch.int32).reshape(-1)
     else:
-        payload = wire_mod.encode_grads(g, counts, fmt)
+        payload = wire_mod.encode_grads(g, counts, fmt,
+                                        stochastic=fmt == "int8")
         recv = coll.all_to_all(mesh, _scatter_buckets(payload, plan.buckets,
                                                       S, plan.cap))
         rids = plan.recv_ids.reshape(-1)
@@ -335,7 +641,7 @@ def _scatter_buckets(payload: torch.Tensor, buckets: BucketResult, S: int,
                      cap: int) -> torch.Tensor:
     """Per-unique-slot payload rows (n, W) into their (owner, slot) bucket
     positions -> (S, cap, W), zeros in empty slots; slots not bucketed
-    (invalid, overflowed) go to one spare row that is cut off."""
+    (invalid, hot, overflowed) go to one spare row that is cut off."""
     width = payload.shape[1]
     ok = (buckets.owner < S) & (buckets.slot < cap)
     flat_pos = torch.where(ok, buckets.owner * cap + buckets.slot,
@@ -354,14 +660,25 @@ def _apply_unique(spec: EmbeddingSpec, state: EmbeddingTableState,
     and exact counts (0 = empty or invalid slot) deduplicated across the
     sources (the receive buffer is source-major, so each row sums its
     sources in rank order) and applied once per unique row by the fused
-    apply. A hash table applies at `slot` (its pull's slots of these
-    receive positions), or probes for them without it."""
+    apply. Received migrated ids apply to the annex the same way and drop
+    out of the main table's apply. A hash table applies at `slot` (its
+    pull's slots of these receive positions), or probes for them without
+    it."""
+    mig = state.mig
+    if mig is not None:
+        m_found, m_rank, _ = _mig_find(mig, rids, rc > 0)
+        M = mig.weights.shape[0]
+        sparse_apply_dense_table(
+            optimizer, mig.weights, mig.slots,
+            torch.where(m_found, m_rank, torch.full_like(m_rank, M)), rg,
+            pre_counts=torch.where(m_found, rc, torch.zeros_like(rc)),
+            dead_apart=True)
+        rc = torch.where(m_found, torch.zeros_like(rc), rc)
     live = rc > 0
     zero = torch.zeros_like(rc)
     if spec.use_hash_table:
         capacity = state.keys.shape[0]
         if slot is None:
-            from ..tables.hash_table import hash_find
             slot = hash_find(state.keys, torch.where(
                 live, rids, torch.full_like(rids, -1)))
         slot = torch.where(live, slot, torch.full_like(slot, capacity))
@@ -404,11 +721,15 @@ def grouped_lookup_train(specs, states, ids_list, *, mesh: Mesh,
                          load_stats: bool = True):
     """Training pull of one dim-group with one id and one row all_to_all ->
     (states, rows list, stats list, plans), lists in the input order; the
-    plans go to `grouped_apply_gradients` for the same batch."""
+    plans go to `grouped_apply_gradients` for the same batch. Each table
+    encodes at its owner's edge with its own residuals; the encoded widths
+    are one across the group, so one all_to_all carries them all."""
     S = mesh.size
     dim = _check_dims(specs)
+    hots = [state.hot for state in states]
     plans = grouped_make_plans(specs, ids_list, mesh=mesh,
-                               capacity_factor=capacity_factor)
+                               capacity_factor=capacity_factor, hots=hots,
+                               migs=[state.mig for state in states])
     fmt = _fmt(mesh, wire)
     rows_list = []
     for i, (spec, state) in enumerate(zip(specs, states)):
@@ -425,31 +746,42 @@ def grouped_lookup_train(specs, states, ids_list, *, mesh: Mesh,
         dec = wire_mod.unpack_inband(back.reshape(-1, back.shape[-1]), dim,
                                      fmt).reshape(S, -1, dim)
         outs, off = [], 0
-        for spec, ids, plan in zip(specs, ids_list, plans):
+        for spec, ids, plan, hot in zip(specs, ids_list, plans, hots):
             seg = dec[:, off:off + plan.cap]
             off += plan.cap
             uniq_rows = unbucket(seg, plan.buckets.owner, plan.buckets.slot)
+            uniq_rows = _merge_hot_rows(plan, uniq_rows, hot)
             out = uniq_rows[plan.uniq.inverse]
             outs.append(out.to(spec.dtype).reshape(
                 tuple(ids.shape) + (spec.output_dim,)))
-    stats_list = [_pull_stats(spec, ids, plan, load_stats, mesh)
+    stats_list = [_pull_stats(spec, ids, plan, load_stats, mesh, fmt)
                   for spec, ids, plan in zip(specs, ids_list, plans)]
     return states, outs, stats_list, plans
 
 
 def grouped_apply_gradients(specs, states, optimizers, ids_list, grads_list,
                             *, mesh: Mesh, capacity_factor: float = 0.0,
-                            plans=None, wire: Optional[str] = None):
+                            plans=None, wire: Optional[str] = None,
+                            hot_wire: Optional[str] = None):
     """Push and fused update of one dim-group, in place: ONE all_to_all
-    carries every table's grads and counts -> (states, stats list)."""
+    carries every table's grads and counts (int8 grads rounded
+    stochastically); the hot rows reduce apart (`hot_wire`: their format,
+    None: `wire`'s) -> (states, stats list)."""
     S = mesh.size
     dim = _check_dims(specs)
     fmt = _fmt(mesh, wire)
     if plans is None:
-        plans = grouped_make_plans(specs, ids_list, mesh=mesh,
-                                   capacity_factor=capacity_factor)
+        plans = grouped_make_plans(
+            specs, ids_list, mesh=mesh, capacity_factor=capacity_factor,
+            hots=[state.hot for state in states],
+            migs=[state.mig for state in states])
     client = [_client_grads(spec, plan, grads)
               for spec, plan, grads in zip(specs, plans, grads_list)]
+    for spec, state, opt, plan, (g, _) in zip(specs, states, optimizers,
+                                              plans, client):
+        if plan.hot_slot is not None and state.hot is not None:
+            _hot_apply(spec, opt, state.hot, plan, g, mesh,
+                       _hot_fmt(fmt, hot_wire))
     stats_list = [{"push_overflow": plan.buckets.overflow} for plan in plans]
     if S == 1:
         for spec, state, opt, plan, (g, rc) in zip(specs, states, optimizers,
@@ -457,8 +789,9 @@ def grouped_apply_gradients(specs, states, optimizers, ids_list, grads_list,
             _apply_unique(spec, state, opt, plan.uniq.unique_ids, g, rc, S,
                           plan.slot)
         return states, stats_list
-    payloads = [_scatter_buckets(wire_mod.encode_grads(g, rc, fmt),
-                                 plan.buckets, S, plan.cap)
+    payloads = [_scatter_buckets(
+        wire_mod.encode_grads(g, rc, fmt, stochastic=fmt == "int8"),
+        plan.buckets, S, plan.cap)
                 for plan, (g, rc) in zip(plans, client)]
     recv = coll.all_to_all(mesh, torch.cat(payloads, dim=1))
     width = recv.shape[-1]
@@ -471,6 +804,255 @@ def grouped_apply_gradients(specs, states, optimizers, ids_list, grads_list,
         _apply_unique(spec, state, opt, plan.recv_ids.reshape(-1),
                       rg32.to(g.dtype), rc, S, plan.slot)
     return states, stats_list
+
+
+# ---------------------------------------------------------------------------
+# The placement lifecycle, between steps: the host builds an identity (the
+# probe table of a hot set or a directory), the ranks fill the cache or the
+# annex from the owner shards and write them back. Only bits move: one
+# all_gather and a select by owner, no float sum. An existing cache or annex
+# takes the new contents in place, so the state keeps its tensors.
+# ---------------------------------------------------------------------------
+
+
+def _probe_keys(spec: EmbeddingSpec, C: int) -> np.ndarray:
+    """An empty probe table: int32 keys for an array table (its ids are
+    below 2^31), the table's int64 keys for a hash table."""
+    return np.full((C,), -1, np.int64 if spec.use_hash_table else np.int32)
+
+
+def _place(keys: np.ndarray, rank: np.ndarray, cand: np.ndarray
+           ) -> np.ndarray:
+    """Insert the candidates (unique, best first) into the probe table
+    with the device probe's budget; each placed one's slot gets its rank.
+    -> the mask of the candidates placed."""
+    ins = cand if keys.dtype.itemsize >= 8 else cand.astype(np.int32)
+    pos = np_hash_insert(keys, ins, 1, num_probes=HOT_NUM_PROBES)
+    placed = pos >= 0
+    rank[pos[placed]] = np.arange(int(placed.sum()), dtype=np.int32)
+    return placed
+
+
+def _first_kept(cand: np.ndarray) -> np.ndarray:
+    """The index of each distinct candidate's first (best) place, in
+    order."""
+    _, first = np.unique(cand, return_index=True)
+    return np.sort(first)
+
+
+def build_hot_identity(spec: EmbeddingSpec, hot_rows: int,
+                       ids64=None) -> dict:
+    """The host-side identity of a hot set (the JAX package's): `keys` (C =
+    max(2H, 8) probe slots), `rank` (C,) int32 (H = empty) and `ids` (H,)
+    the hot ids by rank (-1 padding), in `_probe_keys`' dtype. `ids64`:
+    candidates hottest first (None: an empty set); negative and, for an
+    array table, out-of-vocabulary ids drop, a repeated id keeps its first
+    rank, and no more than H are taken."""
+    H = int(hot_rows)
+    C = max(2 * H, 8)
+    keys = _probe_keys(spec, C)
+    rank = np.full((C,), H, np.int32)
+    ids_arr = np.full((H,), -1, keys.dtype)
+    cand = np.asarray([] if ids64 is None else ids64, np.int64).reshape(-1)
+    cand = cand[cand >= 0]
+    if not spec.use_hash_table:
+        cand = cand[cand < spec.input_dim]
+    cand = cand[_first_kept(cand)][:H]
+    if cand.size:
+        kept = cand[_place(keys, rank, cand)]
+        ids_arr[:kept.size] = kept.astype(keys.dtype)
+    return {"keys": keys, "rank": rank, "ids": ids_arr}
+
+
+def build_mig_identity(spec: EmbeddingSpec, mig_rows: int, ids64=None,
+                       owners=None, *, num_shards: int) -> dict:
+    """The host-side identity of a migration directory (the JAX
+    package's): `keys`, `rank` and `ids` as in `build_hot_identity` and
+    `owners` (M,) int32 (-1 padding). `ids64` / `owners`: the moves,
+    heaviest first; a move to a shard outside [0, num_shards) drops like an
+    invalid id."""
+    M = int(mig_rows)
+    C = max(2 * M, 8)
+    keys = _probe_keys(spec, C)
+    rank = np.full((C,), M, np.int32)
+    own_arr = np.full((M,), -1, np.int32)
+    ids_arr = np.full((M,), -1, keys.dtype)
+    cand = np.asarray([] if ids64 is None else ids64, np.int64).reshape(-1)
+    cown = np.asarray([] if owners is None else owners,
+                      np.int64).reshape(-1)[:cand.size]
+    keep = (cand >= 0) & (cown >= 0) & (cown < num_shards)
+    if not spec.use_hash_table:
+        keep &= cand < spec.input_dim
+    cand, cown = cand[keep], cown[keep]
+    sel = _first_kept(cand)[:M]
+    cand, cown = cand[sel], cown[sel]
+    if cand.size:
+        placed = _place(keys, rank, cand)
+        kept, kown = cand[placed], cown[placed]
+        own_arr[:kept.size] = kown.astype(np.int32)
+        ids_arr[:kept.size] = kept.astype(keys.dtype)
+    return {"keys": keys, "rank": rank, "ids": ids_arr, "owners": own_arr}
+
+
+def _hot_owner_route(spec: EmbeddingSpec, state: EmbeddingTableState,
+                     ids: torch.Tensor, mesh: Mesh, insert: bool):
+    """Each listed id's row on this shard and owner: -> (src, owner), `src`
+    out of range for ids this shard does not own (gathers give zeros,
+    writes drop). A hash table may insert the absent ids it owns (a
+    promotion leaves a row for the write-back to land on); the overflow
+    counter then grows by the sum over the ranks."""
+    S = mesh.size
+    ids = ids.long()
+    owner = torch.where(ids >= 0, torch.remainder(ids, S),
+                        torch.zeros_like(ids))
+    if spec.use_hash_table:
+        mine, probe = shard_probe(ids, mesh.rank, S)
+        if insert:
+            slot, oflow = hash_find_or_insert(state.keys, probe)
+            state.overflow.add_(coll.psum(mesh, oflow))
+        else:
+            slot = hash_find(state.keys, probe)
+        capacity = state.keys.shape[0]
+        src = torch.where(mine & (slot < capacity), slot,
+                          torch.full_like(slot, capacity))
+        return src, owner
+    valid = (ids >= 0) & (ids < spec.input_dim)
+    mine = valid & (owner == mesh.rank)
+    src = torch.where(mine, torch.div(ids, S, rounding_mode="floor"),
+                      torch.full_like(ids, state.weights.shape[0]))
+    return src, torch.where(valid, owner, torch.zeros_like(owner))
+
+
+def _write_back(state: EmbeddingTableState, src: torch.Tensor,
+                weights: torch.Tensor, slots: Dict[str, torch.Tensor]):
+    write_rows(state.weights, src, weights)
+    for k in state.slots:
+        write_rows(state.slots[k], src, slots[k])
+
+
+def _owner_select(spec: EmbeddingSpec, state: EmbeddingTableState,
+                  src: torch.Tensor, owner: torch.Tensor, mesh: Mesh):
+    """Every rank's copy of the listed rows: each shard gathers the rows it
+    owns (zeros elsewhere), one all_gather, and each id takes its owner's
+    copy -> (weights float32, {slot: float32})."""
+    names = sorted(state.slots)
+    cols = [lookup_rows(state.weights, src).float()] + [
+        lookup_rows(state.slots[k], src).float() for k in names]
+    return _split_cols(_select(mesh, cols, owner), names, cols)
+
+
+def _select(mesh: Mesh, cols, owner: torch.Tensor) -> torch.Tensor:
+    parts = torch.stack(coll.all_gather(mesh, torch.cat(cols, dim=1)))
+    n = owner.shape[0]
+    return parts[torch.clamp(owner, 0, mesh.size - 1),
+                 torch.arange(n, device=owner.device)]
+
+
+def _split_cols(sel: torch.Tensor, names, cols):
+    widths = [c.shape[1] for c in cols]
+    out, off = {}, widths[0]
+    for k, w in zip(names, widths[1:]):
+        out[k] = sel[:, off:off + w]
+        off += w
+    return sel[:, :widths[0]], out
+
+
+def identity_tensors(identity: dict, device) -> dict:
+    """An identity's host arrays as tensors on `device`."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in identity.items()}
+
+
+def hot_writeback(spec: EmbeddingSpec, state: EmbeddingTableState, *,
+                  mesh: Mesh) -> EmbeddingTableState:
+    """The cache's rows (weights and slots) written into their owner
+    shards, in place; no collective (every rank holds every hot row, each
+    shard writes the rows it owns; a hash shard inserts an absent one).
+    After it the shards equal what a run without the cache holds. The
+    cache stays as it is."""
+    hot = state.hot
+    if hot is None:
+        return state
+    src, _ = _hot_owner_route(spec, state, hot.ids, mesh,
+                              insert=spec.use_hash_table)
+    _write_back(state, src, hot.weights, hot.slots)
+    return state
+
+
+def hot_gather(spec: EmbeddingSpec, state: EmbeddingTableState,
+               identity: dict, *, mesh: Mesh) -> EmbeddingTableState:
+    """The cache for `identity`'s hot set, filled from the owner shards by
+    one all_gather and a select by owner (a hash shard inserts an absent
+    hot id: it starts from its initializer row, as its first pull would).
+    An existing cache takes the identity and the rows in place; a state
+    without one gets a new cache. Padding ranks hold zero rows."""
+    idn = identity_tensors(identity, state.weights.device)
+    src, owner = _hot_owner_route(spec, state, idn["ids"], mesh, insert=True)
+    w, slots = _owner_select(spec, state, src, owner, mesh)
+    if state.hot is None:
+        state.hot = HotRows(
+            keys=idn["keys"], rank=idn["rank"], ids=idn["ids"],
+            weights=w.to(state.weights.dtype).contiguous(),
+            slots={k: v.to(state.slots[k].dtype).contiguous()
+                   for k, v in slots.items()})
+        return state
+    hot = state.hot
+    for name in ("keys", "rank", "ids"):
+        getattr(hot, name).copy_(idn[name])
+    hot.weights.copy_(w)
+    for k, v in slots.items():
+        hot.slots[k].copy_(v)
+    return state
+
+
+def _mig_live(mig: MigRows, mesh: Mesh):
+    """Each migrated row's live copy, its assigned owner's annex row, by
+    one all_gather -> (weights float32, {slot: float32})."""
+    names = sorted(mig.slots)
+    cols = [mig.weights.float()] + [mig.slots[k].float() for k in names]
+    return _split_cols(_select(mesh, cols, mig.owners.long()), names, cols)
+
+
+def mig_writeback(spec: EmbeddingSpec, state: EmbeddingTableState, *,
+                  mesh: Mesh) -> EmbeddingTableState:
+    """The migrated rows' live copies written back into their home shards,
+    in place (a hash home inserts an absent id). After it the main tables
+    equal an unmigrated run's. The directory and annex stay as they are."""
+    mig = state.mig
+    if mig is None:
+        return state
+    w, slots = _mig_live(mig, mesh)
+    src, _ = _hot_owner_route(spec, state, mig.ids, mesh,
+                              insert=spec.use_hash_table)
+    _write_back(state, src, w, slots)
+    return state
+
+
+def mig_gather(spec: EmbeddingSpec, state: EmbeddingTableState,
+               identity: dict, *, mesh: Mesh) -> EmbeddingTableState:
+    """Install `identity`'s directory and fill every rank's annex from the
+    home shards (one all_gather and a select by home; a hash home inserts
+    an absent id). Write the old directory back first (`mig_writeback`) or
+    its updates are lost. An existing directory and annex take the new
+    contents in place."""
+    idn = identity_tensors(identity, state.weights.device)
+    src, home = _hot_owner_route(spec, state, idn["ids"], mesh, insert=True)
+    w, slots = _owner_select(spec, state, src, home, mesh)
+    if state.mig is None:
+        state.mig = MigRows(
+            keys=idn["keys"], rank=idn["rank"], ids=idn["ids"],
+            owners=idn["owners"],
+            weights=w.to(state.weights.dtype).contiguous(),
+            slots={k: v.to(state.slots[k].dtype).contiguous()
+                   for k, v in slots.items()})
+        return state
+    mig = state.mig
+    for name in ("keys", "rank", "ids", "owners"):
+        getattr(mig, name).copy_(idn[name])
+    mig.weights.copy_(w)
+    for k, v in slots.items():
+        mig.slots[k].copy_(v)
+    return state
 
 
 # ---------------------------------------------------------------------------

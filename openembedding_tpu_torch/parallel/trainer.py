@@ -15,23 +15,32 @@ as the JAX MeshTrainer replaces them:
 - `reduce_metrics`: the loss, each rank's local mean, averaged over the
   ranks for the report; the stats (`<table>/pull_indices`, `pull_unique`,
   `pull_overflow`, `push_overflow`, `shard_rows`, `shard_positions`,
-  `bucket_fill`) summed.
+  `bucket_fill`, and with placement `hot_hits`, `hot_unique`,
+  `hot_bytes_saved`, `mig_unique`, `mig_hits`) summed.
 
-The JAX MeshTrainer's hot rows, migration, ZeRO dense sharding and its
-wire, the pipelined loop, host offload, the numerics sentinel and
-`measure_every` are not ported: setting one away from its default raises
-NotImplementedError naming its ROADMAP.md item. `SeqMeshTrainer` waits for
-the sequence models (item 5).
+Skew-aware placement (`parallel/sharded.py`): the int8 wire with
+error-feedback residuals (`wire="int8"`, `error_feedback`), the
+replicated hot-row cache (`hot_rows`, its reduce's format `hot_wire`,
+`refresh_hot_rows`) and cold-tail migration (`mig_rows`, `migrate_rows`);
+`hot_sync` writes both back into the shards, as `save` does first. The
+JAX MeshTrainer's ZeRO dense sharding and its wire, the pipelined loop,
+host offload, the numerics sentinel and `measure_every` are not ported:
+setting one away from its default raises NotImplementedError naming its
+ROADMAP.md item. So does `refresh_hot_rows` without explicit ids, which
+reads the heavy-hitter sketches (item 6). `SeqMeshTrainer` waits for the
+sequence models (item 5).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..embedding import combine, init_table, init_table_state
+from ..embedding import (EmbeddingSpec, EmbeddingTableState, HotRows,
+                         MigRows, combine, init_table, init_table_state)
 from ..model import (EmbeddingModel, TrainState, Trainer, _materialize_dense,
                      _table_generator, _transformed, attach_ids,
                      init_dense_slots, sad_rows)
@@ -40,16 +49,16 @@ from ..optimizers import SparseOptimizer
 from ..utils.fs import local_path
 from . import collectives as coll
 from .mesh import Mesh, make_mesh
-from .sharded import (grouped_apply_gradients, grouped_lookup_train,
-                      sharded_apply_gradients, sharded_lookup,
-                      sharded_lookup_train, split_wire_groups)
+from .sharded import (build_hot_identity, build_mig_identity,
+                      grouped_apply_gradients, grouped_lookup_train,
+                      hot_gather, hot_writeback, identity_tensors,
+                      mig_gather, mig_writeback, sharded_apply_gradients,
+                      sharded_lookup, sharded_lookup_train,
+                      split_wire_groups)
 
 # constructor arguments of the JAX MeshTrainer the port does not have:
 # name -> (default, ROADMAP.md item)
 NOT_PORTED = {
-    "hot_rows": (0, "3 (hot rows)"), "mig_rows": (0, "3 (migration)"),
-    "hot_wire": (None, "3 (hot rows)"),
-    "error_feedback": (None, "3 (the int8 wire)"),
     "dense_shard": (False, "3 (ZeRO)"), "dense_wire": (None, "3 (ZeRO)"),
     "dense_topk": (None, "3 (ZeRO)"), "dense_stats": (False, "3 (ZeRO)"),
     "offload_pipeline": (False, "4"), "offload_densify": (1, "4"),
@@ -70,8 +79,16 @@ class MeshTrainer(Trainer):
       cap = n); `on_overflow` what `check_overflow` does when buckets
       dropped ids: "count", "grow" (raise `capacity_factor`, every graph
       driver captures anew) or "raise".
-    - `wire`: the rows' and grads' format, "fp32" or "bf16" (None:
-      `$OETPU_WIRE`, then bf16), or a per-table dict with a "*" default.
+    - `wire`: the rows' and grads' format, "fp32", "bf16" or "int8"
+      (None: `$OETPU_WIRE`, then bf16), or a per-table dict with a "*"
+      default. `error_feedback`: the owner keeps a residual per row for
+      the narrow pull wire (None: on where a table's wire is int8).
+    - `hot_rows`: H rows replicated on every rank a table (an int, or
+      {table: H}; 0 off), starting empty: `refresh_hot_rows` installs a
+      hot set. `hot_wire`: the format of the hot rows' gradient reduce
+      (None: the table's wire). `mig_rows`: M rows a table that
+      `migrate_rows` may re-home off their `id % S` shard. All three are
+      inert at S = 1 and for sparse_as_dense tables.
     - `group_exchange`: tables of one width share three all_to_alls a step
       (False: three per table). `shard_stats`: the per-shard load stats.
 
@@ -89,7 +106,9 @@ class MeshTrainer(Trainer):
                  mesh: Optional[Mesh] = None, seed: int = 0,
                  capacity_factor: float = 0.0, on_overflow: str = "count",
                  wire=None, group_exchange: bool = True,
-                 shard_stats: bool = True, **unported):
+                 shard_stats: bool = True, hot_rows=0, mig_rows=0,
+                 hot_wire: Optional[str] = None,
+                 error_feedback: Optional[bool] = None, **unported):
         for key, value in unported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"MeshTrainer got an unexpected argument "
@@ -116,9 +135,13 @@ class MeshTrainer(Trainer):
                     "default format)")
         self.wire = wire
         for name in model.ps_specs():
-            fmt = self.wire_for(name)  # validates every format now
-            if self.num_shards > 1:
-                wire_mod.wire_dtype(fmt)  # int8 raises: not ported
+            self.wire_for(name)  # validates every format now
+        if hot_wire is not None:
+            wire_mod.wire_format(hot_wire)
+        self.hot_wire = hot_wire
+        self.error_feedback = error_feedback
+        self.hot_rows = hot_rows
+        self.mig_rows = mig_rows
         self.group_exchange = group_exchange
         self.shard_stats = shard_stats
 
@@ -138,22 +161,76 @@ class MeshTrainer(Trainer):
             return wire_mod.wire_format(self.wire.get("*"))
         return wire_mod.wire_format(self.wire)
 
+    # -- placement and error feedback: which tables carry what ---------------
+
+    def _placed(self, name: str) -> bool:
+        """Whether a table can carry placement state: a table on the
+        exchange (not sparse_as_dense) of a mesh of two ranks or more."""
+        spec = self.model.specs.get(name)
+        return (self.num_shards > 1 and spec is not None
+                and not spec.sparse_as_dense)
+
+    def _per_table(self, value, name: str) -> int:
+        if isinstance(value, dict):
+            return int(value.get(name, 0))
+        return int(value)
+
+    def hot_rows_for(self, name: str) -> int:
+        """A table's hot cache rows (0: none; always 0 at S = 1)."""
+        return self._per_table(self.hot_rows, name) if self._placed(name) \
+            else 0
+
+    def mig_rows_for(self, name: str) -> int:
+        """A table's migration annex rows (0: none; always 0 at S = 1)."""
+        return self._per_table(self.mig_rows, name) if self._placed(name) \
+            else 0
+
+    def ef_for(self, name: str) -> bool:
+        """Whether a table carries error-feedback residuals: the
+        `error_feedback` argument, else where its wire is int8 (never at
+        S = 1, where nothing rides a wire)."""
+        if not self._placed(name):
+            return False
+        if self.error_feedback is not None:
+            return bool(self.error_feedback)
+        return self.wire_for(name) == "int8"
+
+    @property
+    def hot_enabled(self) -> bool:
+        return any(self.hot_rows_for(n) for n in self.model.ps_specs())
+
+    @property
+    def mig_enabled(self) -> bool:
+        return any(self.mig_rows_for(n) for n in self.model.ps_specs())
+
+    def _hot_specs(self) -> Dict[str, EmbeddingSpec]:
+        return {n: s for n, s in self.model.ps_specs().items()
+                if self.hot_rows_for(n)}
+
+    def _mig_specs(self) -> Dict[str, EmbeddingSpec]:
+        return {n: s for n, s in self.model.ps_specs().items()
+                if self.mig_rows_for(n)}
+
     # -- init -----------------------------------------------------------------
 
     def init(self, sample_batch) -> TrainState:
         """This rank's state: shard r of every table (rows
         `[r*rps, (r+1)*rps)` of the shard-major (S*rps, dim) table, drawn
         from shard r's generator; S = 1 draws the single-device table), the
-        optimizer's slots, and the dense params and sparse_as_dense tables,
-        the same on every rank (rank 0's, broadcast, as the reference's
-        Horovod broadcast)."""
+        optimizer's slots (a zero `ef` where `ef_for`), an empty hot cache
+        (zero rows) and an empty directory and annex where the table has
+        them, and the dense params and sparse_as_dense tables, the same on
+        every rank (rank 0's, broadcast, as the reference's Horovod
+        broadcast)."""
         model, mesh, device = self.model, self.mesh, self.device
         shard = (mesh.rank, mesh.size)
         tables = {name: init_table_state(
                       spec, self.opt_for(spec),
                       _table_generator(self.seed, spec, device, shard),
-                      num_shards=mesh.size)
+                      num_shards=mesh.size, error_feedback=self.ef_for(name))
                   for name, spec in model.ps_specs().items()}
+        for name, spec in model.ps_specs().items():
+            self._attach_empty(spec, tables[name])
         embeddings = {name: init_table(
                           spec, _table_generator(self.seed, spec, device))
                       for name, spec in model.sad_specs().items()}
@@ -172,6 +249,127 @@ class MeshTrainer(Trainer):
             step=0, dense=dense,
             dense_slots=init_dense_slots(self.optimizer, dense, embeddings),
             tables=tables, model_version=0, embeddings=embeddings)
+
+    def _attach_empty(self, spec: EmbeddingSpec,
+                      ts: EmbeddingTableState) -> None:
+        """An empty cache and an empty directory with a zero annex, where
+        the table has them (the JAX MeshTrainer's `init_tables`)."""
+        opt, dim, dev = self.opt_for(spec), spec.output_dim, self.device
+        H = self.hot_rows_for(spec.name)
+        if H:
+            ident = identity_tensors(build_hot_identity(spec, H), dev)
+            ts.hot = HotRows(
+                **ident, weights=torch.zeros((H, dim), dtype=spec.dtype,
+                                             device=dev),
+                slots=opt.init_slots(H, dim, spec.dtype, device=dev))
+        M = self.mig_rows_for(spec.name)
+        if M:
+            ident = identity_tensors(build_mig_identity(
+                spec, M, num_shards=self.num_shards), dev)
+            ts.mig = MigRows(
+                **ident, weights=torch.zeros((M, dim), dtype=spec.dtype,
+                                             device=dev),
+                slots=opt.init_slots(M, dim, spec.dtype, device=dev))
+
+    # -- the placement lifecycle (between steps) ------------------------------
+
+    def _hot_tables(self, state: TrainState):
+        tables = {n: state.tables[n] for n in self._hot_specs()}
+        missing = [n for n, ts in tables.items() if ts.hot is None]
+        if missing:
+            raise ValueError(
+                f"tables {missing} carry no hot cache: states managed by a "
+                "hot-enabled MeshTrainer must come from its init()/load()/"
+                "refresh_hot_rows()")
+        return tables
+
+    def hot_sync(self, state: TrainState) -> TrainState:
+        """Write every row the placement serves from elsewhere back into its
+        home shard, in place: the hot rows into their owner shards, the
+        migrated rows from their assigned owners' annexes. The cache, the
+        directory and the annex stay live. `save` calls it first, so a
+        checkpoint equals a run's without placement, byte for byte."""
+        for name, ts in self._hot_tables(state).items():
+            hot_writeback(self.model.specs[name], ts, mesh=self.mesh)
+        for name in self._mig_specs():
+            ts = state.tables[name]
+            if ts.mig is not None:
+                mig_writeback(self.model.specs[name], ts, mesh=self.mesh)
+        return state
+
+    @staticmethod
+    def _id_list(ids: torch.Tensor) -> set:
+        a = ids.detach().cpu().numpy()
+        return set(a[a >= 0].astype(np.int64).tolist())
+
+    def migrate_rows(self, state: TrainState, moves=None) -> TrainState:
+        """Re-home up to `mig_rows` cold rows a table between steps, in
+        place: the old migrated rows written back home, the new directory
+        installed, the annex filled from the homes (bit copies both ways).
+        `moves`: {table: (ids, owners)}, heaviest first
+        (`placement.plan_migration` makes them from `shard_positions`); a
+        table not named gets an empty directory. Ids in the table's hot
+        set are dropped: the two sets stay disjoint. Every rank calls it
+        with the same moves."""
+        moves = moves or {}
+        for name, spec in self._mig_specs().items():
+            ts = state.tables[name]
+            ids, owners = moves.get(name) or (None, None)
+            if ids is not None and ts.hot is not None:
+                hot_now = self._id_list(ts.hot.ids)
+                ids = np.asarray(ids, np.int64).reshape(-1)
+                owners = np.asarray(owners, np.int64).reshape(-1)[:ids.size]
+                keep = np.asarray([i not in hot_now for i in ids.tolist()],
+                                  bool)
+                ids, owners = ids[keep], owners[keep]
+            ident = build_mig_identity(spec, self.mig_rows_for(name), ids,
+                                       owners, num_shards=self.num_shards)
+            if ts.mig is not None:
+                mig_writeback(spec, ts, mesh=self.mesh)
+            mig_gather(spec, ts, ident, mesh=self.mesh)
+        return state
+
+    def refresh_hot_rows(self, state: TrainState, hot_ids=None,
+                         monitor=None) -> TrainState:
+        """Promote and demote the hot sets between steps, in place: the old
+        hot rows written back to their owner shards, the new sets
+        installed, their rows gathered into the cache (bit copies).
+        `hot_ids`: {table: ids, hottest first}; every rank calls it with
+        the same ids. Ids in the table's migration directory are skipped.
+        A table without a cache gets one (the only call that allocates).
+        Sets from the heavy-hitter sketches (`hot_ids=None`, `monitor`)
+        are not ported (ROADMAP.md item 6)."""
+        specs = self._hot_specs()
+        if not specs:
+            return state
+        if monitor is not None:
+            raise NotImplementedError(
+                "refresh_hot_rows(monitor=...) reads the heavy-hitter "
+                "sketches, not ported yet (ROADMAP.md item 6); pass hot_ids")
+        idents = {}
+        for name, spec in specs.items():
+            if hot_ids is None or name not in hot_ids:
+                raise NotImplementedError(
+                    f"refresh_hot_rows without hot_ids[{name!r}] reads the "
+                    "heavy-hitter sketches, not ported yet (ROADMAP.md item "
+                    "6); pass hot_ids={table: ids}")
+            cand = np.asarray(hot_ids[name], np.int64).reshape(-1)
+            ts = state.tables[name]
+            if ts.mig is not None and cand.size:
+                migrated = self._id_list(ts.mig.ids)
+                cand = np.asarray([i for i in cand.tolist()
+                                   if i not in migrated], np.int64)
+            idents[name] = build_hot_identity(spec, self.hot_rows_for(name),
+                                              cand)
+        missing = [n for n in specs if state.tables[n].hot is None]
+        if missing and len(missing) != len(specs):
+            self._hot_tables(state)  # raises: some tables lost their cache
+        for name, spec in specs.items():
+            ts = state.tables[name]
+            if ts.hot is not None:
+                hot_writeback(spec, ts, mesh=self.mesh)
+            hot_gather(spec, ts, idents[name], mesh=self.mesh)
+        return state
 
     # -- overflow governance --------------------------------------------------
 
@@ -214,7 +412,9 @@ class MeshTrainer(Trainer):
 
     def save(self, state: TrainState, path: str, **kw):
         """Every rank writes its own shards (`parallel/checkpoint.py`), rank
-        0 the meta and the dense files; returns once all have written."""
+        0 the meta and the dense files; returns once all have written. The
+        placement is written back first (`hot_sync`), so the files equal a
+        run's without it; `ef` is saved as the slot `__ef__`."""
         from .checkpoint import save_sharded
         meta = save_sharded(self.externalize(state), self.model,
                             local_path(path), num_shards=self.num_shards,
@@ -225,14 +425,40 @@ class MeshTrainer(Trainer):
     def load(self, state: TrainState, path: str) -> TrainState:
         """A checkpoint of either layout, written at any mesh size, into
         this rank's shards, in place; a hash table's overflow counter
-        becomes the ids of every shard that found no slot."""
+        becomes the ids of every shard that found no slot; `ef` loads from
+        the `__ef__` slot where the checkpoint has it. The hot cache and
+        the directory keep their sets and re-gather their rows from the
+        loaded shards."""
         from .checkpoint import load_sharded
         load_sharded(state, self.model, local_path(path),
                      num_shards=self.num_shards, rank=self.mesh.rank)
         for ts in state.tables.values():
             if ts.overflow is not None:
                 ts.overflow.copy_(coll.psum(self.mesh, ts.overflow))
+        # the cache and the directory are never saved: re-install the sets
+        # the state held (or empty ones) and gather their rows from the
+        # loaded shards; the stale cached rows are never written back
+        for name, spec in self._hot_specs().items():
+            ts = state.tables[name]
+            hot_gather(spec, ts, self._identity(ts.hot, spec, "hot"),
+                       mesh=self.mesh)
+        for name, spec in self._mig_specs().items():
+            ts = state.tables[name]
+            mig_gather(spec, ts, self._identity(ts.mig, spec, "mig"),
+                       mesh=self.mesh)
         return state
+
+    def _identity(self, part, spec: EmbeddingSpec, kind: str) -> dict:
+        """The identity a cache or directory holds (an empty one for
+        None), as the host arrays `hot_gather` / `mig_gather` take."""
+        if part is None:
+            if kind == "hot":
+                return build_hot_identity(spec, self.hot_rows_for(spec.name))
+            return build_mig_identity(spec, self.mig_rows_for(spec.name),
+                                      num_shards=self.num_shards)
+        names = ("keys", "rank", "ids") + (("owners",) if kind == "mig"
+                                           else ())
+        return {k: getattr(part, k).cpu().numpy().copy() for k in names}
 
     # -- the step's hooks -------------------------------------------------------
 
@@ -282,7 +508,7 @@ class MeshTrainer(Trainer):
                     [grads[n] for n in names], mesh=self.mesh,
                     capacity_factor=self.capacity_factor,
                     plans=[plans[n] for n in names],
-                    wire=self.wire_for(names[0]))
+                    wire=self.wire_for(names[0]), hot_wire=self.hot_wire)
                 for n, st in zip(names, stats_list):
                     stats.update({f"{n}/{k}": v for k, v in st.items()})
             return stats
@@ -290,7 +516,8 @@ class MeshTrainer(Trainer):
             _, st = sharded_apply_gradients(
                 spec, state.tables[n], self.opt_for(spec), ids[n], grads[n],
                 mesh=self.mesh, capacity_factor=self.capacity_factor,
-                plan=plans[n], wire=self.wire_for(n))
+                plan=plans[n], wire=self.wire_for(n),
+                hot_wire=self.hot_wire)
             stats.update({f"{n}/{k}": v for k, v in st.items()})
         return stats
 

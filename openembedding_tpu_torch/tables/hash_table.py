@@ -76,10 +76,23 @@ def _mix(ids: torch.Tensor) -> torch.Tensor:
     return u ^ ((u >> 33) & _LOW31)
 
 
-def _base_slot(ids: torch.Tensor, capacity: int) -> torch.Tensor:
+def _mix32(ids: torch.Tensor) -> torch.Tensor:
+    """The JAX package's 32-bit mixer (its `_mix` of int32 ids: the probe
+    tables of the hot set and the migration directory of an array table),
+    uint32 arithmetic carried in int64 and masked to 32 bits."""
+    u = ids.to(torch.int64) & 0xFFFFFFFF
+    u = ((u ^ (u >> 16)) * 0x45D9F3B) & 0xFFFFFFFF
+    return u ^ (u >> 16)
+
+
+def _base_slot(ids: torch.Tensor, capacity: int,
+               wide: bool = True) -> torch.Tensor:
     """`_mix(ids) % capacity` as an unsigned remainder: a mixed value with
     bit 63 set is negative as int64, and u + 2^64 = u (mod capacity) needs
-    2^64 % capacity added back."""
+    2^64 % capacity added back. `wide=False`: the 32-bit mixer of int32
+    keys, whose mixed values are non-negative."""
+    if not wide:
+        return torch.remainder(_mix32(ids), capacity)
     u = _mix(ids)
     r = torch.remainder(u, capacity)
     return torch.where(u < 0, torch.remainder(r + (1 << 64) % capacity,
@@ -148,9 +161,10 @@ def np_ids_as_int64(ids) -> np.ndarray:
 
 def np_hash_insert(keys: np.ndarray, ids: np.ndarray, num_shards: int = 1,
                    num_probes: int = DEFAULT_NUM_PROBES) -> np.ndarray:
-    """Host-side insert of unique non-negative int64 `ids` into the numpy
-    `keys` ((S * capacity_per_shard,), -1 empty), in place, by the device's
-    probe sequence inside the owner shard's range (owner = id % S). Returns
+    """Host-side insert of unique non-negative `ids` into the numpy `keys`
+    ((S * capacity_per_shard,), -1 empty), in place, by the device's probe
+    sequence inside the owner shard's range (owner = id % S); int32 ids
+    probe by the 32-bit mixer, as `hash_find` of int32 keys does. Returns
     each id's slot, -1 where no empty slot lies within `num_probes`.
 
     One round per probe distance for all pending ids; among ids claiming one
@@ -160,11 +174,15 @@ def np_hash_insert(keys: np.ndarray, ids: np.ndarray, num_shards: int = 1,
     table may place two colliding ids the other way round than training
     did, so a loaded table equals the saved one in its id -> row contents,
     and equals the JAX package's load of the same files slot for slot."""
-    ids = np.asarray(ids, np.int64)
+    ids = np.asarray(ids)
+    if ids.dtype.itemsize < 4:
+        ids = ids.astype(np.int64)
     rows_total = keys.shape[0]
     cps = rows_total // num_shards
-    owner = (ids % num_shards) * cps
-    base = (np_mix(ids) % np.uint64(cps)).astype(np.int64)
+    owner = (ids.astype(np.int64) % num_shards) * cps
+    mixed = np_mix(ids)
+    base = (mixed % np.uint64(cps) if ids.dtype.itemsize >= 8
+            else mixed % np.uint32(cps)).astype(np.int64)
     pos_out = np.full(len(ids), -1, np.int64)
     max_d = min(num_probes, cps)
     active = np.arange(len(ids))
@@ -235,10 +253,11 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
 def hash_find(keys: torch.Tensor, ids: torch.Tensor,
               num_probes: int = DEFAULT_NUM_PROBES) -> torch.Tensor:
     """Read-only probe: each id's slot, `capacity` where it is absent (an
-    empty slot on its path ends the search) or negative."""
+    empty slot on its path ends the search) or negative. int32 `keys` (the
+    placement probe tables of an array table) probe by the 32-bit mixer."""
     capacity = keys.shape[0]
     ids = ids.to(torch.int64)
-    base = _base_slot(ids, capacity)
+    base = _base_slot(ids, capacity, wide=keys.dtype != torch.int32)
     slot = torch.full(ids.shape, capacity, dtype=torch.int64,
                       device=ids.device)
     done = ids < 0
@@ -249,6 +268,15 @@ def hash_find(keys: torch.Tensor, ids: torch.Tensor,
         slot = torch.where(found, pos, slot)
         done = done | found | (cur == EMPTY)
     return slot
+
+
+def shard_probe(ids: torch.Tensor, rank: int,
+                num_shards: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (mine, probe) for a row-sharded hash table on rank `rank`: `mine`
+    masks the ids this shard owns (`id % S == rank`) and `probe` is `ids`
+    with every other entry -1, so the shard's probe never matches them."""
+    mine = (ids >= 0) & (torch.remainder(ids, num_shards) == rank)
+    return mine, torch.where(mine, ids, torch.full_like(ids, EMPTY))
 
 
 def hash_lookup(state, ids: torch.Tensor) -> torch.Tensor:

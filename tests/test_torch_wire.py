@@ -1,5 +1,6 @@
 """The port's wire formats (`ops/wire.py`) against the JAX package's and
-its numpy codecs, bit-exact, and the bf16 carrier through gloo.
+its numpy codecs, bit-exact, and the bf16 carrier through gloo (the int8
+codec: `test_torch_wire_int8.py`).
 
 fp32 and bf16: rows, grads with their count lanes, round trips; bf16
 rounds to nearest even (`astype(bfloat16)` in XLA, the numpy codec's
@@ -9,6 +10,7 @@ such a tensor as an int8 view of its bytes: a two-rank all_to_all of
 encoded rows and grads must arrive bit for bit.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,12 +97,17 @@ def test_format_resolution_and_int8(monkeypatch):
     assert wire.wire_format("fp32") == "fp32"
     with pytest.raises(ValueError, match="unknown wire format"):
         wire.wire_format("fp8")
-    assert wire.wire_format("int8") == "int8"
-    for call in (lambda: wire.pack_inband(torch.zeros(2, 3), "int8"),
-                 lambda: wire.rows_wire_width(3, "int8"),
-                 lambda: wire.np_encode_rows(np.zeros((2, 3)), "int8")):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            call()
+    assert wire.wire_format("int8") == wire.wire_format("i8") == "int8"
+    x = _rows(11, n=5, dim=3)[:, :3]
+    x[np.isinf(x)] = 1.0
+    np.testing.assert_array_equal(
+        wire.pack_inband(torch.tensor(x), "int8").numpy(),
+        np.asarray(jax.jit(lambda v: jax_wire.pack_inband(v, "int8"))(
+            jnp.asarray(x))))
+    assert wire.rows_wire_width(3, "int8") \
+        == jax_wire.rows_wire_width(3, "int8") == 3 + 4
+    np.testing.assert_array_equal(wire.np_encode_rows(x, "int8"),
+                                  jax_wire.np_encode_rows(x, "int8"))
 
 
 def test_the_bf16_carrier_crosses_gloo_bit_for_bit(tmp_path):

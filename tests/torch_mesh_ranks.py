@@ -11,7 +11,8 @@ import torch
 
 from openembedding_tpu_torch import convert, optimizers
 from openembedding_tpu_torch.embedding import (EmbeddingSpec,
-                                               EmbeddingTableState)
+                                               EmbeddingTableState, HotRows,
+                                               MigRows)
 from openembedding_tpu_torch.initializers import Constant
 from openembedding_tpu_torch.models import make_deepfm
 from openembedding_tpu_torch.parallel import MeshTrainer, sharded
@@ -92,6 +93,233 @@ def protocol(mesh, case):
     return to_host(out)
 
 
+def placement_protocol(mesh, case):
+    """One training pull and push of one table with the placement of
+    `case` installed on this rank: residuals `case["ef"]` (global,
+    shard-major), a hot set (`hot_rows`, `hot_ids`) through `hot_gather`, a
+    directory (`mig_rows`, `moves`) through `mig_gather`; then both written
+    back. -> the pulled rows, the stats, and the shard, residuals, cache
+    and annex after the push, and the shard after the write-back."""
+    spec = EmbeddingSpec(name="v", variable_id=0, **case["spec"])
+    table = EmbeddingTableState(
+        weights=torch.tensor(_shard(case["weights"], mesh)),
+        slots={"accum": torch.tensor(_shard(case["accum"], mesh))})
+    if spec.use_hash_table:
+        table.keys = torch.tensor(_shard(case["keys"], mesh))
+        table.overflow = torch.zeros((), dtype=torch.int32)
+    if case.get("ef") is not None:
+        table.ef = torch.tensor(_shard(case["ef"], mesh))
+    if case.get("hot_rows"):
+        sharded.hot_gather(spec, table, sharded.build_hot_identity(
+            spec, case["hot_rows"], case["hot_ids"]), mesh=mesh)
+    if case.get("mig_rows"):
+        ids, owners = case["moves"]
+        sharded.mig_gather(spec, table, sharded.build_mig_identity(
+            spec, case["mig_rows"], ids, owners, num_shards=mesh.size),
+            mesh=mesh)
+    ids = torch.tensor(local_batch(case["ids"], mesh))
+    grads = torch.tensor(local_batch(case["grads"], mesh))
+    wire, hot_wire = case["wire"], case.get("hot_wire")
+    opt = optimizers.Adagrad(learning_rate=0.1)
+    if case.get("grouped"):
+        _, rows, stats, plans = sharded.grouped_lookup_train(
+            [spec], [table], [ids], mesh=mesh, wire=wire)
+        rows, stats = rows[0], stats[0]
+        sharded.grouped_apply_gradients(
+            [spec], [table], [opt], [ids], [grads], mesh=mesh, plans=plans,
+            wire=wire, hot_wire=hot_wire)
+    else:
+        _, rows, stats, plan = sharded.sharded_lookup_train(
+            spec, table, ids, mesh=mesh, wire=wire)
+        sharded.sharded_apply_gradients(
+            spec, table, opt, ids, grads, mesh=mesh, plan=plan, wire=wire,
+            hot_wire=hot_wire)
+    out = {"rows": rows, "stats": stats, "pushed": {
+        "weights": table.weights.clone(),
+        "accum": table.slots["accum"].clone()}}
+    if table.ef is not None:
+        out["ef"] = table.ef
+    for kind in ("hot", "mig"):
+        part = getattr(table, kind)
+        if part is not None:
+            out[kind] = {"weights": part.weights.clone(),
+                         "accum": part.slots["accum"].clone()}
+    sharded.hot_writeback(spec, table, mesh=mesh)
+    sharded.mig_writeback(spec, table, mesh=mesh)
+    out.update(weights=table.weights, accum=table.slots["accum"])
+    if spec.use_hash_table:
+        out["keys"], out["overflow"] = table.keys, table.overflow
+    return to_host(out)
+
+
+def lifecycle(mesh, cfg):
+    """The placement lifecycle on a MeshTrainer state: a gather followed by
+    a write-back leaves the shards bit for bit as they were; then a few
+    steps with `refresh_hot_rows`, `migrate_rows` and `hot_sync` between
+    them keep every tensor of the state where it was. -> what held."""
+    trainer = placement_trainer(mesh, cfg)
+    batches = [local_batch(b, mesh) for b in cfg["batches"]]
+    state = trainer.init(batches[0])
+    ts = state.tables["categorical"]
+    before = {k: v.clone() for k, v in (("weights", ts.weights),
+                                        ("accum", ts.slots["accum"]))}
+    state = place(trainer, state, cfg, 0)
+    state = trainer.hot_sync(state)
+    out = {"round_trip": bool(torch.equal(before["weights"], ts.weights)
+                              and torch.equal(before["accum"],
+                                              ts.slots["accum"]))}
+    ptrs = [t.data_ptr() for t in ts.tensors()]
+    for k, b in enumerate(batches):
+        state = place(trainer, state, cfg, k + 1)
+        state, _ = trainer.train_step(state, b)
+        state = trainer.hot_sync(state)
+    out["placed"] = {"hot": int((ts.hot.ids >= 0).sum()),
+                     "mig": int((ts.mig.ids >= 0).sum())}
+    # a save writes the placement back; a load keeps the sets and gathers
+    # their rows from the loaded shards, over whatever the cache held
+    kept = {k: v.clone() for k, v in (("hot", ts.hot.weights),
+                                      ("ids", ts.hot.ids),
+                                      ("owners", ts.mig.owners))}
+    trainer.save(state, cfg["tmp"])
+    ts.hot.weights.zero_()
+    state = trainer.load(state, cfg["tmp"])
+    out["load_regathers"] = all(torch.equal(kept[k], v) for k, v in (
+        ("hot", ts.hot.weights), ("ids", ts.hot.ids),
+        ("owners", ts.mig.owners)))
+    out["same_tensors"] = ptrs == [t.data_ptr() for t in ts.tensors()]
+    return out
+
+
+def _state_bytes(state) -> dict:
+    """Every tensor of a state as numpy (the tables after `hot_sync`, the
+    dense params and slots), for bit-for-bit comparisons."""
+    st = convert.train_state_to_jax(state)
+    out = {f"dense/{k}": v for k, v in st["dense_params"].items()}
+    out.update({f"dense_slots/{k}": v for k, v in st["dense_slots"].items()})
+    for n, t in st["tables"].items():
+        out[f"{n}/weights"] = t["weights"]
+        out.update({f"{n}/{k}": v for k, v in t["slots"].items()})
+        if "keys" in t:
+            out[f"{n}/keys"], out[f"{n}/overflow"] = t["keys"], t["overflow"]
+    return out
+
+
+def _files(path) -> dict:
+    """{file: its bytes} of a checkpoint; an .npz by its arrays' bytes (a
+    zip member carries its write time), `model_meta` left out (it holds a
+    random model sign)."""
+    import os
+    out = {}
+    for root, _, names in os.walk(path):
+        for name in names:
+            full = os.path.join(root, name)
+            rel = os.path.relpath(full, path)
+            if name.endswith(".npz"):
+                with np.load(full) as z:
+                    out[rel] = {k: z[k].tobytes() for k in z.files}
+            elif name != "model_meta":
+                with open(full, "rb") as f:
+                    out[rel] = f.read()
+    return out
+
+
+def placement_vs_plain(mesh, cfg):
+    """The same steps with the placement of `cfg` (fp32 wire) and without,
+    from one state: -> whether the losses, the whole state after
+    `hot_sync` and the files of a sharded save are equal bit for bit."""
+    import os
+    plain_cfg = {**cfg, "hot_rows": 0, "mig_rows": 0}
+    placed = placement_trainer(mesh, cfg)
+    plain = placement_trainer(mesh, plain_cfg, model=placed.model)
+    batches = [local_batch(b, mesh) for b in cfg["batches"]]
+    state = placed.init(batches[0])
+    ref = state.clone()
+    for ts in ref.tables.values():
+        ts.hot = ts.mig = None
+    ref_losses, losses = [], []
+    for k, b in enumerate(batches):
+        ref, m = plain.train_step(ref, b)
+        ref_losses.append(m["loss"].clone())
+    for k, b in enumerate(batches):
+        state = place(placed, state, cfg, k)
+        state, m = placed.train_step(state, b)
+        losses.append(m["loss"].clone())
+        stats = m["stats"]
+    got, want = _state_bytes(placed.hot_sync(state)), _state_bytes(ref)
+    same_state = set(got) == set(want) and all(
+        np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+        for k in got)
+    placed.save(state, os.path.join(cfg["tmp"], "placed"))
+    plain.save(ref, os.path.join(cfg["tmp"], "plain"))
+    same_files = None
+    if mesh.rank == 0:
+        a = _files(os.path.join(cfg["tmp"], "placed"))
+        b = _files(os.path.join(cfg["tmp"], "plain"))
+        same_files = set(a) == set(b) and all(a[k] == b[k] for k in a)
+    return {"same_losses": bool(torch.equal(torch.stack(losses),
+                                            torch.stack(ref_losses))),
+            "same_state": same_state, "same_files": same_files,
+            "stats": to_host({k: v for k, v in stats.items()
+                              if "hot" in k or "mig" in k})}
+
+
+def ef_load_and_save(mesh, cfg):
+    """A MeshTrainer of `cfg` (int8 wire: residuals on) loads the checkpoint
+    `cfg["load"]` and saves it, sharded, into `cfg["save"]` -> the rank's
+    state in the JAX layout."""
+    trainer = placement_trainer(mesh, cfg)
+    state = trainer.init(local_batch(cfg["batches"][0], mesh))
+    state = trainer.load(state, cfg["load"])
+    trainer.save(state, cfg["save"])
+    return convert.train_state_to_jax(state)
+
+
+def inert_at_one_rank(mesh, cfg):
+    """At S = 1 a MeshTrainer given every placement argument (int8 wire,
+    residuals, hot rows, migration) holds no placement state and trains as
+    one without them; `make_plan` refuses a cache or a directory. -> what
+    held, and the refusals' messages."""
+    placed = placement_trainer(mesh, {**cfg, "error_feedback": True})
+    plain = placement_trainer(mesh, {**cfg, "wire": "fp32", "hot_rows": 0,
+                                     "mig_rows": 0}, model=placed.model)
+    batches = [local_batch(b, mesh) for b in cfg["batches"]]
+    state = placed.init(batches[0])
+    ts = state.tables["categorical"]
+    out = {"no_state": ts.hot is None and ts.mig is None and ts.ef is None,
+           "flags": [placed.hot_enabled, placed.mig_enabled,
+                     placed.ef_for("categorical")]}
+    ref = state.clone()
+    state = placed.refresh_hot_rows(state, hot_ids={"categorical": [1, 2]})
+    state = placed.migrate_rows(state, moves={"categorical": ([3], [0])})
+    for b in batches:
+        state, m = placed.train_step(state, b)
+        ref, r = plain.train_step(ref, b)
+        out.setdefault("same_losses", True)
+        out["same_losses"] &= bool(torch.equal(m["loss"], r["loss"]))
+    out["same_state"] = all(
+        np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(
+            _state_bytes(state).values(), _state_bytes(ref).values()))
+    spec = placed.model.specs["categorical"]
+    rows = torch.zeros(4, spec.output_dim)
+    hot = HotRows(**sharded.identity_tensors(
+        sharded.build_hot_identity(spec, 4), "cpu"), weights=rows, slots={})
+    mig = MigRows(**sharded.identity_tensors(
+        sharded.build_mig_identity(spec, 4, num_shards=1), "cpu"),
+                  weights=rows, slots={})
+    ids = torch.tensor(batches[0]["sparse"]["categorical"])
+    out["refusals"] = []
+    for kw in ({"hot": hot}, {"mig": mig}):
+        try:
+            sharded.make_plan(spec, ids, mesh=mesh, **kw)
+        except ValueError as e:
+            out["refusals"].append(str(e))
+    return out
+
+
+def placement_protocol_cases(mesh, cases):
+    return {name: placement_protocol(mesh, c) for name, c in cases.items()}
+
+
 def deepfm(vocab, *, hashed=False, capacity=0, dim=9, hidden=(16, 16),
            initializer=None):
     model = make_deepfm(vocab, dim, hidden=hidden, hashed=hashed,
@@ -123,6 +351,56 @@ def trajectory(mesh, cfg):
         overflow += trainer.overflow_count(m)
     return {"losses": losses, "overflow": overflow,
             "state": convert.train_state_to_jax(state)}
+
+
+def placement_trainer(mesh, cfg, model=None):
+    """A MeshTrainer of `cfg`'s placement configuration (wire, hot_rows,
+    mig_rows, hot_wire, error_feedback) over `mesh`."""
+    model = model or deepfm(cfg["vocab"], hashed=cfg["hashed"],
+                            capacity=cfg.get("capacity", 0))
+    return MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                       mesh=mesh, wire=cfg["wire"],
+                       group_exchange=cfg.get("grouped", True),
+                       hot_rows=cfg.get("hot_rows", 0),
+                       mig_rows=cfg.get("mig_rows", 0),
+                       hot_wire=cfg.get("hot_wire"),
+                       error_feedback=cfg.get("error_feedback"))
+
+
+def place(trainer, state, cfg, k):
+    """The placement changes `cfg` asks for before step k: a hot set
+    (`cfg["hot_ids"][k]`) and a move list (`cfg["moves"][k]`)."""
+    if k in cfg.get("hot_ids", {}) and trainer.hot_enabled:
+        state = trainer.refresh_hot_rows(
+            state, hot_ids={"categorical": cfg["hot_ids"][k]})
+    if k in cfg.get("moves", {}) and trainer.mig_enabled:
+        state = trainer.migrate_rows(
+            state, moves={"categorical": cfg["moves"][k]})
+    return state
+
+
+def placement_trajectory(mesh, cfg):
+    """`cfg["batches"]` MeshTrainer steps with the placement of `cfg`
+    (changed before the steps `place` names), from the JAX MeshTrainer's
+    state; `hot_sync` at the end -> the losses, the summed stats and the
+    rank's state in the JAX layout (cache, directory and residuals
+    included)."""
+    trainer = placement_trainer(mesh, cfg)
+    state = convert.mesh_state_from_jax(cfg["state"], trainer.model,
+                                        mesh.size, mesh.rank, device="cpu")
+    losses, stats = [], []
+    for k, b in enumerate(cfg["batches"]):
+        state = place(trainer, state, cfg, k)
+        state, m = trainer.train_step(state, local_batch(b, mesh))
+        losses.append(float(m["loss"]))
+        stats.append(to_host(m["stats"]))
+    state = trainer.hot_sync(state)
+    return {"losses": losses, "stats": stats,
+            "state": convert.train_state_to_jax(state)}
+
+
+def placement_trajectories(mesh, cfgs):
+    return [placement_trajectory(mesh, c) for c in cfgs]
 
 
 def randomized(mesh, case):
