@@ -188,12 +188,24 @@ final line:
    the residuals' read, the cache's, the annex's); ms a step, staged
    bytes against `wire.exchange_cost`, hot hit ratio, `hot_unique`,
    `hot_bytes_saved`, shard imbalance before and after the moves, peak
-   memory. The entry point's `--mesh` at one rank on the TSV: a graph run
-   saved (sharded) after one pass, loaded, 16 steps more, held to one
-   uninterrupted plain run. NCCL across cards (`jit_train_step` captured;
-   and (d) across a `refresh_hot_rows` and a `migrate_rows`, one capture,
-   bit-equal to eager) only where the machine has two cards or more;
-   otherwise the phase says it did not run;
+   memory. mesh4-pipelined: the same four ranks, table and batch, each
+   configuration of `PIPE_CONFIGS` ((a) fp32, (b) int8 with error
+   feedback, (c) int8 with 1,024 hot rows, 256 migration rows and the
+   int8 hot reduce) from one state through a serial `train_many` window
+   of 4 and a pipelined one (`pipeline_steps=True`), bit-equal, the
+   pipelined one bit-equal again through the plain versions and with its
+   prefetch on the side stream; the conflict patch repairs rows, none
+   past its cap; the pipelined window launches the serial one's kernels
+   and one readonly gather a body step (two with the annex), and stages
+   the serial one's bytes and the patches' (`wire.conflict_patch_cost`)
+   exactly; ms a step of both. The entry point's `--mesh` at one rank on
+   the TSV: a graph run saved (sharded) after one pass, loaded, 16 steps
+   more, held to one uninterrupted plain run. NCCL across cards
+   (`jit_train_step` captured; (d) across a `refresh_hot_rows` and a
+   `migrate_rows`, one capture, bit-equal to eager; the fp32 windows,
+   serial and pipelined, eager and through `jit_train_many`, one capture
+   each, bit-equal, ms a step of each graph) only where the machine has
+   two cards or more; otherwise the phase says it did not run;
 13. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
@@ -2786,6 +2798,185 @@ def mesh_placement(torch) -> dict:
     return rec
 
 
+PIPE_K = 4                # K of each pipelined window and its serial twin
+# name -> MeshTrainer arguments of the pipelined run
+PIPE_CONFIGS = {
+    "a fp32": dict(wire="fp32"),
+    "b int8+ef": dict(wire="int8"),
+    "c int8 hot mig hot_wire int8": dict(
+        wire="int8", hot_rows=PLACE_HOT, mig_rows=PLACE_MIG,
+        hot_wire="int8"),
+}
+
+
+def _placement_sets(S, batches_global):
+    """The hot set (the batches' 1,024 most frequent ids) and the moves
+    (the 256 after the first 2,048, each one shard over), the same on
+    every rank."""
+    ids = np.concatenate([b["sparse"]["categorical"].reshape(-1)
+                          for b in batches_global])
+    uniq, cnt = np.unique(ids, return_counts=True)
+    top = uniq[np.argsort(-cnt, kind="stable")].astype(np.int64)
+    mv = top[PLACE_HOT * 2:PLACE_HOT * 2 + PLACE_MIG]
+    return top[:PLACE_HOT], (mv, (mv + 1) % S)
+
+
+def _install(trainer, state, hot, moves):
+    if trainer.hot_enabled:
+        state = trainer.refresh_hot_rows(state, hot_ids={"categorical": hot})
+    if trainer.mig_enabled:
+        state = trainer.migrate_rows(state, moves={"categorical": moves})
+    return state
+
+
+def _window(torch, ops, trainer, state, stacked):
+    """One `train_many` window, counts set to 0 just before and read just
+    after -> (state, metrics, launches, seconds, staged bytes)."""
+    mesh = trainer.mesh
+    ops.reset_launch_counts()
+    staged0 = mesh.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = trainer.train_many(state, stacked)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (state, m, _mesh_launches(ops.launch_counts()), seconds,
+            mesh.staged_bytes - staged0)
+
+
+def mesh_pipelined_rank(mesh):
+    """One rank of the pipelined run (gloo, its tensors on the card): the
+    flagship at 2^22 rows a shard, each configuration of `PIPE_CONFIGS`
+    from one state (its placement installed first) through a serial
+    `train_many` window of PIPE_K and a pipelined one, bit-equal; the
+    pipelined window again through the plain versions and with its
+    prefetch on the side stream, each bit-equal; its extra launches (one
+    readonly gather a body step, and the annex's) and staged bytes (two
+    copies of `wire.conflict_patch_cost` a body step and the window's
+    counters, less one sum of pull stats) checked. Returns numpy and
+    plain numbers only."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.ops import wire as wire_mod
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.parallel.sharded import conflict_patch_cap
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S = mesh.size
+    check(mesh.staged and S == MESH_STAGED, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=PIPE_K))
+    stacked = _stacked([local_batch(b, mesh) for b in globals_])
+    hot, moves = _placement_sets(S, globals_)
+    cap = BATCH // S * FIELDS  # exact buckets
+    dim = DIM + 1
+    out = {"rank": mesh.rank, "runs": []}
+    for name, kw in PIPE_CONFIGS.items():
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        serial = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                             mesh=mesh, **kw)
+        piped = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                            mesh=mesh, pipeline_steps=True, **kw)
+        state = _install(serial, serial.init(local_batch(globals_[0], mesh)),
+                         hot, moves)
+        ref, plain, side = state.clone(), state.clone(), state.clone()
+        if not out["runs"]:
+            # a process's first window pays its setup (cuBLAS, the first
+            # collectives): one untimed window first
+            serial.train_many(state.clone(), stacked)
+        ref, rm, s_launches, s_sec, s_staged = _window(
+            torch, ops, serial, ref, stacked)
+        state, pm, p_launches, p_sec, p_staged = _window(
+            torch, ops, piped, state, stacked)
+        losses = pm["loss"].float().cpu().numpy()
+        cmp = _compare(torch, mb, state, losses, ref,
+                       rm["loss"].float().cpu().numpy(), "pipelined_vs_serial")
+        with ops.plain_versions():
+            plain, plm = piped.train_many(plain, stacked)
+        cmp.update(_compare(torch, mb, state, losses, plain,
+                            plm["loss"].float().cpu().numpy(), "vs_plain"))
+        # the prefetch's side stream, which only NCCL across cards runs,
+        # forced on this staged mesh: the same window, bit-equal
+        piped._side = torch.cuda.Stream(mesh.device)
+        piped._prefetch_stream = lambda: piped._side
+        side, sm = piped.train_many(side, stacked)
+        cmp.update(_compare(torch, mb, state, losses, side,
+                            sm["loss"].float().cpu().numpy(), "side_stream"))
+        del ref, plain, side
+        conflict = int(pm["conflict"]["categorical"])
+        check(conflict > 0 and int(pm["conflict_overflow"]) == 0,
+              f"{name}: the patch repaired rows, none past the cap "
+              f"({conflict}, {int(pm['conflict_overflow'])})")
+        check(sorted(rm) == ["loss", "overflow"] and sorted(pm) == [
+            "conflict", "conflict_overflow", "loss", "overflow"],
+            f"{name}: the windows' metrics ({sorted(rm)}, {sorted(pm)})")
+        # the patch's launches: a readonly gather a body step, and the
+        # annex's where the table has one
+        mig = piped.mig_enabled
+        want = {"gather_rows": s_launches["gather_rows"]
+                + (PIPE_K - 1) * (1 + mig),
+                "gather_rows_windows": 0,
+                "fused_sparse_apply": s_launches["fused_sparse_apply"]}
+        check(p_launches == want, f"{name}: the pipelined window launches "
+              f"the serial one's kernels and the patch's ({p_launches}, "
+              f"want {want})")
+        fmt = piped.wire_for("categorical")
+        patch = wire_mod.conflict_patch_cost(
+            [{"dim": dim, "cap": cap,
+              "pcap": conflict_patch_cap(cap, piped.conflict_factor)}],
+            S, fmt)["bytes_patch"]
+        # each patch's all_to_all staged to the host and back, and the
+        # window's counters summed once (an int32 vector all_gathered);
+        # less one sum of pull stats (float64 values: 3 counts, 3 vectors
+        # of S, 3 hot and 2 annex stats): the window keeps only the
+        # overflow of its first batch's, as the JAX window does
+        counters = 4 * 3 * (1 + S)
+        n_pull = 3 + 3 * S + 3 * piped.hot_enabled + 2 * mig
+        want_extra = (2 * (PIPE_K - 1) * patch + counters
+                      - 8 * n_pull * (1 + S))
+        extra = p_staged - s_staged
+        check(extra == want_extra,
+              f"{name}: the pipelined window stages the serial one's bytes "
+              f"and the patch's ({extra} extra, want {want_extra})")
+        exchange = wire_mod.exchange_cost(
+            [{"dim": dim, "cap": cap, "pair": False, "id_itemsize": 8}],
+            S, fmt)["bytes_per_step"]
+        out["runs"].append({
+            "config": name, "wire": fmt, "losses": losses.tolist(),
+            "conflict_rows": conflict,
+            "conflict_overflow": int(pm["conflict_overflow"]),
+            "serial_launches": s_launches, "launches": p_launches,
+            "serial_ms_per_step": s_sec * 1e3 / PIPE_K,
+            "ms_per_step": p_sec * 1e3 / PIPE_K,
+            "serial_staged_bytes_per_step": s_staged / PIPE_K,
+            "staged_bytes_per_step": p_staged / PIPE_K,
+            "exchange_cost_bytes_per_step": exchange,
+            "conflict_patch_cost_bytes": patch, **cmp})
+        del serial, piped, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pipelined(torch) -> dict:
+    """Four ranks on the one card over gloo: the pipelined run."""
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(mesh_pipelined_rank, MESH_STAGED, backend="gloo",
+                      device="cuda", timeout_s=600, threads=0)
+    rec = {"run": "mesh4-pipelined", "ranks": MESH_STAGED, "k": PIPE_K,
+           "wall_seconds": time.perf_counter() - t0, "per_rank": ranks}
+    for i, name in enumerate(PIPE_CONFIGS):
+        runs = [r["runs"][i] for r in ranks]
+        check(all(run["losses"] == runs[0]["losses"]
+                  and run["conflict_rows"] == runs[0]["conflict_rows"]
+                  for run in runs),
+              f"{name}: the ranks report one loss and one conflict count")
+    return rec
+
+
 def mesh_entry(torch, mb, ops, tsv: str) -> dict:
     """The entry point's `--mesh` at one rank on the seeded TSV: a graph
     run saved after one pass, then loaded and run 16 steps more, held to
@@ -2868,12 +3059,16 @@ def mesh_nccl_rank(mesh, steps):
                         torch.stack(graph_losses).cpu().numpy(), state,
                         losses, "graph_vs_eager"))
     placed = nccl_placement(torch, mb, ops, mesh, batches)
+    piped = nccl_pipelined(torch, mb, ops, mesh, batches)
     for k in KERNELS:
-        launches[k] += placed["launches"][k]
-        ran[k] += placed["graph_launches"][k]
+        launches[k] += placed["launches"][k] + sum(
+            piped["eager_launches"][n][k] for n in piped["eager_launches"])
+        ran[k] += placed["graph_launches"][k] + sum(
+            piped["graph_launches"][n][k] for n in piped["graph_launches"])
     return {"rank": mesh.rank, "eager_ms_per_step": ms,
             "graph_ms_per_step": graph_ms, "launches": launches,
-            "graph_launches": ran, "placement": placed, **cmp}
+            "graph_launches": ran, "placement": placed,
+            "pipelined": piped, **cmp}
 
 
 def nccl_placement(torch, mb, ops, mesh, batches) -> dict:
@@ -2930,11 +3125,83 @@ def nccl_placement(torch, mb, ops, mesh, batches) -> dict:
             "graph_launches": ran, "graph": graph, **cmp}
 
 
+NCCL_PIPE_WINDOWS = 6     # windows per jit_train_many; the first captures
+
+
+def nccl_pipelined(torch, mb, ops, mesh, batches) -> dict:
+    """The pipelined fp32 window over NCCL across cards (the prefetch on
+    the trainer's side stream): eager, serial and pipelined, from one
+    state, bit-equal; then both through `jit_train_many`, each captured
+    once and bit-equal to eager after its first replay; then ms a step of
+    each graph over its remaining windows."""
+    from openembedding_tpu_torch import optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+    trainers = {"serial": MeshTrainer(
+        model, optimizers.Adagrad(learning_rate=0.05), mesh=mesh,
+        wire="fp32"), "pipelined": MeshTrainer(
+        model, optimizers.Adagrad(learning_rate=0.05), mesh=mesh,
+        wire="fp32", pipeline_steps=True)}
+    stacked = _stacked(batches)
+    start = trainers["serial"].init(batches[0])
+    eager, launches, out = {}, {}, {}
+    for name, tr in trainers.items():
+        st = start.clone()
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            st, m = tr.train_many(st, stacked)
+            losses.append(m["loss"].float().clone())
+        launches[name] = _mesh_launches(ops.launch_counts())
+        eager[name] = (st, torch.cat(losses).cpu().numpy())
+        if name == "pipelined":
+            out["conflict_rows"] = int(m["conflict"]["categorical"])
+            check(out["conflict_rows"] > 0, "the NCCL window patched rows")
+    out.update(_compare(torch, mb, eager["pipelined"][0],
+                        eager["pipelined"][1], eager["serial"][0],
+                        eager["serial"][1], "nccl_pipelined_vs_serial"))
+    ran = {}
+    for name, tr in trainers.items():
+        # the same start (a clone: every init of a model shares its dense
+        # module); the graph's first call is its warm-up window and
+        # capture, the second its first replay
+        st = start.clone()
+        many = tr.jit_train_many()
+        ops.reset_launch_counts()
+        losses = []
+        for w in range(NCCL_PIPE_WINDOWS):
+            if w == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            st, m = many(st, stacked)
+            if w < 2:
+                losses.append(m["loss"].float().clone())
+            if w == 1:
+                out.update(_compare(
+                    torch, mb, st, torch.cat(losses).cpu().numpy(),
+                    eager[name][0], eager[name][1],
+                    f"nccl_{name}_graph_vs_eager"))
+        torch.cuda.synchronize()
+        out[f"{name}_graph_ms_per_step"] = (
+            (time.perf_counter() - t0) * 1e3
+            / ((NCCL_PIPE_WINDOWS - 2) * PIPE_K))
+        rec = graph_record(many)
+        ran[name] = ran_launches(_mesh_launches(ops.launch_counts()), [rec])
+        out[f"{name}_graph"] = rec
+        del st, many
+    del start
+    out["eager_launches"] = launches
+    out["graph_launches"] = ran
+    return out
+
+
 def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
                array_graph: dict) -> dict:
     """The mesh path (`openembedding_tpu_torch.parallel`): mesh1, the staged
-    four-rank run, the entry point's --mesh, and NCCL across cards where
-    the machine has them -> {kernel: launches of the phase}."""
+    four-rank runs (plain, placement, pipelined), the entry point's
+    --mesh, and NCCL across cards where the machine has them -> {kernel:
+    launches of the phase}."""
     t0 = time.perf_counter()
     one = mesh_one(torch, mb, ops, data, optimizers, array_graph)
     emit({"phase": "mesh", **one})
@@ -2944,6 +3211,9 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
     torch.cuda.empty_cache()
     placement = mesh_placement(torch)
     emit({"phase": "mesh", **placement})
+    torch.cuda.empty_cache()
+    pipelined = mesh_pipelined(torch)
+    emit({"phase": "mesh", **pipelined})
     torch.cuda.empty_cache()
     entry = mesh_entry(torch, mb, ops, tsv)
     emit({"phase": "mesh", **entry})
@@ -2957,6 +3227,10 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
         for run in rank["runs"]:
             for k in KERNELS:
                 launches[k] += run["launches"][k]
+    for rank in pipelined["per_rank"]:
+        for run in rank["runs"]:
+            for k in KERNELS:
+                launches[k] += run["serial_launches"][k] + run["launches"][k]
     cards = torch.cuda.device_count()
     if cards >= 2:
         from openembedding_tpu_torch.parallel.multihost import run_local

@@ -580,11 +580,32 @@ class Trainer:
         (`trainer.pull`, `trainer.compute`, `trainer.dense_apply`,
         `trainer.sparse_apply`)."""
         b = _transformed(self.model, b)
+        with record_function("trainer.pull"):
+            ids = self._batch_ids(b)
+            pulled, plans, stats = self.tables_pull(state, ids, packed)
+        return self._step_tail(state, b, ids, pulled, plans, stats, packed)
+
+    def _batch_ids(self, b: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """{table: its feature's ids} of a transformed batch."""
+        return {name: b["sparse"][spec.feature_name]
+                for name, spec in self.model.specs.items()}
+
+    def _step_tail(self, state: TrainState, b: Dict[str, Any],
+                   ids: Dict[str, torch.Tensor],
+                   pulled: Dict[str, torch.Tensor], plans,
+                   stats: Dict[str, torch.Tensor], packed: Dict[str, tuple],
+                   before_apply: Optional[Callable[[], None]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Dict[str, torch.Tensor]]:
+        """`_step` after its pull (the JAX package's `_train_step_tail`):
+        the sparse_as_dense pulls, forward/backward, the dense and sparse
+        applies, the metrics' reduce, on a transformed batch whose tables'
+        rows `pulled` and `plans` already hold; the pipelined
+        `MeshTrainer.train_many` feeds it rows prefetched a step ahead.
+        `before_apply` runs just before the sparse apply (the pipelined
+        loop's wait on its prefetch's serve)."""
         sad_specs = self.model.sad_specs()
         with record_function("trainer.pull"):
-            ids = {name: b["sparse"][spec.feature_name]
-                   for name, spec in self.model.specs.items()}
-            pulled, plans, stats = self.tables_pull(state, ids, packed)
             for rows in pulled.values():
                 rows.requires_grad_()
             # each sparse_as_dense table enters autograd as a leaf that
@@ -609,6 +630,8 @@ class Trainer:
                         {n: leaf.grad for n, leaf in sad_leaves.items()})
             self.reduce_module_state(state.dense)
         with record_function("trainer.sparse_apply"), torch.no_grad():
+            if before_apply is not None:
+                before_apply()
             stats.update(self.tables_apply(
                 state, ids, {name: pulled[name].grad
                              for name in self.model.ps_specs()},
@@ -648,13 +671,14 @@ class Trainer:
         return {"logits": logits, "loss": self._loss(logits, b)}
 
     def _many(self, state: TrainState, b: Dict[str, Any]
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              ) -> Dict[str, Any]:
         """The K steps of `train_many` on a stacked batch already on the
-        device -> (losses (K,), overflow () int32: the steps' `_overflow`
-        stats summed). Packs at entry, runs the steps on the packed arrays
-        (a hash table keeps its keys and counter apart, updated in place),
-        copies the values back into the split tensors at exit; the state's
-        split table objects are back in place whatever happens."""
+        device -> the window's metrics: {"loss": (K,), "overflow": ()
+        int32, the steps' `_overflow` stats summed}. Packs at entry, runs
+        the steps on the packed arrays (a hash table keeps its keys and
+        counter apart, updated in place), copies the values back into the
+        split tensors at exit; the state's split table objects are back in
+        place whatever happens."""
         layouts = self._packed_layouts(state)
         split = {name: state.tables[name] for name in layouts}
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -681,7 +705,7 @@ class Trainer:
                     split[name].slots[k].copy_(v)
         finally:
             state.tables.update(split)
-        return torch.stack(losses), overflow
+        return {"loss": torch.stack(losses), "overflow": overflow}
 
     def train_many(self, state: TrainState, batches
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -696,11 +720,11 @@ class Trainer:
         steps' `<table>_overflow` stats, the ids the hash tables' pulls found
         no slot for in the window (0 without hash tables)."""
         b = self._device_batch(batches)
-        losses, overflow = self._many(state, b)
-        k_steps = losses.shape[0]
+        metrics = self._many(state, b)
+        k_steps = metrics["loss"].shape[0]
         state.step += k_steps
         state.model_version += k_steps
-        return state, {"loss": losses, "overflow": overflow}
+        return state, metrics
 
     # -- compiled steps ------------------------------------------------------
 
@@ -738,9 +762,10 @@ class CompiledStep:
       buffers (outside the graph), replays the graph (one dispatch) and
       advances the state's step counters.
     - `metrics` are the graph's static outputs ("loss", "logits" and
-      "stats"; for a window "loss" (K,) and "overflow"). The next call with
-      the same batch structure overwrites them: a caller who keeps them
-      across calls clones them.
+      "stats"; for a window what `train_many` returns: "loss" (K,) and
+      "overflow", and a pipelined mesh window's "conflict" and
+      "conflict_overflow"). The next call with the same batch structure
+      overwrites them: a caller who keeps them across calls clones them.
     - Every update of the captured function writes in place, so a replay
       reads the state as the previous call left it. The graphs hold the
       state they were captured on, their buffers and the memory of their
@@ -784,8 +809,7 @@ class CompiledStep:
     def _run(self, state: TrainState, b) -> Dict[str, torch.Tensor]:
         tr = self.trainer
         if self.many:
-            losses, overflow = tr._many(state, b)
-            return {"loss": losses, "overflow": overflow}
+            return tr._many(state, b)
         loss, logits, stats = tr._step(state, b, {})
         return {"loss": loss, "logits": logits, "stats": stats}
 

@@ -227,3 +227,58 @@ def unbucket(bucket_rows: torch.Tensor, owner: torch.Tensor,
     out = flat[pos]
     return torch.where(oob.reshape((-1,) + (1,) * (out.dim() - 1)),
                        torch.zeros_like(out), out)
+
+
+# -- the conflict set of the pipelined loop (`parallel/sharded.py`
+# `grouped_conflict_patch`): batch t+1's prefetched rows are stale only where
+# batch t's push updated them, and the intersection rides one sort, as the
+# exchange does: no hash table, no shape that depends on the data ----------
+
+
+def member_mask(ref_ids: torch.Tensor, ref_valid: torch.Tensor,
+                query_ids: torch.Tensor,
+                query_valid: torch.Tensor) -> torch.Tensor:
+    """Each query's membership in the set of VALID reference ids, from one
+    stable sort of the concatenated (R,) and (Q,) single-lane ids with a
+    reference weight riding along: a query is a member when its id's
+    segment holds a valid reference entry. Invalid queries are never
+    members and invalid references never vouch, so the -1 padding of
+    bucket arrays on either side collides harmlessly. -> (Q,) bool."""
+    R = ref_ids.shape[0]
+    cat = torch.cat([ref_ids, query_ids.to(ref_ids.dtype)])
+    n = cat.shape[0]
+    contrib = torch.cat([ref_valid.to(torch.int32),
+                         torch.zeros(n - R, dtype=torch.int32,
+                                     device=cat.device)])
+    order = torch.argsort(cat, stable=True)
+    s_id = cat[order]
+    is_new = torch.ones(n, dtype=torch.bool, device=cat.device)
+    is_new[1:] = s_id[1:] != s_id[:-1]
+    seg = torch.cumsum(is_new, 0) - 1
+    seg_refs = torch.zeros(n, dtype=torch.int32, device=cat.device) \
+        .index_add_(0, seg, contrib[order])
+    hit = seg_refs[seg] > 0
+    out = torch.zeros(n, dtype=torch.bool, device=cat.device) \
+        .scatter_(0, order, hit)
+    return out[R:] & query_valid
+
+
+def compact_member_slots(member: torch.Tensor, pcap: int):
+    """A (S, cap) membership mask compacted per row into (S, pcap) slot
+    indices: member j of row s lands at its rank among row s's members,
+    -1 pads. Members past `pcap` drop and are counted in the returned ()
+    int32 overflow (such a row keeps its one-step-stale prefetched value).
+    -> (slots (S, pcap) int64, overflow)."""
+    S, cap = member.shape
+    dev = member.device
+    pos = torch.cumsum(member.to(torch.int64), dim=1) - 1
+    within = member & (pos < pcap)
+    row = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
+    flat_tgt = torch.where(within, row * pcap + pos,
+                           torch.full_like(pos, S * pcap))
+    col = torch.arange(cap, dtype=torch.int64, device=dev).expand(S, cap)
+    # one spare slot past the buckets takes the dropped writes
+    slots = torch.full((S * pcap + 1,), -1, dtype=torch.int64, device=dev)
+    slots[flat_tgt.reshape(-1)] = col.reshape(-1)
+    overflow = torch.sum(member & ~within).to(torch.int32)
+    return slots[:-1].reshape(S, pcap), overflow

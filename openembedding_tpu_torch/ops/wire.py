@@ -1,5 +1,5 @@
-"""Wire formats of the sharded exchange (port of the fp32 and bf16 parts of
-`openembedding_tpu/ops/wire.py`).
+"""Wire formats of the sharded exchange (port of
+`openembedding_tpu/ops/wire.py` without its sparse top-k dense wire).
 
 A train step moves three payloads: id buckets out, pulled rows back, pushed
 grads and counts out (`parallel/sharded.py`). Tables and the optimizer
@@ -340,6 +340,28 @@ def exchange_cost(tables, num_shards: int, fmt: str,
             "bytes_grads": int(bytes_grads),
             "bytes_scales": int(bytes_scales) if S > 1 else 0,
             "bytes_per_step": int(total) if S > 1 else 0}
+
+
+def conflict_patch_cost(tables, num_shards: int, fmt: str) -> dict:
+    """The bytes one rank ships through the pipelined loop's conflict patch
+    (`parallel/sharded.grouped_conflict_patch`), the JAX package's model:
+    one all_to_all a (dim, fmt) group of `pcap` rows per (source, owner)
+    pair, in the push codec (the row and the count lanes that carry its
+    slot + 1). `tables`: [{dim, cap, pcap}] (an optional per-table "fmt"),
+    `pcap` from `parallel/sharded.conflict_patch_cap`. These are the only
+    bytes pipelining adds to the serial exchange."""
+    S = num_shards
+    groups: dict = {}
+    for t in tables:
+        groups.setdefault((t["dim"], t.get("fmt", fmt)), []).append(t)
+    bytes_patch = 0
+    for (dim, tf), members in groups.items():
+        for m in members:
+            bytes_patch += S * m["pcap"] * grads_wire_width(dim, tf) \
+                * _itemsize(tf)
+    return {"format": fmt, "num_shards": S,
+            "collectives": len(groups) if S > 1 else 0,
+            "bytes_patch": int(bytes_patch) if S > 1 else 0}
 
 
 def hot_reduce_cost(hot_rows_by_table, num_shards: int, fmt: str) -> dict:

@@ -1,7 +1,6 @@
 """Sharded pull and push: the reference's parameter-server wire protocol as
 collectives between the mesh's ranks (port of
-`openembedding_tpu/parallel/sharded.py`, without the pipelined prefetch,
-ROADMAP.md item 3).
+`openembedding_tpu/parallel/sharded.py`).
 
 Each rank holds one shard of every table (the ids with `id % S == rank`,
 at local row `id // S`) and one slice of the batch. These functions run on
@@ -71,6 +70,11 @@ SKEW-AWARE PLACEMENT (the JAX package's hot rows and cold-tail migration):
 - The lifecycle runs between steps (`build_hot_identity`, `hot_gather`,
   `hot_writeback`, `build_mig_identity`, `mig_gather`, `mig_writeback`):
   contents change, tensors do not, so no captured graph goes stale.
+
+PIPELINED (`MeshTrainer(pipeline_steps=True)`): the pull splits into a
+prefetch issued a step ahead (`grouped_prefetch`), a conflict patch after
+the previous batch's apply (`grouped_conflict_patch`) and the client's
+tail at consume time (`grouped_finalize_pull`); see their section below.
 """
 
 from __future__ import annotations
@@ -85,7 +89,8 @@ from ..embedding import EmbeddingSpec, EmbeddingTableState, HotRows, MigRows
 from ..ops import apply as apply_mod
 from ..ops import wire as wire_mod
 from ..ops.dedup import (BucketResult, UniqueResult, bucket_validity,
-                         carry_to_unique, concat_owner_buckets,
+                         carry_to_unique, compact_member_slots,
+                         concat_owner_buckets, member_mask,
                          split_owner_buckets, unbucket, unique_and_route,
                          unique_with_counts)
 from ..ops.sparse import lookup_rows, sparse_apply_dense_table
@@ -109,7 +114,11 @@ class ExchangePlan(NamedTuple):
     at. With a hot cache, `hot_slot` (n,) holds each unique slot's cache
     row (`hot_rows` = H for a cold one); with a migration directory,
     `mig_moved` (n,) int32 is 1 where the directory routed the unique id
-    off its `id % S` home (accounting only)."""
+    off its `id % S` home (accounting only). `ef_stash` (S, cap, dim), from
+    a training serve that ran error feedback: the residual each received
+    slot's serve consumed, zeros where it took none (invalid and annex
+    slots); local to the owner, never on a wire, it lets the pipelined
+    loop's `grouped_conflict_patch` replay the serve."""
 
     uniq: UniqueResult
     buckets: BucketResult
@@ -120,6 +129,7 @@ class ExchangePlan(NamedTuple):
     hot_slot: Optional[torch.Tensor] = None
     hot_rows: int = 0
     mig_moved: Optional[torch.Tensor] = None
+    ef_stash: Optional[torch.Tensor] = None
 
 
 def _bucket_capacity(n: int, num_shards: int, capacity_factor: float) -> int:
@@ -347,8 +357,9 @@ def _serve_rows(spec: EmbeddingSpec, state: EmbeddingTableState,
     a hash table never inserts them. A training pull at a narrow format
     with `state.ef` ships q(w + ef) and keeps ef' = (w + ef) - deq(q) at
     the row (annex and invalid slots take no residual; a hash table's
-    residual sits at the row's slot, taken from the pull's probe).
-    -> (payload, plan)."""
+    residual sits at the row's slot, taken from the pull's probe), and the
+    plan returned carries the residuals the serve consumed
+    (`ExchangePlan.ef_stash`). -> (payload, plan)."""
     S = mesh.size
     flat_recv = plan.recv_ids.reshape(-1)
     flat_valid = plan.recv_valid.reshape(-1)
@@ -393,10 +404,13 @@ def _serve_rows(spec: EmbeddingSpec, state: EmbeddingTableState,
         # out-of-range rows gather zeros and drop their write; the
         # receive slots of one id gather the same w + ef and so write the
         # same residual
-        x = x + lookup_rows(state.ef, ef_idx)
+        ef_prev = lookup_rows(state.ef, ef_idx)
+        x = x + ef_prev
         enc = wire_mod.pack_inband(x, fmt)
         write_rows(state.ef, ef_idx,
                    wire_mod.residual(x, enc, spec.output_dim, fmt))
+        plan = plan._replace(ef_stash=ef_prev.reshape(S, plan.cap,
+                                                      spec.output_dim))
     else:
         enc = wire_mod.pack_inband(x, fmt)
     return enc.reshape(S, plan.cap, -1), plan
@@ -724,37 +738,26 @@ def grouped_lookup_train(specs, states, ids_list, *, mesh: Mesh,
     plans go to `grouped_apply_gradients` for the same batch. Each table
     encodes at its owner's edge with its own residuals; the encoded widths
     are one across the group, so one all_to_all carries them all."""
-    S = mesh.size
-    dim = _check_dims(specs)
-    hots = [state.hot for state in states]
+    if mesh.size > 1:
+        # the pipelined loop's two halves, back to back
+        states, plans, uniq_rows, stats_list = grouped_prefetch(
+            specs, states, ids_list, mesh=mesh,
+            capacity_factor=capacity_factor, wire=wire,
+            load_stats=load_stats)
+        return states, grouped_finalize_pull(
+            specs, states, ids_list, plans, uniq_rows), stats_list, plans
+    _check_dims(specs)
     plans = grouped_make_plans(specs, ids_list, mesh=mesh,
-                               capacity_factor=capacity_factor, hots=hots,
+                               capacity_factor=capacity_factor,
+                               hots=[state.hot for state in states],
                                migs=[state.mig for state in states])
-    fmt = _fmt(mesh, wire)
-    rows_list = []
-    for i, (spec, state) in enumerate(zip(specs, states)):
+    outs = []
+    for i, (spec, state, ids) in enumerate(zip(specs, states, ids_list)):
         rows, plans[i] = _serve_rows(spec, state, plans[i], train=True,
-                                     mesh=mesh, fmt=fmt)
-        rows_list.append(rows)
-    if S == 1:
-        outs = [_reassemble(plan, rows, ids.shape, spec.output_dim, mesh)
-                for spec, ids, plan, rows
-                in zip(specs, ids_list, plans, rows_list)]
-    else:
-        stacked = torch.cat(rows_list, dim=1)
-        back = coll.all_to_all(mesh, stacked)
-        dec = wire_mod.unpack_inband(back.reshape(-1, back.shape[-1]), dim,
-                                     fmt).reshape(S, -1, dim)
-        outs, off = [], 0
-        for spec, ids, plan, hot in zip(specs, ids_list, plans, hots):
-            seg = dec[:, off:off + plan.cap]
-            off += plan.cap
-            uniq_rows = unbucket(seg, plan.buckets.owner, plan.buckets.slot)
-            uniq_rows = _merge_hot_rows(plan, uniq_rows, hot)
-            out = uniq_rows[plan.uniq.inverse]
-            outs.append(out.to(spec.dtype).reshape(
-                tuple(ids.shape) + (spec.output_dim,)))
-    stats_list = [_pull_stats(spec, ids, plan, load_stats, mesh, fmt)
+                                     mesh=mesh)
+        outs.append(_reassemble(plans[i], rows, ids.shape, spec.output_dim,
+                                mesh))
+    stats_list = [_pull_stats(spec, ids, plan, load_stats, mesh)
                   for spec, ids, plan in zip(specs, ids_list, plans)]
     return states, outs, stats_list, plans
 
@@ -804,6 +807,208 @@ def grouped_apply_gradients(specs, states, optimizers, ids_list, grads_list,
         _apply_unique(spec, state, opt, plan.recv_ids.reshape(-1),
                       rg32.to(g.dtype), rc, S, plan.slot)
     return states, stats_list
+
+
+# ---------------------------------------------------------------------------
+# The split exchange of the pipelined loop (`MeshTrainer(pipeline_steps=
+# True)`): `grouped_prefetch` runs batch t+1's id plan and a speculative row
+# pull before batch t's apply (it reads nothing batch t's gradients make),
+# `grouped_conflict_patch` re-gathers after that apply only the rows it
+# could have changed, and `grouped_finalize_pull` runs the client's tail at
+# consume time. At the fp32 wire the patched rows are a serial pull's, bit
+# for bit; at a narrow wire the patch re-encodes them with the serve's codec
+# and, where the table carries residuals, replays the serve's error feedback
+# from the residuals the prefetch consumed (`ExchangePlan.ef_stash`), so
+# rows and residuals are the serial schedule's too.
+# ---------------------------------------------------------------------------
+
+
+def conflict_patch_cap(cap: int, conflict_factor: float) -> int:
+    """The conflict patch's slots per (source, owner) pair: `cap` (exact)
+    for `conflict_factor <= 0`, else ceil(factor * cap) within [1, cap];
+    the members past it keep their one-step-stale prefetched rows (counted
+    in `conflict_overflow`)."""
+    if conflict_factor <= 0:
+        return cap
+    return max(1, min(cap, int(-(-conflict_factor * cap // 1))))
+
+
+def grouped_prefetch(specs, states, ids_list, *, mesh: Mesh,
+                     capacity_factor: float = 0.0,
+                     wire: Optional[str] = None, load_stats: bool = True):
+    """The id plan and a speculative row pull of one dim-group's training
+    pull, without the client's tail (`grouped_finalize_pull`): the plans,
+    the owner's serve (hash inserts in the serial order, residuals written
+    and stashed on the plan) and one all_to_all of the group's rows,
+    decoded per unique slot. It reads the tables as they stand, so the rows
+    differ from a pull made after the previous batch's apply only where
+    that apply wrote, the set `grouped_conflict_patch` re-gathers; hot
+    slots stay zero until the finalize's overlay. -> (states, plans,
+    unique rows (n, dim) float32 a table, stats a table, as
+    `grouped_lookup_train`'s)."""
+    S = mesh.size
+    if S == 1:
+        raise ValueError(
+            "grouped_prefetch needs S >= 2: the pipelined loop has nothing "
+            "to overlap on a 1-device mesh (MeshTrainer runs the serial "
+            "train_many there)")
+    dim = _check_dims(specs)
+    plans = grouped_make_plans(specs, ids_list, mesh=mesh,
+                               capacity_factor=capacity_factor,
+                               hots=[state.hot for state in states],
+                               migs=[state.mig for state in states])
+    fmt = _fmt(mesh, wire)
+    rows_list = []
+    for i, (spec, state) in enumerate(zip(specs, states)):
+        rows, plans[i] = _serve_rows(spec, state, plans[i], train=True,
+                                     mesh=mesh, fmt=fmt)
+        rows_list.append(rows)
+    back = coll.all_to_all(mesh, torch.cat(rows_list, dim=1))
+    dec = wire_mod.unpack_inband(back.reshape(-1, back.shape[-1]), dim,
+                                 fmt).reshape(S, -1, dim)
+    uniq_rows, off = [], 0
+    for plan in plans:
+        uniq_rows.append(unbucket(dec[:, off:off + plan.cap],
+                                  plan.buckets.owner, plan.buckets.slot))
+        off += plan.cap
+    stats_list = [_pull_stats(spec, ids, plan, load_stats, mesh, fmt)
+                  for spec, ids, plan in zip(specs, ids_list, plans)]
+    return states, plans, uniq_rows, stats_list
+
+
+def grouped_finalize_pull(specs, states, ids_list, plans, uniq_rows_list):
+    """The client's tail of a prefetched pull, at consume time: the hot
+    cache's rows overlaid as the previous apply left them (hot rows never
+    ride the buckets, so this keeps them exact), duplicates expanded. Local
+    work, no collective. -> rows of each ids' shape + (dim,), in each
+    table's dtype."""
+    outs = []
+    for spec, state, ids, plan, uniq_rows in zip(specs, states, ids_list,
+                                                 plans, uniq_rows_list):
+        ur = _merge_hot_rows(plan, uniq_rows, state.hot)
+        outs.append(ur[plan.uniq.inverse].to(spec.dtype).reshape(
+            tuple(ids.shape) + (spec.output_dim,)))
+    return outs
+
+
+def _gather_rows_readonly(spec: EmbeddingSpec, state: EmbeddingTableState,
+                          flat_recv: torch.Tensor, flat_valid: torch.Tensor,
+                          S: int):
+    """The owner's rows for received ids, read only: no hash insert (the
+    prefetch inserted every id the patch asks for), no residual written.
+    Received migrated ids read the annex, as in `_serve_rows`; both reads
+    are the gather kernel. -> (rows (n, dim) in the table's dtype, each
+    row's index into `state.ef`: the index `_serve_rows` writes, out of
+    range for invalid and annex rows)."""
+    mig = state.mig
+    m_found = None
+    main_valid = flat_valid
+    if mig is not None:
+        m_found, m_rank, _ = _mig_find(mig, flat_recv, flat_valid)
+        main_valid = flat_valid & ~m_found
+    if spec.use_hash_table:
+        capacity = state.keys.shape[0]
+        slot = hash_find(state.keys, torch.where(
+            main_valid, flat_recv, torch.full_like(flat_recv, -1)))
+        idx = torch.where((slot < capacity) & main_valid, slot,
+                          torch.full_like(slot, capacity))
+        rows = lookup_rows(state.weights, idx)
+        ef_idx = idx
+    else:
+        local = torch.where(main_valid, torch.div(flat_recv, S,
+                                                  rounding_mode="floor"),
+                            torch.full_like(flat_recv, -1))
+        rows = lookup_rows(state.weights, local)
+        n_ef = (state.ef if state.ef is not None
+                else state.weights).shape[0]
+        ef_idx = torch.where(main_valid, local, torch.full_like(local, n_ef))
+    if m_found is not None:
+        M = mig.weights.shape[0]
+        arows = lookup_rows(mig.weights, torch.where(
+            m_found, m_rank, torch.full_like(m_rank, M)))
+        rows = torch.where(m_found[:, None], arows.to(rows.dtype), rows)
+    return rows, ef_idx
+
+
+def grouped_conflict_patch(specs, states, prev_plans, plans, uniq_rows_list,
+                           *, mesh: Mesh, conflict_factor: float = 0.0,
+                           wire: Optional[str] = None):
+    """Repair one dim-group's prefetched rows after the previous batch's
+    apply. Every row that apply wrote on this shard is a valid received id
+    of the previous plan, so the conflict set is the previous plan's valid
+    received ids met with the new plan's (`ops/dedup.member_mask`, one sort
+    a table). The owner compacts them to `conflict_patch_cap` slots per
+    source, re-gathers them from the applied tables
+    (`_gather_rows_readonly`) and ONE all_to_all a group ships each row
+    with its bucket slot + 1 in the count lanes (the push codec; 0 is
+    empty); the client writes them over its prefetched unique rows. With
+    residuals (a narrow wire) the owner replays the serve: x' = w + the
+    stashed residual, ships q(x') and writes ef' = x' - deq(q(x')) at the
+    slots the prefetch's serve wrote. -> (patched unique rows a table,
+    stats a table: `conflict_rows`, the patched rows this source sends,
+    and `conflict_overflow`, the members past the cap)."""
+    S = mesh.size
+    dim = _check_dims(specs)
+    fmt = _fmt(mesh, wire)
+    payloads, metas = [], []
+    for spec, state, pplan, plan in zip(specs, states, prev_plans, plans):
+        cap = plan.cap
+        pcap = conflict_patch_cap(cap, conflict_factor)
+        member = member_mask(pplan.recv_ids.reshape(-1),
+                             pplan.recv_valid.reshape(-1),
+                             plan.recv_ids.reshape(-1),
+                             plan.recv_valid.reshape(-1)).reshape(S, cap)
+        slots, oflow = compact_member_slots(member, pcap)
+        cl = torch.clamp(slots, 0, cap - 1)
+        flat_ids = torch.gather(plan.recv_ids, 1, cl).reshape(-1)
+        live = (slots >= 0).reshape(-1)
+        rows, ef_idx = _gather_rows_readonly(spec, state, flat_ids, live, S)
+        counts = (slots + 1).reshape(-1).to(torch.int32)
+        if plan.ef_stash is not None:  # the serve ran error feedback
+            stash = torch.gather(plan.ef_stash, 1, cl[..., None].expand(
+                S, pcap, dim)).reshape(-1, dim)
+            x = rows.float() + torch.where(live[:, None], stash,
+                                           torch.zeros_like(stash))
+            enc = wire_mod.pack_inband(x, fmt)
+            write_rows(state.ef, ef_idx,
+                       wire_mod.residual(x, enc, dim, fmt))
+            payload = torch.cat([enc, wire_mod.counts_to_lanes(counts, fmt)],
+                                dim=1)
+        else:
+            payload = wire_mod.encode_grads(rows.float(), counts, fmt)
+        payloads.append(payload.reshape(S, pcap, -1))
+        metas.append((pcap, member, oflow))
+    recv = coll.all_to_all(mesh, torch.cat(payloads, dim=1))
+    width = recv.shape[-1]
+    patched, stats_list, off = [], [], 0
+    for plan, uniq_rows, (pcap, member, oflow) in zip(plans, uniq_rows_list,
+                                                      metas):
+        prow, pc = wire_mod.decode_grads(
+            recv[:, off:off + pcap].reshape(-1, width), dim, fmt)
+        off += pcap
+        cap = plan.cap
+        live = pc > 0
+        src = torch.arange(S, dtype=torch.int64,
+                           device=pc.device).repeat_interleave(pcap)
+        flat_pos = torch.where(
+            live, src * cap + torch.clamp(pc.long() - 1, 0, cap - 1),
+            torch.full_like(src, S * cap))
+        # one spare row past the buckets takes the empty slots' writes
+        stage = torch.zeros((S * cap + 1, dim), dtype=torch.float32,
+                            device=pc.device)
+        stage[flat_pos] = prow
+        smask = torch.zeros(S * cap + 1, dtype=torch.bool, device=pc.device)
+        smask[flat_pos] = live
+        patch_u = unbucket(stage[:-1].reshape(S, cap, dim),
+                           plan.buckets.owner, plan.buckets.slot)
+        mask_u = unbucket(smask[:-1].reshape(S, cap), plan.buckets.owner,
+                          plan.buckets.slot)
+        patched.append(torch.where(mask_u[:, None],
+                                   patch_u.to(uniq_rows.dtype), uniq_rows))
+        stats_list.append({
+            "conflict_rows": torch.sum(member).to(torch.int32) - oflow,
+            "conflict_overflow": oflow})
+    return patched, stats_list
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,23 @@ Skew-aware placement (`parallel/sharded.py`): the int8 wire with
 error-feedback residuals (`wire="int8"`, `error_feedback`), the
 replicated hot-row cache (`hot_rows`, its reduce's format `hot_wire`,
 `refresh_hot_rows`) and cold-tail migration (`mig_rows`, `migrate_rows`);
-`hot_sync` writes both back into the shards, as `save` does first. The
-JAX MeshTrainer's ZeRO dense sharding and its wire, the pipelined loop,
-host offload, the numerics sentinel and `measure_every` are not ported:
-setting one away from its default raises NotImplementedError naming its
-ROADMAP.md item. So does `refresh_hot_rows` without explicit ids, which
-reads the heavy-hitter sketches (item 6). `SeqMeshTrainer` waits for the
-sequence models (item 5).
+`hot_sync` writes both back into the shards, as `save` does first.
+
+The pipelined window (`pipeline_steps=True`, S >= 2): `train_many` and
+`jit_train_many` issue batch t+1's id plan and a speculative pull a step
+ahead, before batch t's forward, backward and applies (on a CUDA mesh over
+NCCL, on a stream of the trainer's own), and repair them after batch t's
+apply with the conflict patch (`parallel/sharded.py`); bit-equal to the
+serial window at every wire format, residuals included, with the
+window's counters "conflict" and "conflict_overflow" (`conflict_factor`
+caps the patch).
+
+The JAX MeshTrainer's ZeRO dense sharding and its wire, host offload, the
+numerics sentinel and `measure_every` are not ported: setting one away
+from its default raises NotImplementedError naming its ROADMAP.md item.
+So does `refresh_hot_rows` without explicit ids, which reads the
+heavy-hitter sketches (item 6). `SeqMeshTrainer` waits for the sequence
+models (item 5).
 """
 
 from __future__ import annotations
@@ -41,20 +51,21 @@ from torch import nn
 
 from ..embedding import (EmbeddingSpec, EmbeddingTableState, HotRows,
                          MigRows, combine, init_table, init_table_state)
-from ..model import (EmbeddingModel, TrainState, Trainer, _materialize_dense,
-                     _table_generator, _transformed, attach_ids,
-                     init_dense_slots, sad_rows)
+from ..model import (EmbeddingModel, TrainState, Trainer, _batch_slice,
+                     _materialize_dense, _table_generator, _transformed,
+                     attach_ids, init_dense_slots, sad_rows)
 from ..ops import wire as wire_mod
 from ..optimizers import SparseOptimizer
 from ..utils.fs import local_path
 from . import collectives as coll
 from .mesh import Mesh, make_mesh
 from .sharded import (build_hot_identity, build_mig_identity,
-                      grouped_apply_gradients, grouped_lookup_train,
-                      hot_gather, hot_writeback, identity_tensors,
-                      mig_gather, mig_writeback, sharded_apply_gradients,
-                      sharded_lookup, sharded_lookup_train,
-                      split_wire_groups)
+                      grouped_apply_gradients, grouped_conflict_patch,
+                      grouped_finalize_pull, grouped_lookup_train,
+                      grouped_prefetch, hot_gather, hot_writeback,
+                      identity_tensors, mig_gather, mig_writeback,
+                      sharded_apply_gradients, sharded_lookup,
+                      sharded_lookup_train, split_wire_groups)
 
 # constructor arguments of the JAX MeshTrainer the port does not have:
 # name -> (default, ROADMAP.md item)
@@ -63,8 +74,6 @@ NOT_PORTED = {
     "dense_topk": (None, "3 (ZeRO)"), "dense_stats": (False, "3 (ZeRO)"),
     "offload_pipeline": (False, "4"), "offload_densify": (1, "4"),
     "offload_stage_depth": (1, "4"),
-    "pipeline_steps": (False, "3 (the pipelined loop)"),
-    "conflict_factor": (0.0, "3 (the pipelined loop)"),
     "sentinel": (False, "1.5"), "halt_on_nonfinite": (False, "1.5"),
     "measure_every": (0, "1.5"),
 }
@@ -91,6 +100,9 @@ class MeshTrainer(Trainer):
       inert at S = 1 and for sparse_as_dense tables.
     - `group_exchange`: tables of one width share three all_to_alls a step
       (False: three per table). `shard_stats`: the per-shard load stats.
+    - `pipeline_steps`: `train_many` windows pipelined (inert at S = 1);
+      `conflict_factor` in [0, 1] caps the conflict patch at that share of
+      the bucket capacity (0: exact, every conflicting row patched).
 
     `init` gives each rank its shard of every table (shard r of S draws
     from its own generator: no rank builds a whole table) and the same
@@ -108,7 +120,9 @@ class MeshTrainer(Trainer):
                  wire=None, group_exchange: bool = True,
                  shard_stats: bool = True, hot_rows=0, mig_rows=0,
                  hot_wire: Optional[str] = None,
-                 error_feedback: Optional[bool] = None, **unported):
+                 error_feedback: Optional[bool] = None,
+                 pipeline_steps: bool = False, conflict_factor: float = 0.0,
+                 **unported):
         for key, value in unported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"MeshTrainer got an unexpected argument "
@@ -144,6 +158,12 @@ class MeshTrainer(Trainer):
         self.mig_rows = mig_rows
         self.group_exchange = group_exchange
         self.shard_stats = shard_stats
+        if not 0.0 <= float(conflict_factor) <= 1.0:
+            raise ValueError(f"conflict_factor={conflict_factor!r}: expected "
+                             "0.0 (exact) .. 1.0")
+        self.pipeline_steps = bool(pipeline_steps)
+        self.conflict_factor = float(conflict_factor)
+        self._side = None  # the prefetch's stream, made at first use
 
     # -- wire formats ---------------------------------------------------------
 
@@ -572,6 +592,168 @@ class MeshTrainer(Trainer):
         logits = state.dense(embedded, b.get("dense"))
         return {"logits": logits,
                 "loss": coll.pmean(self.mesh, self._loss(logits, b))}
+
+    # -- the pipelined window ---------------------------------------------------
+
+    def _pipeline_on(self) -> bool:
+        """Whether `train_many` pipelines: asked for, on two ranks or more
+        (at S = 1 the exchange is local, there is nothing to overlap)."""
+        return self.pipeline_steps and self.num_shards > 1
+
+    def _pipeline_groups(self):
+        """The exchanges the pipelined loop fans over: the (dim, format)
+        groups, or one table each under group_exchange=False (one table's
+        group pulls what its per-table pull does, bit for bit)."""
+        groups = self._exchange_groups()
+        if not self.group_exchange:
+            return [[n] for g in groups for n in g]
+        return groups
+
+    def _prefetch_stream(self):
+        """The side stream the prefetch runs on: a CUDA mesh over NCCL
+        only. A staged or CPU mesh blocks the host at every collective, so
+        it runs the same schedule on the one stream."""
+        if self.device.type != "cuda" or self.mesh.staged:
+            return None
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
+    @torch.no_grad()
+    def _pipeline_prefetch(self, state, ids):
+        """A batch's id plans and speculative rows, a step ahead
+        (`sharded.grouped_prefetch`) -> ({table: plan}, {table: unique
+        rows}, the pull stats as `tables_pull` names them)."""
+        ps = self.model.ps_specs()
+        plans, rows, stats = {}, {}, {}
+        for names in self._pipeline_groups():
+            _, plan_list, rows_list, stats_list = grouped_prefetch(
+                [ps[n] for n in names], [state.tables[n] for n in names],
+                [ids[n] for n in names], mesh=self.mesh,
+                capacity_factor=self.capacity_factor,
+                wire=self.wire_for(names[0]), load_stats=self.shard_stats)
+            for n, plan, r, st in zip(names, plan_list, rows_list,
+                                      stats_list):
+                plans[n], rows[n] = plan, r
+                stats.update({f"{n}/{k}": v for k, v in st.items()})
+        return plans, rows, stats
+
+    @torch.no_grad()
+    def _pipeline_finalize(self, state, ids, plans, rows):
+        """The prefetched pull consumed: the hot overlay and the duplicates'
+        expansion (`sharded.grouped_finalize_pull`) -> {table: rows}."""
+        ps = self.model.ps_specs()
+        pulled = {}
+        for names in self._pipeline_groups():
+            outs = grouped_finalize_pull(
+                [ps[n] for n in names], [state.tables[n] for n in names],
+                [ids[n] for n in names], [plans[n] for n in names],
+                [rows[n] for n in names])
+            pulled.update(zip(names, outs))
+        return pulled
+
+    @torch.no_grad()
+    def _pipeline_patch(self, state, prev_plans, plans, rows):
+        """The next batch's rows repaired after this batch's apply
+        (`sharded.grouped_conflict_patch`; narrow-wire residuals replayed
+        in place) -> ({table: rows}, {table: patched rows this rank sent},
+        members past the cap)."""
+        ps = self.model.ps_specs()
+        patched, conflict = {}, {}
+        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
+        for names in self._pipeline_groups():
+            outs, stats_list = grouped_conflict_patch(
+                [ps[n] for n in names], [state.tables[n] for n in names],
+                [prev_plans[n] for n in names], [plans[n] for n in names],
+                [rows[n] for n in names], mesh=self.mesh,
+                conflict_factor=self.conflict_factor,
+                wire=self.wire_for(names[0]))
+            for n, out, st in zip(names, outs, stats_list):
+                patched[n], conflict[n] = out, st["conflict_rows"]
+                overflow = overflow + st["conflict_overflow"]
+        return patched, conflict, overflow
+
+    def _many(self, state: TrainState, b):
+        """`Trainer._many`, pipelined where `_pipeline_on`."""
+        if not self._pipeline_on():
+            return super()._many(state, b)
+        return self._many_pipelined(state, b)
+
+    def _many_pipelined(self, state: TrainState, b):
+        """The pipelined window, in place:
+
+            prologue  prefetch(b[0])
+            step t    prefetch(b[t+1])    issued first, on the side stream
+                      finalize(b[t])      its rows as batch t's pull
+                      forward, backward, dense apply; the sparse apply
+                      once the prefetch is done (its serve has read the
+                      tables, its stats ride this step's)
+                      patch(b[t+1])
+            last      finalize(b[K-1]), forward, backward, applies
+
+        Batch t+1's pull stats ride step t's (its hash inserts happen in
+        the serial order, and an apply never moves a key, so the plans'
+        slots hold). The side stream waits on the main stream before each
+        prefetch, so a block it allocates is never reused while the main
+        stream still reads the block's last tenant; the main stream waits
+        on the prefetch before the sparse apply, the first work that writes
+        what the prefetch reads or reads what it writes. -> {"loss": (K,),
+        "overflow", "conflict": {table: patched rows summed over the ranks
+        and steps}, "conflict_overflow"}."""
+        model, mesh, dev = self.model, self.mesh, self.device
+        K = b["label"].shape[0]
+        batches = [_transformed(model, _batch_slice(b, k)) for k in range(K)]
+        ids = [self._batch_ids(bt) for bt in batches]
+        side = self._prefetch_stream()
+        main = torch.cuda.current_stream(dev) if side is not None else None
+
+        def overflow_of(stats):
+            total = torch.zeros((), dtype=torch.int32, device=dev)
+            for key, v in stats.items():
+                if key.endswith("_overflow"):
+                    total = total + v
+            return total
+
+        plans, rows, pf_stats = self._pipeline_prefetch(state, ids[0])
+        # the prologue's pull overflow and the patch counters are this
+        # rank's; one sum over the ranks at the end of the window
+        first = overflow_of(pf_stats)
+        conflict = {n: torch.zeros((), dtype=torch.int32, device=dev)
+                    for n in model.ps_specs()}
+        coflow = torch.zeros((), dtype=torch.int32, device=dev)
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        losses = []
+        for t in range(K):
+            ahead = t + 1 < K
+            before_apply = None
+            if ahead and side is not None:
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    nplans, nrows, pf_stats = self._pipeline_prefetch(
+                        state, ids[t + 1])
+                before_apply = lambda: main.wait_stream(side)
+            elif ahead:
+                nplans, nrows, pf_stats = self._pipeline_prefetch(
+                    state, ids[t + 1])
+            pulled = self._pipeline_finalize(state, ids[t], plans, rows)
+            loss, _, stats = self._step_tail(
+                state, batches[t], ids[t], pulled, plans,
+                dict(pf_stats) if ahead else {}, {}, before_apply)
+            losses.append(loss)
+            overflow = overflow + overflow_of(stats)
+            if ahead:
+                nrows, rows_patched, co = self._pipeline_patch(
+                    state, plans, nplans, nrows)
+                for n, c in rows_patched.items():
+                    conflict[n] = conflict[n] + c
+                coflow = coflow + co
+                plans, rows = nplans, nrows
+        names = list(conflict)
+        total = coll.psum(mesh, torch.stack(
+            [first] + [conflict[n] for n in names] + [coflow]))
+        return {"loss": torch.stack(losses), "overflow": overflow + total[0],
+                "conflict": {n: total[1 + i] for i, n in enumerate(names)},
+                "conflict_overflow": total[-1]}
 
     # -- compiled steps -------------------------------------------------------
 

@@ -353,9 +353,10 @@ def trajectory(mesh, cfg):
             "state": convert.train_state_to_jax(state)}
 
 
-def placement_trainer(mesh, cfg, model=None):
+def placement_trainer(mesh, cfg, model=None, **kw):
     """A MeshTrainer of `cfg`'s placement configuration (wire, hot_rows,
-    mig_rows, hot_wire, error_feedback) over `mesh`."""
+    mig_rows, hot_wire, error_feedback) over `mesh`; `kw`: more of its
+    arguments."""
     model = model or deepfm(cfg["vocab"], hashed=cfg["hashed"],
                             capacity=cfg.get("capacity", 0))
     return MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
@@ -364,7 +365,7 @@ def placement_trainer(mesh, cfg, model=None):
                        hot_rows=cfg.get("hot_rows", 0),
                        mig_rows=cfg.get("mig_rows", 0),
                        hot_wire=cfg.get("hot_wire"),
-                       error_feedback=cfg.get("error_feedback"))
+                       error_feedback=cfg.get("error_feedback"), **kw)
 
 
 def place(trainer, state, cfg, k):
@@ -491,3 +492,144 @@ def entry_and_direct(mesh, argv, steps):
         losses.append(float(m["loss"]))
     return {"main": out["losses"].tolist(), "direct": losses,
             "mesh_size": out["trainer"].mesh.size}
+
+
+# -- the pipelined window (`MeshTrainer(pipeline_steps=True)`) ---------------
+
+
+def stack_batches(batches):
+    """K batches -> one whose every leaf has a leading K dim."""
+    if isinstance(batches[0], dict):
+        return {k: stack_batches([b[k] for b in batches]) for k in batches[0]}
+    return np.stack(batches)
+
+
+def flat_state(tree, prefix=""):
+    """A `train_state_to_jax` tree flattened to {path: numpy} (the cache's
+    and the directory's identities, the residuals and the annex too)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_state(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _same_bits(a: dict, b: dict) -> list:
+    """The keys where two flat states differ (empty: equal bit for bit)."""
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return sorted(k for k in a if a[k].dtype != b[k].dtype
+                  or a[k].tobytes() != b[k].tobytes())
+
+
+def pipeline_trainer(mesh, cfg, model):
+    """`placement_trainer` with the pipelined window on (`cfg`'s
+    `conflict_factor`)."""
+    return placement_trainer(mesh, cfg, model, pipeline_steps=True,
+                             conflict_factor=cfg.get("conflict_factor", 0.0))
+
+
+def pipelined_window(mesh, cfg):
+    """One `train_many` window of `cfg["batches"]` on this rank, serial and
+    pipelined, from one state (the JAX MeshTrainer's carried across, or
+    `init`'s) with `cfg`'s placement installed before it. -> which tensors
+    of the two windows' states differ (none: bit-equal, residuals, cache
+    and annex included), whether the losses are equal, both windows'
+    metric keys, the pipelined window's counters, and its losses and state
+    after `hot_sync` in the JAX layout."""
+    model = deepfm(cfg["vocab"], hashed=cfg["hashed"],
+                   capacity=cfg.get("capacity", 0))
+    serial = placement_trainer(mesh, cfg, model)
+    piped = pipeline_trainer(mesh, cfg, model)
+    batches = [local_batch(b, mesh) for b in cfg["batches"]]
+    if "state" in cfg:
+        state = convert.mesh_state_from_jax(cfg["state"], model, mesh.size,
+                                            mesh.rank, device="cpu")
+    else:
+        state = serial.init(batches[0])
+    state = place(serial, state, cfg, 0)
+    ref = state.clone()
+    stacked = stack_batches(batches)
+    ref, rm = serial.train_many(ref, stacked)
+    state, pm = piped.train_many(state, stacked)
+    differ = _same_bits(flat_state(convert.train_state_to_jax(state)),
+                        flat_state(convert.train_state_to_jax(ref)))
+    out = {"differ": differ,
+           "same_losses": bool(torch.equal(pm["loss"], rm["loss"])),
+           "serial_keys": sorted(rm), "pipelined_keys": sorted(pm),
+           "losses": pm["loss"].tolist(), "overflow": int(pm["overflow"]),
+           "serial_overflow": int(rm["overflow"])}
+    if "conflict" in pm:
+        out["conflict"] = {n: int(v) for n, v in pm["conflict"].items()}
+        out["conflict_overflow"] = int(pm["conflict_overflow"])
+    state = piped.hot_sync(state)
+    out["state"] = convert.train_state_to_jax(state)
+    return out
+
+
+def pipelined_windows(mesh, cfgs):
+    return [pipelined_window(mesh, c) for c in cfgs]
+
+
+def pipeline_order(mesh, cfg):
+    """A pipelined window on this rank with its collectives logged, each
+    tagged with the phase that issued it ("prefetch", "dense" for the dense
+    gradients' sum, "push", "metrics", "patch", "window" for the window's
+    counters), and again from the same state with batch 0's labels
+    flipped. -> the log, and whether batch 1's prefetched plan and rows,
+    and its rows after the patch, are equal between the two runs."""
+    from openembedding_tpu_torch.parallel import collectives as coll
+    model = deepfm(cfg["vocab"], hashed=cfg["hashed"])
+    trainer = pipeline_trainer(mesh, cfg, model)
+    batches = [local_batch(b, mesh) for b in cfg["batches"]]
+    state = trainer.init(batches[0])
+    log, phase, seen = [], ["window"], []
+
+    def tagged(name, fn):
+        def call(*a, **kw):
+            saved, phase[0] = phase[0], name
+            try:
+                return fn(*a, **kw)
+            finally:
+                phase[0] = saved
+        return call
+
+    for name in ("all_to_all", "dense_sum"):
+        fn = getattr(coll, name)
+        setattr(coll, name, lambda *a, _n=name, _f=fn, **kw: (
+            log.append((phase[0], _n)), _f(*a, **kw))[1])
+    for attr, name in (("_pipeline_prefetch", "prefetch"),
+                       ("_pipeline_patch", "patch"),
+                       ("reduce_dense_grads", "dense"),
+                       ("tables_apply", "push"),
+                       ("reduce_metrics", "metrics")):
+        setattr(trainer, attr, tagged(name, getattr(trainer, attr)))
+    prefetch, patch = trainer._pipeline_prefetch, trainer._pipeline_patch
+
+    def record_prefetch(*a, **kw):
+        plans, rows, stats = prefetch(*a, **kw)
+        seen.append(("prefetch", plans["categorical"].recv_ids.clone(),
+                     rows["categorical"].clone()))
+        return plans, rows, stats
+
+    def record_patch(*a, **kw):
+        rows, counts, overflow = patch(*a, **kw)
+        seen.append(("patch", rows["categorical"].clone()))
+        return rows, counts, overflow
+
+    trainer._pipeline_prefetch = record_prefetch
+    trainer._pipeline_patch = record_patch
+    flipped = [dict(b) for b in batches]
+    flipped[0]["label"] = 1 - np.asarray(batches[0]["label"])
+    runs = []
+    for bs in (batches, flipped):
+        seen.clear()
+        trainer.train_many(state.clone(), stack_batches(bs))
+        runs.append(list(seen))
+    order = list(log[:len(log) // 2])
+    a, b = runs
+    return {"log": order,
+            "prefetch_equal": all(torch.equal(x, y) for x, y in
+                                  zip(a[1][1:], b[1][1:])),
+            "patched_equal": torch.equal(a[2][1], b[2][1])}
