@@ -198,13 +198,30 @@ final line:
    past its cap; the pipelined window launches the serial one's kernels
    and one readonly gather a body step (two with the annex), and stages
    the serial one's bytes and the patches' (`wire.conflict_patch_cost`)
-   exactly; ms a step of both. The entry point's `--mesh` at one rank on
+   exactly; ms a step of both. mesh4-zero: the same four ranks, table and
+   batch on `case_zero`'s Adam(0.001), 4 eager steps of each
+   configuration of `ZERO_CONFIGS` ((r) replicated, (a) `dense_shard`
+   fp32, (b) bf16, (c) int8, (d) sparse_topk dense wire), each bit-equal
+   to the same steps through the plain versions; (a) bit-equal to (r)
+   (losses and the externalized state) and their sharded saves
+   byte-identical; `set_dense_wire` from (a) to int8 and back, the
+   externalized state unchanged; (c) and (d) saved, loaded into a trainer
+   without ZeRO (equal, one step) and into their own (the residual zero);
+   the pipelined window of 4 with (a) bit-equal to the serial one; every
+   rank launches both kernels; staged bytes a step are (r)'s less its
+   dense sum plus `zero.dense_wire_cost`'s collectives, exactly, and a
+   rank's dense optimizer state `zero.plan_device_bytes` (about 1/4 of
+   (r)'s); ms a step. The entry point's `--mesh` at one rank on
    the TSV: a graph run saved (sharded) after one pass, loaded, 16 steps
    more, held to one uninterrupted plain run. NCCL across cards
    (`jit_train_step` captured; (d) across a `refresh_hot_rows` and a
    `migrate_rows`, one capture, bit-equal to eager; the fp32 windows,
    serial and pipelined, eager and through `jit_train_many`, one capture
-   each, bit-equal, ms a step of each graph) only where the machine has
+   each, bit-equal, ms a step of each graph; ZeRO (a) through
+   `jit_train_step`, one capture, bit-equal, then `set_dense_wire` to
+   int8, one capture more; (c) and (d) through `jit_train_many`,
+   bit-equal) only
+   where the machine has
    two cards or more; otherwise the phase says it did not run;
 13. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
@@ -2644,7 +2661,7 @@ def mesh_placement_rank(mesh, tmp: str):
     out = {"rank": mesh.rank, "runs": []}
     base = None
     for name, kw in PLACE_CONFIGS.items():
-        # a model each: a state's dense module is its model's module
+        # a model each
         trainer = MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
                               optimizers.Adagrad(learning_rate=0.05),
                               mesh=mesh, **kw)
@@ -2977,6 +2994,288 @@ def mesh_pipelined(torch) -> dict:
     return rec
 
 
+ZERO_STEPS = 4            # eager steps of each ZeRO configuration
+ZERO_K = 4                # K of the pipelined ZeRO window and its serial twin
+# name -> MeshTrainer arguments of the ZeRO run (`case_zero`'s Adam)
+ZERO_CONFIGS = {
+    "r replicated": {},
+    "a fp32": dict(dense_shard=True),
+    "b bf16": dict(dense_shard=True, dense_wire="bf16"),
+    "c int8": dict(dense_shard=True, dense_wire="int8"),
+    "d sparse_topk": dict(dense_shard=True, dense_wire="sparse_topk"),
+}
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _dense_slot_bytes(state, zero) -> dict:
+    """A rank's measured bytes of its dense optimizer state: the per-leaf
+    slots, or the flat form's slots, masters and residual apart (the keys
+    of `zero.plan_device_bytes`)."""
+    if not zero.is_sharded_slots(state.dense_slots):
+        return {"replicated_slots": _tensor_bytes(state.dense_slots)}
+    flat = state.dense_slots[zero.ZERO_KEY]
+    extra = {zero.DENSE_EF_KEY: "zero_ef", zero.DENSE_MASTER_KEY:
+             "zero_master"}
+    out = {"zero_slots": sum(_tensor_bytes(v) for k, v in flat.items()
+                             if k not in extra)}
+    out.update({name: _tensor_bytes(flat[k]) for k, name in extra.items()
+                if k in flat})
+    return out
+
+
+def mesh_zero_rank(mesh, tmp: str):
+    """One rank of the ZeRO run (gloo, its tensors on the card): the
+    flagship at 2^22 rows a shard and `case_zero`'s Adam(0.001), each
+    configuration of `ZERO_CONFIGS` for ZERO_STEPS eager steps from its
+    init, bit-equal to the same steps through the plain versions; (a)
+    against (r) bit for bit (losses and the externalized state) and their
+    sharded saves byte-identical; `set_dense_wire` from (a) to int8 and
+    back, the externalized state unchanged; (c) and (d) saved and loaded
+    into a trainer without ZeRO (equal to what was saved, one step) and
+    into one of their own (the residual zero); the pipelined window of
+    ZERO_K with (a) bit-equal to the serial one, and to itself with its
+    prefetch forced onto the side stream. Each configuration's
+    staged bytes a step are (r)'s less the replicated dense sum's plus
+    its own dense collectives', from `zero.dense_wire_cost`, exactly, and
+    its dense optimizer-state bytes `zero.plan_device_bytes`. Returns
+    numpy and plain numbers only."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer, zero
+    from openembedding_tpu_torch.parallel.collectives import barrier
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S = mesh.size
+    check(mesh.staged and S == MESH_STAGED, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=ZERO_STEPS))
+    batches = [local_batch(b, mesh) for b in globals_]
+
+    def trainer_of(**kw):
+        return MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                           optimizers.Adam(learning_rate=0.001), mesh=mesh,
+                           wire="fp32", **kw)
+
+    out = {"rank": mesh.rank, "runs": []}
+    ref = {}
+    for name, kw in ZERO_CONFIGS.items():
+        trainer = trainer_of(**kw)
+        state = trainer.init(batches[0])
+        slot_bytes = _dense_slot_bytes(state, zero)
+        if not out["runs"]:
+            # a process's first step pays its setup (cuBLAS, the first
+            # collectives): one untimed step first
+            trainer.train_step(state.clone(), batches[0])
+        state, losses, launches, ms, staged, cmp = _staged_run(
+            torch, mb, ops, trainer, state, batches)
+        check(np.isfinite(losses).all(), f"{name}: finite losses")
+        rec = {"config": name, "losses": losses.tolist(),
+               "launches": launches, "ms_per_step": ms,
+               "staged_bytes_per_step": staged,
+               "dense_slot_bytes": slot_bytes, **cmp}
+        if trainer.zero_enabled:
+            plan = trainer._zero_plan
+            k = (trainer.dense_topk_for(plan)
+                 if trainer.dense_wire == "sparse_topk" else None)
+            want = zero.plan_device_bytes(
+                plan, ef=trainer.dense_ef_enabled,
+                master=bool(trainer.dense_wire))
+            check(slot_bytes == want, f"{name}: a rank's dense optimizer "
+                  f"state is plan_device_bytes ({slot_bytes}, {want})")
+            rec.update(plan_total=plan.total, plan_chunk=plan.chunk,
+                       plan_padded=plan.padded, topk=k,
+                       plan_device_bytes=want,
+                       dense_wire_cost=zero.dense_wire_cost(
+                           plan, trainer.dense_wire, topk=k))
+        else:
+            plan = zero.build_plan(zero.trainable_leaves(
+                state.dense, state.embeddings), trainer.optimizer, S)
+            rec.update(plan_total=plan.total)
+        if name[0] in "ra":
+            ref[name[0]] = (trainer, state, losses)
+        if name[0] in "cd":
+            rec.update(_zero_reload(torch, mb, trainer, state, trainer_of,
+                                    batches, os.path.join(tmp, name[0]),
+                                    zero, kw))
+        if name[0] == "a":
+            rec.update(_zero_against_replicated(
+                torch, mb, ref, os.path.join(tmp, "saves"), S))
+            rec.update(_zero_switch(torch, mb, trainer, state))
+            del ref["r"]
+        out["runs"].append(rec)
+        del trainer, state
+        torch.cuda.empty_cache()
+    ref.clear()
+    serial, piped = trainer_of(**ZERO_CONFIGS["a fp32"]), trainer_of(
+        pipeline_steps=True, **ZERO_CONFIGS["a fp32"])
+    wb = [local_batch(b, mesh) for b in data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED + 1, steps=ZERO_K)]
+    stacked = _stacked(wb)
+    state = serial.init(wb[0])
+    twin, side = state.clone(), state.clone()
+    twin, sm, s_launches, s_sec, _ = _window(torch, ops, serial, twin,
+                                             stacked)
+    state, pm, p_launches, p_sec, _ = _window(torch, ops, piped, state,
+                                              stacked)
+    losses = pm["loss"].float().cpu().numpy()
+    cmp = _compare(torch, mb, state, losses, twin,
+                   sm["loss"].float().cpu().numpy(),
+                   "zero_pipelined_vs_serial")
+    # the prefetch's side stream, which only NCCL across cards runs,
+    # forced on this staged mesh beside the dense collectives on the main
+    # stream: the same window, bit-equal
+    piped._side = torch.cuda.Stream(mesh.device)
+    piped._prefetch_stream = lambda: piped._side
+    side, sdm = piped.train_many(side, stacked)
+    cmp.update(_compare(torch, mb, state, losses, side,
+                        sdm["loss"].float().cpu().numpy(),
+                        "zero_side_stream"))
+    del twin, side
+    check(int(pm["conflict"]["categorical"]) > 0,
+          "the pipelined ZeRO window patched rows")
+    out["pipelined"] = {"k": ZERO_K, "serial_launches": s_launches,
+                        "launches": p_launches,
+                        "serial_ms_per_step": s_sec * 1e3 / ZERO_K,
+                        "ms_per_step": p_sec * 1e3 / ZERO_K, **cmp}
+    barrier(mesh)
+    return out
+
+
+def _zero_against_replicated(torch, mb, ref, tmp, S) -> dict:
+    """(a) against (r): losses and the externalized state bit-equal, the
+    sharded saves byte-identical (rank 0 compares the files, an .npz by
+    its arrays' bytes; the save returns once every rank has written)."""
+    (tr_r, st_r, l_r), (tr_a, st_a, l_a) = ref["r"], ref["a"]
+    out = _compare(torch, mb, tr_a.externalize(st_a), l_a,
+                   tr_r.externalize(st_r), l_r, "zero_vs_replicated")
+    paths = [os.path.join(tmp, t) for t in ("r", "a")]
+    tr_r.save(st_r, paths[0])
+    tr_a.save(st_a, paths[1])
+    if tr_a.mesh.rank == 0:
+        files = [_save_files(p) for p in paths]
+        check(files[0] == files[1] and bool(files[0]),
+              "the ZeRO save is byte-identical to the replicated one")
+        out["save_files_compared"] = len(files[0])
+        del files
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _zero_switch(torch, mb, trainer, state) -> dict:
+    """`set_dense_wire` from fp32 to int8 and back, in place: the
+    externalized state bit-equal throughout (the masters are the params
+    at the switch), the residual zero after it."""
+    from openembedding_tpu_torch.parallel import zero
+    before = trainer.externalize(state)
+    zeros = np.zeros(1, np.float32)
+    epoch = trainer.graph_epoch
+    check(trainer.set_dense_wire(state, "int8") is state,
+          "set_dense_wire works in place")
+    flat = state.dense_slots[zero.ZERO_KEY]
+    check(not bool(flat[zero.DENSE_EF_KEY].any()),
+          "the int8 residual starts at zero")
+    out = _compare(torch, mb, trainer.externalize(state), zeros, before,
+                   zeros, "switch_to_int8")
+    trainer.set_dense_wire(state, None)
+    check(trainer.graph_epoch == epoch + 2
+          and sorted(state.dense_slots[zero.ZERO_KEY]) == sorted(
+              trainer.optimizer.slot_shapes(1)),
+          "two switches, and the fp32 flat slots back")
+    out.update(_compare(torch, mb, trainer.externalize(state), zeros,
+                        before, zeros, "switch_round_trip"))
+    return out
+
+
+def _zero_reload(torch, mb, trainer, state, trainer_of, batches, path,
+                 zero, kw) -> dict:
+    """A dense wire's state saved, then loaded into a trainer without ZeRO
+    (equal to the saved one externalized, then one step) and into one of
+    its own format (equal again, the residual zero)."""
+    from openembedding_tpu_torch.parallel.collectives import barrier
+    saved = trainer.externalize(state)
+    trainer.save(state, path)
+    zeros = np.zeros(1, np.float32)
+    out = {}
+    for tag, args in (("replicated", {}), ("own", kw)):
+        other = trainer_of(**args)
+        st = other.load(other.init(batches[0]), path)
+        out.update(_compare(torch, mb, other.externalize(st), zeros, saved,
+                            zeros, f"reload_{tag}"))
+        if tag == "own":
+            check(not bool(st.dense_slots[zero.ZERO_KEY][
+                zero.DENSE_EF_KEY].any()), "a loaded residual is zero")
+        else:
+            st, m = other.train_step(st, batches[0])
+            out["reload_replicated_loss"] = float(m["loss"])
+            check(np.isfinite(out["reload_replicated_loss"]),
+                  "a step after the load")
+        del other, st
+    barrier(trainer.mesh)  # every rank has loaded
+    if trainer.mesh.rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def mesh_zero(torch) -> dict:
+    """Four ranks on the one card over gloo: the ZeRO run."""
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-zero-")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_local(mesh_zero_rank, MESH_STAGED, backend="gloo",
+                          device="cuda", args=(tmp,), timeout_s=900,
+                          threads=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"run": "mesh4-zero", "ranks": MESH_STAGED, "steps": ZERO_STEPS,
+           "wall_seconds": time.perf_counter() - t0, "per_rank": ranks}
+    S = MESH_STAGED
+    for i, name in enumerate(ZERO_CONFIGS):
+        runs = [r["runs"][i] for r in ranks]
+        check(all(run["losses"] == runs[0]["losses"] for run in runs),
+              f"{name}: the ranks report one loss")
+        for r, run in zip(ranks, runs):
+            for k in ("gather_rows", "fused_sparse_apply"):
+                check(run["launches"][k] > 0,
+                      f"rank {r['rank']} ({name}) launched {k}")
+    for r in ranks:
+        base = r["runs"][0]
+        rep_bytes = base["dense_slot_bytes"]["replicated_slots"]
+        for run in r["runs"][1:]:
+            # the staged bytes: (r)'s, less its dense sum (an all_gather of
+            # the float32 gradients: total * 4 out, S times that in), plus
+            # this configuration's collectives: the reduce_scatter's or the
+            # encoded all_to_all's buffer out and in, and the params'
+            # all_gather (a chunk out, the whole vector in)
+            cost = run["dense_wire_cost"]
+            want = (base["staged_bytes_per_step"]
+                    - (1 + S) * 4 * base["plan_total"]
+                    + 2 * (cost["rs_bytes"] + cost["a2a_bytes"])
+                    + cost["ag_bytes"] + cost["ag_bytes"] // S)
+            run["staged_bytes_vs_replicated"] = (
+                run["staged_bytes_per_step"] - base["staged_bytes_per_step"])
+            check(run["staged_bytes_per_step"] == want,
+                  f"{run['config']}: staged bytes a step "
+                  f"{run['staged_bytes_per_step']} are the replicated run's "
+                  f"{base['staged_bytes_per_step']} less its dense sum plus "
+                  f"the dense wire's ({want})")
+            run["dense_slot_bytes_cut"] = (
+                rep_bytes / run["dense_slot_bytes"]["zero_slots"])
+        a = r["runs"][1]
+        check(a["dense_slot_bytes_cut"] > 0.9 * S,
+              f"ZeRO holds about 1/{S} of the replicated dense optimizer "
+              f"state ({a['dense_slot_bytes_cut']})")
+    return rec
+
+
 def mesh_entry(torch, mb, ops, tsv: str) -> dict:
     """The entry point's `--mesh` at one rank on the seeded TSV: a graph
     run saved after one pass, then loaded and run 16 steps more, held to
@@ -3060,15 +3359,18 @@ def mesh_nccl_rank(mesh, steps):
                         losses, "graph_vs_eager"))
     placed = nccl_placement(torch, mb, ops, mesh, batches)
     piped = nccl_pipelined(torch, mb, ops, mesh, batches)
+    zeroed = nccl_zero(torch, mb, ops, mesh, batches)
     for k in KERNELS:
         launches[k] += placed["launches"][k] + sum(
-            piped["eager_launches"][n][k] for n in piped["eager_launches"])
+            piped["eager_launches"][n][k] for n in piped["eager_launches"]) \
+            + zeroed["launches"][k]
         ran[k] += placed["graph_launches"][k] + sum(
-            piped["graph_launches"][n][k] for n in piped["graph_launches"])
+            piped["graph_launches"][n][k] for n in piped["graph_launches"]) \
+            + zeroed["graph_launches"][k]
     return {"rank": mesh.rank, "eager_ms_per_step": ms,
             "graph_ms_per_step": graph_ms, "launches": launches,
             "graph_launches": ran, "placement": placed,
-            "pipelined": piped, **cmp}
+            "pipelined": piped, "zero": zeroed, **cmp}
 
 
 def nccl_placement(torch, mb, ops, mesh, batches) -> dict:
@@ -3163,9 +3465,8 @@ def nccl_pipelined(torch, mb, ops, mesh, batches) -> dict:
                         eager["serial"][1], "nccl_pipelined_vs_serial"))
     ran = {}
     for name, tr in trainers.items():
-        # the same start (a clone: every init of a model shares its dense
-        # module); the graph's first call is its warm-up window and
-        # capture, the second its first replay
+        # the same start; the graph's first call is its warm-up window
+        # and capture, the second its first replay
         st = start.clone()
         many = tr.jit_train_many()
         ops.reset_launch_counts()
@@ -3196,10 +3497,138 @@ def nccl_pipelined(torch, mb, ops, mesh, batches) -> dict:
     return out
 
 
+def nccl_zero(torch, mb, ops, mesh, batches) -> dict:
+    """ZeRO over NCCL across cards: (a) fp32 through `jit_train_step`,
+    captured once and bit-equal to eager; then `set_dense_wire` to int8 on
+    the graph's state, which makes the step capture exactly once more;
+    (c) int8 and (d) sparse_topk (its stable sort captured) through
+    `jit_train_many` (two windows of the batches, one capture each),
+    bit-equal to eager windows; (a) pipelined (`pipeline_steps=True`, the
+    prefetch's collectives on the side stream beside the dense ones on
+    the main stream): two eager windows bit-equal to the serial ones,
+    then through `jit_train_many`, captured once and bit-equal."""
+    from openembedding_tpu_torch import optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+
+    def trainer_of(**kw):
+        return MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                           optimizers.Adam(learning_rate=0.001), mesh=mesh,
+                           wire="fp32", **kw)
+
+    out, launches, ran = {}, {k: 0 for k in KERNELS}, {k: 0
+                                                      for k in KERNELS}
+    tr = trainer_of(**ZERO_CONFIGS["a fp32"])
+    state = tr.init(batches[0])
+    graph_state = state.clone()
+    ops.reset_launch_counts()
+    losses = []
+    for b in batches:
+        state, m = tr.train_step(state, b)
+        losses.append(m["loss"].clone())
+    counted = _mesh_launches(ops.launch_counts())
+    step = tr.jit_train_step()
+    ops.reset_launch_counts()
+    graph_losses = []
+    for b in batches:
+        graph_state, m = step(graph_state, b)
+        graph_losses.append(m["loss"].clone())
+    rec = graph_record(step)
+    got = ran_launches(_mesh_launches(ops.launch_counts()), [rec])
+    out.update(_compare(torch, mb, graph_state,
+                        torch.stack(graph_losses).cpu().numpy(), state,
+                        torch.stack(losses).cpu().numpy(),
+                        "nccl_zero_graph_vs_eager"))
+    tr.set_dense_wire(graph_state, "int8")
+    ops.reset_launch_counts()
+    for b in batches[:2]:
+        graph_state, m = step(graph_state, b)
+    check(step.captures == 2 and step.replays == len(batches),
+          f"set_dense_wire made the step capture once more ({step.captures}"
+          f" captures, {step.replays} replays)")
+    check(bool(torch.isfinite(m["loss"])), "a finite int8 loss")
+    after = graph_record(step)
+    out["switch_graph"] = after
+    counted2 = _mesh_launches(ops.launch_counts())
+    for k in KERNELS:
+        launches[k] += counted[k]
+        # the switch's two calls: a warm-up step and a capture, which runs
+        # nothing, then a replay
+        ran[k] += got[k] + counted2[k] - (
+            after["launches_captured"].get(k, 0)
+            - rec["launches_captured"].get(k, 0)) + (
+            after["launches_replayed"].get(k, 0)
+            - rec["launches_replayed"].get(k, 0))
+    del tr, state, graph_state, step
+    for name in ("c int8", "d sparse_topk"):
+        tr = trainer_of(**ZERO_CONFIGS[name])
+        stacked = _stacked(batches)
+        state = tr.init(batches[0])
+        graph_state = state.clone()
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(2):
+            state, m = tr.train_many(state, stacked)
+            losses.append(m["loss"].float().clone())
+        counted = _mesh_launches(ops.launch_counts())
+        many = tr.jit_train_many()
+        ops.reset_launch_counts()
+        graph_losses = []
+        for _ in range(2):
+            graph_state, m = many(graph_state, stacked)
+            graph_losses.append(m["loss"].float().clone())
+        rec = graph_record(many)
+        got = ran_launches(_mesh_launches(ops.launch_counts()), [rec])
+        tag = name.split()[1]
+        out.update(_compare(torch, mb, graph_state,
+                            torch.cat(graph_losses).cpu().numpy(), state,
+                            torch.cat(losses).cpu().numpy(),
+                            f"nccl_zero_{tag}_graph_vs_eager"))
+        out[f"{tag}_graph"] = rec
+        for k in KERNELS:
+            launches[k] += counted[k]
+            ran[k] += got[k]
+        del tr, state, graph_state, many
+    stacked = _stacked(batches)
+    trainers = {"serial": trainer_of(**ZERO_CONFIGS["a fp32"]),
+                "pipelined": trainer_of(pipeline_steps=True,
+                                        **ZERO_CONFIGS["a fp32"])}
+    start = trainers["serial"].init(batches[0])
+    eager = {}
+    ops.reset_launch_counts()
+    for name, tr in trainers.items():
+        st, losses = start.clone(), []
+        for _ in range(2):
+            st, m = tr.train_many(st, stacked)
+            losses.append(m["loss"].float().clone())
+        eager[name] = (st, torch.cat(losses).cpu().numpy())
+    counted = _mesh_launches(ops.launch_counts())
+    out.update(_compare(torch, mb, *eager["pipelined"], *eager["serial"],
+                        "nccl_zero_pipelined_vs_serial"))
+    many = trainers["pipelined"].jit_train_many()
+    st, graph_losses = start.clone(), []
+    ops.reset_launch_counts()
+    for _ in range(2):
+        st, m = many(st, stacked)
+        graph_losses.append(m["loss"].float().clone())
+    rec = graph_record(many)
+    got = ran_launches(_mesh_launches(ops.launch_counts()), [rec])
+    out.update(_compare(torch, mb, st, torch.cat(graph_losses).cpu().numpy(),
+                        *eager["pipelined"],
+                        "nccl_zero_pipelined_graph_vs_eager"))
+    out["pipelined_graph"] = rec
+    for k in KERNELS:
+        launches[k] += counted[k]
+        ran[k] += got[k]
+    del trainers, start, eager, st, many
+    out["launches"], out["graph_launches"] = launches, ran
+    return out
+
+
 def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
                array_graph: dict) -> dict:
     """The mesh path (`openembedding_tpu_torch.parallel`): mesh1, the staged
-    four-rank runs (plain, placement, pipelined), the entry point's
+    four-rank runs (plain, placement, pipelined, ZeRO), the entry point's
     --mesh, and NCCL across cards where the machine has them -> {kernel:
     launches of the phase}."""
     t0 = time.perf_counter()
@@ -3214,6 +3643,9 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
     torch.cuda.empty_cache()
     pipelined = mesh_pipelined(torch)
     emit({"phase": "mesh", **pipelined})
+    torch.cuda.empty_cache()
+    zeroed = mesh_zero(torch)
+    emit({"phase": "mesh", **zeroed})
     torch.cuda.empty_cache()
     entry = mesh_entry(torch, mb, ops, tsv)
     emit({"phase": "mesh", **entry})
@@ -3231,6 +3663,11 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
         for run in rank["runs"]:
             for k in KERNELS:
                 launches[k] += run["serial_launches"][k] + run["launches"][k]
+    for rank in zeroed["per_rank"]:
+        for k in KERNELS:
+            launches[k] += sum(run["launches"][k] for run in rank["runs"]) \
+                + rank["pipelined"]["serial_launches"][k] \
+                + rank["pipelined"]["launches"][k]
     cards = torch.cuda.device_count()
     if cards >= 2:
         from openembedding_tpu_torch.parallel.multihost import run_local

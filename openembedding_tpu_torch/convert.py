@@ -11,6 +11,12 @@ the content of a checkpoint's `dense_slots.npz`) of (1, size) rows: a
 kernel's slot row is laid out like the flax kernel flattened, so it is
 transposed on the way like the kernel it belongs to.
 
+A ZeRO mesh state's dense slots (`parallel/zero.py`) travel in their flat
+form, `__zero__/<slot>` (the JAX MeshTrainer's `dense_slots["__zero__"]`):
+a vector slot, the masters and the residual as rank blocks of the JAX
+global arrays, a (1, 1) scalar slot replicated (`mesh_state_from_jax`,
+`mesh_state_to_jax`).
+
 sparse_as_dense tables travel in the dense params under
 `__embeddings__/<name>` (rows, dim), and their slots as
 `__embeddings__/<name>/<slot>` (1, rows * dim) rows, row-major in both
@@ -30,10 +36,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Param
+from .layers import Param, unmaterialized_copy
 from .model import SAD_SCOPE
 
 _SAD_PREFIX = SAD_SCOPE + "/"
+
+
+def _zero():
+    """`parallel/zero.py`, which names the ZeRO flat form (`__zero__/<slot>`
+    here); imported on use, as it imports this module on use."""
+    from .parallel import zero
+    return zero
 
 
 def _flax_dense(module: nn.Module):
@@ -50,7 +63,13 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
     the CPU for a module with no parameters yet). Every key must name a
     layer of the module, or a sparse_as_dense table (`__embeddings__/
     <name>`), which the module does not hold: those are returned, {name:
-    table}. Layers with no key stay as they are."""
+    table}. Layers with no key stay as they are. A module whose flax names
+    depend on its inputs (DCN's and DLRM's, with or without dense
+    features) reads its layout off the names first (`set_flax_layout`):
+    it may never have run."""
+    set_layout = getattr(module, "set_flax_layout", None)
+    if set_layout is not None:
+        set_layout(list(flat))
     layers = _flax_dense(module)
     by_layer: Dict[str, Dict[str, np.ndarray]] = {}
     sad = {}
@@ -121,7 +140,7 @@ def tables_from_numpy(arrays: Mapping[str, np.ndarray], *, device
     return out
 
 
-def _flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
+def flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
     """torch parameter name -> (flax param name, is a kernel)."""
     path_of = {id(layer): path for path, layer in _flax_dense(module).items()}
     out = {}
@@ -154,9 +173,14 @@ def dense_slots_to_flax(module: nn.Module,
                         slots: Mapping[str, Mapping[str, torch.Tensor]]
                         ) -> Dict[str, np.ndarray]:
     """{torch param name or `__embeddings__/<name>`: {slot: (1, size)}} ->
-    flat flax-named numpy rows."""
+    flat flax-named numpy rows; a ZeRO rank's flat form {`__zero__`: {slot:
+    array}} -> `__zero__/<slot>` as it is."""
+    zero = _zero()
+    if zero.is_sharded_slots(slots):
+        return {f"{zero.ZERO_KEY}/{k}": v.detach().cpu().numpy()
+                for k, v in slots[zero.ZERO_KEY].items()}
     out = {}
-    for pname, (fname, is_kernel) in _flax_leaves(module).items():
+    for pname, (fname, is_kernel) in flax_leaves(module).items():
         shape = tuple(module.get_parameter(pname).shape)
         for sname, row in slots[pname].items():
             out[f"{fname}/{sname}"] = _relayout(
@@ -171,7 +195,13 @@ def dense_slots_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module,
                           *, device) -> Dict[str, Dict[str, torch.Tensor]]:
     """Flat flax-named slot rows -> {torch param name: {slot: tensor}} for
     every parameter of the (materialized) module, and {`__embeddings__/
-    <name>`: {slot: tensor}} for every sparse_as_dense table in `flat`."""
+    <name>`: {slot: tensor}} for every sparse_as_dense table in `flat`.
+    ZeRO flat slots (`__zero__/<slot>`) -> {`__zero__`: {slot: tensor}}."""
+    key = _zero().ZERO_KEY
+    if any(k.startswith(key + "/") for k in flat):
+        return {key: {k[len(key) + 1:]: torch.tensor(
+            np.asarray(v, np.float32), device=device)
+            for k, v in flat.items()}}
     by_param: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in flat.items():
         param, _, slot = key.rpartition("/")
@@ -179,7 +209,7 @@ def dense_slots_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module,
     out = {key: {sname: torch.tensor(row, device=device)
                  for sname, row in rows.items()}
            for key, rows in by_param.items() if key.startswith(_SAD_PREFIX)}
-    for pname, (fname, is_kernel) in _flax_leaves(module).items():
+    for pname, (fname, is_kernel) in flax_leaves(module).items():
         shape = tuple(module.get_parameter(pname).shape)
         out[pname] = {
             sname: torch.tensor(_relayout(row, shape, is_kernel,
@@ -201,8 +231,7 @@ def table_to_numpy(t: torch.Tensor) -> np.ndarray:
 def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
                          dense_params: Mapping[str, np.ndarray],
                          dense_slots: Mapping[str, np.ndarray],
-                         step: int = 0, model_version: int = 0, device
-                         ):
+                         step: int = 0, model_version: int = 0, device):
     """A `TrainState` on `device` from the JAX package's state as numpy:
     `tables` {name: {"weights": (rows, dim), "slots": {slot: (rows, w)}}},
     a hash table's also with "keys" (either layout) and "overflow", flat
@@ -210,16 +239,19 @@ def train_state_from_jax(model, *, tables: Mapping[str, Mapping],
     their slots under `__embeddings__/`). A table's "ef" (rows, dim), "hot"
     {keys, rank, ids, weights, slots} and "mig" {keys, rank, ids, owners,
     weights, slots} come across where given (the mesh's placement state,
-    single-lane probe keys). The model's
-    dense module takes the parameters and becomes the state's."""
+    single-lane probe keys). The parameters load into a dense module of
+    the state's own (a copy of the model's, `layers.unmaterialized_copy`).
+    ZeRO flat dense slots (`__zero__/<slot>`) stay flat."""
     from .embedding import EmbeddingTableState
     from .model import TrainState
-    module = model.module
+    module = unmaterialized_copy(model.module)
     sad = dense_from_flax(dense_params, module)
     module.to(device)
     out_tables = {}
     for name, t in tables.items():
-        weights = np.asarray(t["weights"])
+        # a copy: the state updates its tensors in place, and a CPU tensor
+        # made from numpy would share the caller's array
+        weights = np.array(t["weights"])
         slots = {k: np.asarray(v, np.float32) for k, v in t["slots"].items()}
         keys = overflow = None
         if t.get("keys") is not None:
@@ -300,14 +332,27 @@ def _single_lane(keys: np.ndarray, weights: np.ndarray, slots):
     return out, move(weights), {k: move(v) for k, v in slots.items()}
 
 
-def train_state_to_jax(state) -> Dict:
+def train_state_to_jax(state, *, rank_local: bool = False) -> Dict:
     """The state as numpy in the JAX package's layout: {"step",
     "model_version", "tables": {name: {"weights", "slots"}, with "keys"
     (int64, single-lane) and "overflow" for a hash table, and "ef", "hot"
     and "mig" where the table has them}, "dense_params":
     flat flax names, "dense_slots": flat flax names}. Every array is a
     copy: the train step updates the state's tensors in place, and a CPU
-    tensor's `.numpy()` shares its memory."""
+    tensor's `.numpy()` shares its memory.
+
+    A ZeRO rank's flat dense slots are this rank's part of a mesh state
+    only: they are refused unless `rank_local` (the form
+    `mesh_state_to_jax` assembles); `MeshTrainer.externalize` gives the
+    per-leaf form."""
+    zero = _zero()
+    if zero.is_sharded_slots(state.dense_slots) and not rank_local:
+        raise ValueError(
+            "the state's dense slots are in the ZeRO flat form "
+            f"({zero.ZERO_KEY!r}), one rank's chunks: externalize it first "
+            "(MeshTrainer.externalize), or pass rank_local=True for "
+            "mesh_state_to_jax")
+
     def copies(flat):
         return {k: np.array(v, copy=True) for k, v in flat.items()}
 
@@ -341,11 +386,24 @@ def mesh_state_from_jax(jax_state: Mapping, model, num_shards: int,
     arguments of `train_state_from_jax`, each table's arrays global and
     shard-major, (S * rows_per_shard, ...)): rows `[r*rps, (r+1)*rps)` of
     every table array (the residuals "ef" and the migration annex too),
-    and the replicated dense params, slots, hot caches and directories."""
+    and the replicated dense params, slots, hot caches and directories.
+    ZeRO flat dense slots (`__zero__/<slot>`): rank r's block of a vector
+    slot (1, S*C), of the residual (1, S*padded) and of the masters
+    (1, padded); a (1, 1) scalar slot replicated."""
     def shard(a):
         a = np.asarray(a)
         rps = a.shape[0] // num_shards
         return a[rank * rps:(rank + 1) * rps]
+
+    zero = _zero()
+    prefix = zero.ZERO_KEY + "/"
+
+    def dense_slot(key, a):
+        if not (key.startswith(prefix)
+                and zero.is_rank_block(key[len(prefix):], np.shape(a))):
+            return a
+        w = np.shape(a)[1] // num_shards
+        return np.asarray(a)[:, rank * w:(rank + 1) * w]
 
     tables = {}
     for name, t in jax_state["tables"].items():
@@ -363,18 +421,30 @@ def mesh_state_from_jax(jax_state: Mapping, model, num_shards: int,
                                     in t["mig"]["slots"].items()}}
         tables[name] = out
     rest = {k: v for k, v in jax_state.items() if k != "tables"}
+    rest["dense_slots"] = {k: dense_slot(k, v)
+                           for k, v in jax_state["dense_slots"].items()}
     return train_state_from_jax(model, tables=tables, device=device, **rest)
 
 
 def mesh_state_to_jax(rank_states) -> Dict:
     """The inverse of `mesh_state_from_jax`: the ranks' states (in rank
-    order, each as `train_state_to_jax` gives it on its rank) as one state
-    in the JAX MeshTrainer's layout, every table array assembled
-    shard-major in rank order (the residuals and the migration annex
-    too), the dense params, slots, counters, hot caches and directories
+    order, each as `train_state_to_jax` gives it on its rank,
+    `rank_local=True` for a ZeRO state) as one state in the JAX
+    MeshTrainer's layout, every table array assembled shard-major in rank
+    order (the residuals and the migration annex too), the dense params,
+    slots, counters, hot caches and directories rank 0's; ZeRO flat slots
+    concatenated along their columns in rank order, a (1, 1) scalar slot
     rank 0's."""
     parts = list(rank_states)
     out = dict(parts[0])
+    out["dense_slots"] = {}
+    zero = _zero()
+    prefix = zero.ZERO_KEY + "/"
+    for k, v in parts[0]["dense_slots"].items():
+        if k.startswith(prefix) and zero.is_rank_block(k[len(prefix):],
+                                                       v.shape):
+            v = np.concatenate([p["dense_slots"][k] for p in parts], axis=1)
+        out["dense_slots"][k] = v
     out["tables"] = {}
     for name, t in parts[0]["tables"].items():
         every = [p["tables"][name] for p in parts]

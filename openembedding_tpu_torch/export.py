@@ -29,6 +29,7 @@ from .checkpoint import MODEL_META_FILE
 from .convert import dense_from_flax, dense_to_flax, tables_from_numpy
 from .device import resolve_device
 from .embedding import serve_rows
+from .layers import unmaterialized_copy
 from .meta import ModelMeta, ModelVariableMeta
 from .model import EmbeddingModel, TrainState, WeightsState, attach_ids
 from .ops import gather
@@ -100,8 +101,17 @@ def export_standalone(state: Union[WeightsState, TrainState],
     Weights only (no optimizer slots). A hash table writes its resident
     ids sorted (`ids.npy`) and their rows (fresh weights from
     `init_weights` hold no id). A sparse_as_dense table is written as a
-    plain array table, and served like one."""
+    plain array table, and served like one. A ZeRO mesh state whose params
+    are the dense wire's bfloat16 carrier is refused: write
+    `MeshTrainer.externalize(state)`, which holds the masters."""
     from .checkpoint import compact_hash_table
+    from .parallel import zero
+    if isinstance(state, TrainState) and zero.DENSE_MASTER_KEY in \
+            state.dense_slots.get(zero.ZERO_KEY, {}):
+        raise ValueError(
+            "the state's dense params are the dense wire's bfloat16 carrier "
+            "(its float32 masters are in the ZeRO slots): export "
+            "MeshTrainer.externalize(state)")
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
@@ -155,10 +165,12 @@ class StandaloneModel:
     table and the dense module on `self.device`."""
 
     def __init__(self, meta: ModelMeta, tables: Dict[str, dict],
-                 model: Optional[EmbeddingModel], device: torch.device):
+                 model: Optional[EmbeddingModel], device: torch.device,
+                 dense: Optional[torch.nn.Module] = None):
         self.meta = meta
         self._tables = tables      # name -> {kind, weights, dim, [ids]}
         self.model = model         # None if no config recipe and none given
+        self.dense = dense         # the export's dense module (model's copy)
         self.device = device
         self.step = 0
         self.model_version = 0
@@ -167,8 +179,9 @@ class StandaloneModel:
     def load(cls, path: str, model: Optional[EmbeddingModel] = None,
              device=None) -> "StandaloneModel":
         """Load an export onto `device` (None = the CUDA card; raises when
-        there is none). A `model` passed in has its dense module's weights
-        replaced by the export's."""
+        there is none). The export's dense weights load into a copy of the
+        model's dense module (`self.dense`); `model.module` stays as it
+        is."""
         device = resolve_device(device)
         with open(os.path.join(path, MODEL_META_FILE)) as f:
             raw_meta = f.read()
@@ -192,11 +205,13 @@ class StandaloneModel:
             else:
                 entry["kind"] = "array"
             tables[v.storage_name] = entry
+        dense = None
         if model is not None:
             z = np.load(os.path.join(path, "dense_params.npz"))
-            dense_from_flax({k: z[k] for k in z.files}, model.module)
-            model.module.to(device).eval()
-        out = cls(meta, tables, model, device)
+            dense = unmaterialized_copy(model.module)
+            dense_from_flax({k: z[k] for k in z.files}, dense)
+            dense.to(device).eval()
+        out = cls(meta, tables, model, device, dense)
         out.step = int(extra.get("step", 0))
         out.model_version = int(extra.get("model_version", 0))
         return out
@@ -262,5 +277,5 @@ class StandaloneModel:
         if dense is not None:
             dense = torch.from_numpy(np.ascontiguousarray(dense)).to(
                 self.device)
-        out = self.model.module(embedded, dense)
+        out = self.dense(embedded, dense)
         return out[:n]

@@ -15,6 +15,7 @@ kernel and the bias are cast to `compute_dtype`; the product is rounded to
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -118,6 +119,17 @@ class Param(nn.Module):
             raise ValueError(f"Param holds shape {tuple(self.value.shape)}, "
                              f"its use needs {shape}")
         return self.value
+
+
+def unmaterialized_copy(module: nn.Module) -> nn.Module:
+    """A deep copy of `module` whose `Dense` and `Param` layers hold no
+    parameters, so that `materialize` draws them anew; `module` itself is
+    left as it is, materialized or not. Any other tensor of the module is
+    copied: the copy shares none with `module`."""
+    memo = {id(p): None for m in module.modules()
+            if isinstance(m, (Dense, Param))
+            for p in m.parameters(recurse=False)}
+    return copy.deepcopy(module, memo)
 
 
 @torch.no_grad()

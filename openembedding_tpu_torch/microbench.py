@@ -184,8 +184,8 @@ def state_bits(state) -> Dict[str, torch.Tensor]:
                             for k, v in part.slots.items()})
     for pname, p in dense_leaves(state.dense, state.embeddings):
         out[f"dense/{pname}"] = p.detach()
-        out.update({f"dense/{pname}/{k}": v
-                    for k, v in state.dense_slots[pname].items()})
+    for pname, slots in state.dense_slots.items():  # or the ZeRO flat form
+        out.update({f"dense/{pname}/{k}": v for k, v in slots.items()})
     return out
 
 

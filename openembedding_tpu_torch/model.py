@@ -37,7 +37,7 @@ from .device import resolve_device
 from .embedding import (Embedding, EmbeddingSpec, EmbeddingTableState,
                         apply_gradients, combine, init_table,
                         init_table_state, lookup, lookup_train)
-from .layers import materialize
+from .layers import materialize, unmaterialized_copy
 from .ops.sparse import (lookup_rows, lookup_rows_trainable, pack_table,
                          packed_layout, sparse_apply_packed_table,
                          unpack_table)
@@ -196,11 +196,15 @@ def _transformed(model: "EmbeddingModel", batch) -> Dict[str, Any]:
 
 def _materialize_dense(model: EmbeddingModel, tables: Dict[str, torch.Tensor],
                        sample_batch, seed: int, device) -> nn.Module:
-    """Create the dense module's parameters on `device` from one forward
-    pass over `sample_batch` (already transformed), drawing from a
-    generator seeded from `seed`. `tables` holds every variable's weights,
-    sparse_as_dense ones included. A hash table holds no id yet, so its
-    rows are zeros, as the JAX package's init feeds them."""
+    """A dense module of its own on `device`: a copy of `model.module`
+    (`layers.unmaterialized_copy`, so the model's module stays the template
+    whether or not something materialized it) whose parameters are created
+    from one forward pass over `sample_batch` (already transformed),
+    drawing from a generator seeded from `seed`. Every call returns a new
+    module, as every JAX `init` returns new parameters. `tables` holds
+    every variable's weights, sparse_as_dense ones included. A hash table
+    holds no id yet, so its rows are zeros, as the JAX package's init feeds
+    them."""
     embedded = {}
     for name, spec in model.specs.items():
         ids = _to_device(sample_batch["sparse"][spec.feature_name], device)
@@ -216,9 +220,9 @@ def _materialize_dense(model: EmbeddingModel, tables: Dict[str, torch.Tensor],
         dense = _to_device(dense, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model.module.to(device)
-    materialize(model.module, embedded, dense, generator=gen)
-    return model.module
+    module = unmaterialized_copy(model.module).to(device)
+    materialize(module, embedded, dense, generator=gen)
+    return module
 
 
 def init_weights(model: EmbeddingModel, sample_batch, *, seed: int = 0,
@@ -248,8 +252,9 @@ class TrainState:
     """All training state: the step counters, the dense module (holding its
     parameters), the sparse_as_dense tables `embeddings` {name: (rows,
     dim)}, the dense optimizer slots {parameter name or
-    `__embeddings__/<name>`: {slot: (1, size) float32}} and the other
-    tables {name: EmbeddingTableState}.
+    `__embeddings__/<name>`: {slot: (1, size) float32}} (or, on a ZeRO
+    mesh, their flat form {`parallel.zero.ZERO_KEY`: {slot: this rank's
+    chunk}}) and the other tables {name: EmbeddingTableState}.
 
     The train step updates the tensors in place, the port's counterpart of
     the JAX package donating its state to the jitted step: a state passed to
@@ -290,25 +295,35 @@ def init_dense_slots(optimizer: SparseOptimizer, module: nn.Module,
             for name, p in dense_leaves(module, embeddings)}
 
 
+def dense_grads(module: nn.Module, embeddings: Dict[str, torch.Tensor],
+                sad_leaves: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """{slot key: gradient} of every dense leaf, in `dense_leaves` order:
+    each parameter's `.grad`, each sparse_as_dense table's autograd leaf's
+    (`sad_leaves[name]`), zeros where a leaf got none (as every leaf gets
+    one in the JAX package)."""
+    grads = {sad_key(n): leaf.grad for n, leaf in sad_leaves.items()}
+    out = {}
+    for name, p in dense_leaves(module, embeddings):
+        g = grads[name] if name in grads else p.grad
+        out[name] = torch.zeros_like(p) if g is None else g
+    return out
+
+
 @torch.no_grad()
 def dense_apply(optimizer: SparseOptimizer, module: nn.Module,
                 slots: Dict[str, Dict[str, torch.Tensor]],
-                embeddings: Optional[Dict[str, torch.Tensor]] = None,
-                embedding_grads: Optional[Dict[str, torch.Tensor]] = None
-                ) -> None:
-    """The dense update, in place: each parameter from its `.grad`, each
-    sparse_as_dense table from `embedding_grads[name]`. A leaf runs through
-    the sparse rule as a 1-row table with count 1, in float32, and is cast
-    back to its dtype; a table's rows without a gradient take the rule too,
-    as in the JAX package. A leaf without a gradient takes a zero gradient,
-    as every leaf does there. Leaves and slots keep their tensors (new
-    values are copied in), so a captured step that replays reads this
-    step's values."""
-    grads = {sad_key(n): g for n, g in (embedding_grads or {}).items()}
+                embeddings: Optional[Dict[str, torch.Tensor]],
+                grads: Dict[str, torch.Tensor]) -> None:
+    """The dense update, in place: each leaf from `grads[slot key]`
+    (`dense_grads`, zeros for a leaf without a gradient, as every leaf
+    takes one in the JAX package). A leaf runs through the sparse rule as a
+    1-row table with count 1, in float32, and is cast back to its dtype; a
+    table's rows without a gradient take the rule too, as in the JAX
+    package. Leaves and slots keep their tensors (new values are copied
+    in), so a captured step that replays reads this step's values."""
     for name, p in dense_leaves(module, embeddings):
-        g = grads[name] if name in grads else p.grad
-        if g is None:
-            g = torch.zeros_like(p)
+        g = grads[name]
         ones = torch.ones(1, dtype=torch.int32, device=p.device)
         new_p, new_slots = optimizer.apply(
             p.reshape(1, -1).float(), slots[name],
@@ -338,17 +353,25 @@ def _batch_key(tree):
     return a.shape, str(a.dtype)
 
 
+def _tensors_of(tree) -> List[torch.Tensor]:
+    """Every tensor of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors_of(tree[k])]
+    return [tree]
+
+
 def _state_key(state: TrainState) -> tuple:
     """Which tensors a captured graph reads and writes: the address of every
     table, slot, placement and residual tensor, dense parameter and dense
-    slot of the state. Loading a checkpoint rebinds some of them, and a
-    graph would then update the old ones."""
+    slot of the state (per leaf, or the ZeRO flat slots with their masters
+    and residual). Loading a checkpoint rebinds some of them, and a graph
+    would then update the old ones."""
     ptrs = []
     for ts in state.tables.values():
         ptrs += [t.data_ptr() for t in ts.tensors()]
-    for name, p in dense_leaves(state.dense, state.embeddings):
-        ptrs += [p.data_ptr()] + [v.data_ptr()
-                                  for v in state.dense_slots[name].values()]
+    ptrs += [p.data_ptr() for _, p in dense_leaves(state.dense,
+                                                    state.embeddings)]
+    ptrs += [v.data_ptr() for v in _tensors_of(state.dense_slots)]
     return tuple(ptrs)
 
 
@@ -532,12 +555,28 @@ class Trainer:
                                 ids[name], grads[name], slot=plans[name])
         return {}
 
-    def reduce_dense_grads(self, state: TrainState,
-                           sad_leaves: Dict[str, torch.Tensor]) -> None:
-        """Reduce the dense gradients in place before the dense apply: the
-        parameters' `.grad` and the sparse_as_dense leaves'. Nothing to do
-        on one device."""
-        del state, sad_leaves
+    def dense_grad_stats(self, grads: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+        """Stats read off the dense gradients before their reduce (`grads`:
+        `dense_grads`'s); they ride the step's stats. None on one device
+        (`parallel.MeshTrainer(dense_stats=True)` gives
+        `dense/grad_density`)."""
+        del grads
+        return {}
+
+    def reduce_dense_grads(self, grads: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+        """The dense gradients (`dense_grads`'s) reduced for the dense
+        apply. As they are on one device."""
+        return grads
+
+    def dense_update(self, state: TrainState,
+                     grads: Dict[str, torch.Tensor]) -> None:
+        """The dense optimizer update, in place, from the reduced gradients
+        (`dense_grads`'s): `dense_apply` on every leaf. A ZeRO
+        `parallel.MeshTrainer` replaces it with the sharded update."""
+        dense_apply(self.optimizer, state.dense, state.dense_slots,
+                    state.embeddings, grads)
 
     def reduce_module_state(self, module: nn.Module) -> None:
         """Frozen state that the forward pass updates (none in the port's
@@ -556,8 +595,9 @@ class Trainer:
         return state
 
     def externalize(self, state: TrainState) -> TrainState:
-        """The state as a snapshot writer sees it: `hot_sync`'s (the port
-        has no ZeRO-sharded dense slots)."""
+        """The state as a snapshot writer sees it: `hot_sync`'s. One device
+        holds no sharded dense slots; a ZeRO `parallel.MeshTrainer` also
+        unshards them (`dense_to_replicated`)."""
         return self.hot_sync(state)
 
     # -- steps ---------------------------------------------------------------
@@ -574,11 +614,11 @@ class Trainer:
         state holds the packed array. A hash table probes once a step: its
         push takes the slots its pull found, as the keys do not change
         between them. The pull and the push go through `tables_pull` and
-        `tables_apply`, the dense gradients through `reduce_dense_grads`,
-        the loss and stats through `reduce_metrics` (the hooks MeshTrainer
-        overrides). The four phases are `torch.profiler` ranges
-        (`trainer.pull`, `trainer.compute`, `trainer.dense_apply`,
-        `trainer.sparse_apply`)."""
+        `tables_apply`, the dense gradients through `dense_grad_stats`,
+        `reduce_dense_grads` and `dense_update`, the loss and stats through
+        `reduce_metrics` (the hooks MeshTrainer overrides). The four phases
+        are `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
+        `trainer.dense_apply`, `trainer.sparse_apply`)."""
         b = _transformed(self.model, b)
         with record_function("trainer.pull"):
             ids = self._batch_ids(b)
@@ -623,11 +663,11 @@ class Trainer:
             logits = state.dense(embedded, b.get("dense"))
             loss = self._loss(logits, b)
             loss.backward()
-            self.reduce_dense_grads(state, sad_leaves)
+            grads = dense_grads(state.dense, state.embeddings, sad_leaves)
+            stats.update(self.dense_grad_stats(grads))
+            grads = self.reduce_dense_grads(grads)
         with record_function("trainer.dense_apply"):
-            dense_apply(self.optimizer, state.dense, state.dense_slots,
-                        state.embeddings,
-                        {n: leaf.grad for n, leaf in sad_leaves.items()})
+            self.dense_update(state, grads)
             self.reduce_module_state(state.dense)
         with record_function("trainer.sparse_apply"), torch.no_grad():
             if before_apply is not None:

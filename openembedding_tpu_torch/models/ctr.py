@@ -24,7 +24,7 @@ layout unless the module has already run without them.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -211,10 +211,14 @@ class XDeepFM(nn.Module):
                 **self.mlp.flax_dense("MLP_0/")}
 
 
-def _with_dense(dense_only: nn.Module, always: nn.Module) -> bool:
+def _with_dense(dense_only: nn.Module, always: nn.Module,
+                hint: Optional[bool] = None) -> bool:
     """Whether the module's flax layout is the one with dense features:
+    `hint` where a load read it off the names (`set_flax_layout`), else
     yes unless the layer made only for them is missing while a layer made
     in every call exists (the module ran or was loaded without them)."""
+    if hint is not None:
+        return hint
     return dense_only.materialized or not always.materialized
 
 
@@ -251,6 +255,7 @@ class DCN(nn.Module):
         self.mlp = MLP(self.hidden, activate_last=True,
                        compute_dtype=compute_dtype)
         self.out = Dense(1, compute_dtype)      # flax Dense_1 (Dense_0)
+        self.flax_with_dense: Optional[bool] = None
 
     def forward(self, embedded, dense):
         cd = self.compute_dtype
@@ -270,9 +275,15 @@ class DCN(nn.Module):
     def flax_dense(self) -> Dict[str, nn.Module]:
         out = {f"cross_{li}": c for li, c in enumerate(self.cross)}
         out.update(self.mlp.flax_dense("MLP_0/"))
-        if _with_dense(self.linear, self.out):
+        if _with_dense(self.linear, self.out, self.flax_with_dense):
             return {"Dense_0": self.linear, **out, "Dense_1": self.out}
         return {**out, "Dense_0": self.out}
+
+    def set_flax_layout(self, names) -> None:
+        """The layout of flat flax names about to load into a module that
+        may never have run (`convert.dense_from_flax`): with dense features
+        iff the output layer is `Dense_1`."""
+        self.flax_with_dense = any(n.startswith("Dense_1/") for n in names)
 
 
 class DLRM(nn.Module):
@@ -290,6 +301,7 @@ class DLRM(nn.Module):
         self.bottom_mlp = MLP(tuple(bottom) + (dim,), activate_last=True,
                               compute_dtype=compute_dtype)
         self.top_mlp = MLP(tuple(top) + (1,), compute_dtype=compute_dtype)
+        self.flax_with_dense: Optional[bool] = None
 
     def forward(self, embedded, dense):
         _, v = _split_first_order(embedded)   # (B, F, d)
@@ -310,10 +322,17 @@ class DLRM(nn.Module):
         return self.top_mlp(top_in)[..., 0].to(torch.float32)
 
     def flax_dense(self) -> Dict[str, nn.Module]:
-        if _with_dense(self.bottom_mlp.layers[0], self.top_mlp.layers[0]):
+        if _with_dense(self.bottom_mlp.layers[0], self.top_mlp.layers[0],
+                       self.flax_with_dense):
             return {**self.bottom_mlp.flax_dense("MLP_0/"),
                     **self.top_mlp.flax_dense("MLP_1/")}
         return self.top_mlp.flax_dense("MLP_0/")
+
+    def set_flax_layout(self, names) -> None:
+        """The layout of flat flax names about to load (see
+        `DCN.set_flax_layout`): with dense features iff a second MLP
+        (`MLP_1`, the top one) is there."""
+        self.flax_with_dense = any(n.startswith("MLP_1/") for n in names)
 
 
 def _categorical_embedding(vocabulary: int, dim: int, *, hashed: bool,

@@ -79,6 +79,7 @@ def plan_arrays(optimizer, weights: torch.Tensor,
                 grads: torch.Tensor) -> List[Tuple[int, int, int]]:
     """The `arrays` argument of `launch_plan` for one `fused_sparse_apply`
     call: the weights, the rule's wide slots, the gradients."""
+    slots = in_slot_order(optimizer, slots, weights.shape[1])
     wide = list(slots.values())[:WIDE_SLOTS[optimizer.rule]]
     return [(t.data_ptr(), t.stride(0), t.element_size())
             for t in (weights, *wide, grads)]
@@ -107,6 +108,18 @@ def fused_sparse_apply_reference(optimizer, weights: torch.Tensor,
     return weights, slots
 
 
+def in_slot_order(optimizer, slots: Dict[str, torch.Tensor], dim: int
+                  ) -> Dict[str, torch.Tensor]:
+    """`slots` in `optimizer.slot_shapes` order, the order the kernel takes
+    them in; a state may hold them in another (the JAX MeshTrainer's sorts
+    a table's slots by name). A set of names that differs stays as it is
+    (`_check` refuses it)."""
+    want = list(optimizer.slot_shapes(dim))
+    if list(slots) == want or set(slots) != set(want):
+        return slots
+    return {k: slots[k] for k in want}
+
+
 def _check(optimizer, weights, slots, rows, grads, counts) -> None:
     if weights.dim() != 2 or weights.dtype not in _TABLE_DTYPES:
         raise TypeError(f"fused_sparse_apply: weights must be 2-D float32 or "
@@ -114,10 +127,9 @@ def _check(optimizer, weights, slots, rows, grads, counts) -> None:
                         f"{tuple(weights.shape)}")
     n_rows, dim = weights.shape
     want = optimizer.slot_shapes(dim)
-    if list(slots) != list(want):
+    if set(slots) != set(want):
         raise ValueError(f"fused_sparse_apply: {type(optimizer).__name__} "
-                         f"takes slots {list(want)} in that order, got "
-                         f"{list(slots)}")
+                         f"takes slots {list(want)}, got {list(slots)}")
     for name, s in slots.items():
         if s.dtype != torch.float32 or tuple(s.shape) != (n_rows, want[name]):
             raise TypeError(f"fused_sparse_apply: slot {name!r} must be "
@@ -151,10 +163,12 @@ def fused_sparse_apply(optimizer, weights: torch.Tensor,
                        grads: torch.Tensor, counts: torch.Tensor
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """In-place optimizer update of the rows with counts > 0 (see the module
-    docstring). weights (n_rows, dim) float32/bfloat16; slots in
-    `optimizer.slot_shapes` order, float32 (n_rows, width); rows (n,)
-    int32/int64; grads (n, dim) float32; counts (n,) int32."""
+    docstring). weights (n_rows, dim) float32/bfloat16; slots
+    {`optimizer.slot_shapes` name: float32 (n_rows, width)}, taken by name
+    (`in_slot_order`); rows (n,) int32/int64; grads (n, dim) float32;
+    counts (n,) int32."""
     _check(optimizer, weights, slots, rows, grads, counts)
+    slots = in_slot_order(optimizer, slots, weights.shape[1])
     if weights.device.type == "cpu":
         return fused_sparse_apply_reference(optimizer, weights, slots, rows,
                                             grads, counts)

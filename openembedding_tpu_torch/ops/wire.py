@@ -1,5 +1,5 @@
-"""Wire formats of the sharded exchange (port of
-`openembedding_tpu/ops/wire.py` without its sparse top-k dense wire).
+"""Wire formats of the sharded exchange and of the ZeRO dense update (port
+of `openembedding_tpu/ops/wire.py`).
 
 A train step moves three payloads: id buckets out, pulled rows back, pushed
 grads and counts out (`parallel/sharded.py`). Tables and the optimizer
@@ -27,6 +27,12 @@ Formats (explicit argument, then `$OETPU_WIRE`, then bf16, as in JAX):
 Duplicate counts ride exactly: the int32 bits viewed as wire lanes (one
 fp32 lane or two bf16 lanes), never rounded. Empty bucket slots are zero
 bits, which decode to grad 0 and count 0 in both formats.
+
+The sparse top-k payload (`pack_topk`, the ZeRO dense wire
+"sparse_topk", `parallel/zero.py`) carries a row's k largest-magnitude
+elements in the int8 codec, rounded to nearest, with their int32 column
+indices as 4 int8 lanes each; untransmitted elements decode to exact
+zeros. Its bytes are the JAX package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -222,6 +228,58 @@ def residual(x: torch.Tensor, wire: torch.Tensor, dim: int,
     qb = _blocks(wire[:, :dim].to(torch.float64))
     deq = (qb * scale[:, :, None]).reshape(n, -1)[:, :dim]
     return (x.double() - deq).to(torch.float32)
+
+
+# -- the sparse top-k payload (the ZeRO dense wire "sparse_topk") -------------
+
+# int8 lanes of one transmitted element's int32 column index
+_INDEX_LANES = 4
+
+
+def topk_wire_width(k: int) -> int:
+    """Wire columns of one top-k payload row in the int8 carrier: k value
+    lanes, their in-band scale lanes, and 4 index lanes a value (about
+    5.125 bytes a transmitted element)."""
+    return rows_wire_width(k, "int8") + _INDEX_LANES * k
+
+
+def topk_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, m) -> (n, k) int64: each row's k largest |x| in `lax.top_k`'s
+    order, descending with ties to the lower index. A stable descending
+    sort gives that order on every device; `torch.topk` leaves the order
+    of ties unspecified, and the codec's scale blocks group the values in
+    this order, so it would change the bytes."""
+    order = torch.sort(x.abs(), dim=1, descending=True, stable=True).indices
+    return order[:, :k]
+
+
+def pack_topk(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, m) float32 -> (n, topk_wire_width(k)) int8: per row the k
+    largest-magnitude elements (`topk_indices`' order), int8-quantized
+    with in-band float32 scales per INBAND_BLOCK values (a partial block
+    pads as the row codec does), then their int32 column indices as 4
+    little-endian int8 lanes each, as JAX's `bitcast_convert_type` lays
+    them out. 1 <= k <= m; the indices of a row are distinct, so the
+    decode's scatter never collides."""
+    n, m = x.shape
+    if not 1 <= k <= m:
+        raise ValueError(f"pack_topk: k={k} outside [1, {m}]")
+    idx = topk_indices(x, k)
+    q = _quantize_int8(torch.gather(x, 1, idx).to(torch.float32))
+    lanes = idx.to(torch.int32).contiguous().view(torch.int8).reshape(
+        n, _INDEX_LANES * k)
+    return torch.cat([q, lanes], dim=1)
+
+
+def unpack_topk(wire: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """Inverse of `pack_topk` -> dense (n, m) float32, every untransmitted
+    element exactly 0."""
+    n = wire.shape[0]
+    body = rows_wire_width(k, "int8")
+    vals = _dequantize_int8(wire[:, :body], k)
+    idx = wire[:, body:].contiguous().view(torch.int32).reshape(n, k)
+    out = torch.zeros((n, m), dtype=torch.float32, device=wire.device)
+    return out.scatter_(1, idx.long(), vals)
 
 
 def encode_grads(grads: torch.Tensor, counts: torch.Tensor, fmt: str, *,

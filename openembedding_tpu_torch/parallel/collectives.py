@@ -9,7 +9,10 @@ the JAX package).
   ((p0 + p1) + p2) + ..., the source-order fold that XLA:CPU's all-reduce
   does (`parallel/sharded.py:626-634` of the JAX package), so runs repeat
   bit for bit on the card too;
-- `pmean`: `dense_sum` / S; `broadcast`, `barrier`.
+- `pmean`: `dense_sum` / S; `broadcast`, `barrier`;
+- the ZeRO dense update's two (`parallel/zero.py`): `reduce_scatter`,
+  this rank's chunk of the sum added in rank order as `dense_sum` adds
+  it, and `all_gather_tiled`, the ranks' chunks laid end to end.
 
 At S = 1 every collective is the identity and launches nothing, as in the
 JAX package. Under NCCL the tensors stay on the card. Under gloo, which
@@ -91,6 +94,27 @@ def dense_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if mesh.size == 1:
         return x
     return rank_sum(all_gather(mesh, x))
+
+
+def reduce_scatter(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """(S * C,) -> (C,): chunk r of the sum over the ranks on rank r, the
+    all_to_all of the (S, C) view and the S chunks received added in rank
+    order; bit for bit `dense_sum(mesh, x)[r*C:(r+1)*C]`, the port's
+    counterpart of `psum_scatter(tiled=True)`. Not
+    `dist.reduce_scatter_tensor`: NCCL's ring adds the partials in its own
+    order, and the ZeRO update would no longer equal the replicated one."""
+    if mesh.size == 1:
+        return x
+    recv = all_to_all(mesh, x.reshape(mesh.size, -1))
+    return rank_sum(list(recv.unbind(0)))
+
+
+def all_gather_tiled(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """(C, ...) -> (S * C, ...): every rank's `x` concatenated in rank order
+    (`all_gather(tiled=True)`); int16 travels as int8 bytes."""
+    if mesh.size == 1:
+        return x
+    return torch.cat(all_gather(mesh, x))
 
 
 def psum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:

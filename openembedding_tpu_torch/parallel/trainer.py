@@ -12,6 +12,15 @@ as the JAX MeshTrainer replaces them:
   averaged (the reference's Horovod allreduce with op=Sum), in rank order
   (`collectives.dense_sum`), so the effective dense learning rate scales
   with S as the reference's does;
+- `dense_update` under ZeRO (`dense_shard=True`, `parallel/zero.py`): the
+  sum folds into a reduce_scatter of the flat gradient, each rank updates
+  its 1/S chunk of the flat dense state and all_gathers the new params;
+  `dense_wire` narrows both collectives ("bf16", "int8" with an
+  error-feedback residual, "sparse_topk": the k largest-magnitude
+  elements a destination chunk) and keeps float32 masters of the chunk.
+  At fp32 it equals the replicated update bit for bit. `externalize`
+  (what `save` writes) unshards the slots; `set_dense_wire` switches the
+  format between steps;
 - `reduce_metrics`: the loss, each rank's local mean, averaged over the
   ranks for the report; the stats (`<table>/pull_indices`, `pull_unique`,
   `pull_overflow`, `push_overflow`, `shard_rows`, `shard_positions`,
@@ -33,9 +42,9 @@ serial window at every wire format, residuals included, with the
 window's counters "conflict" and "conflict_overflow" (`conflict_factor`
 caps the patch).
 
-The JAX MeshTrainer's ZeRO dense sharding and its wire, host offload, the
-numerics sentinel and `measure_every` are not ported: setting one away
-from its default raises NotImplementedError naming its ROADMAP.md item.
+The JAX MeshTrainer's host offload, the numerics sentinel and
+`measure_every` are not ported: setting one away from its default raises
+NotImplementedError naming its ROADMAP.md item.
 So does `refresh_hot_rows` without explicit ids, which reads the
 heavy-hitter sketches (item 6). `SeqMeshTrainer` waits for the sequence
 models (item 5).
@@ -43,21 +52,25 @@ models (item 5).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..embedding import (EmbeddingSpec, EmbeddingTableState, HotRows,
                          MigRows, combine, init_table, init_table_state)
 from ..model import (EmbeddingModel, TrainState, Trainer, _batch_slice,
                      _materialize_dense, _table_generator, _transformed,
-                     attach_ids, init_dense_slots, sad_rows)
+                     attach_ids, dense_leaves, init_dense_slots, sad_rows)
 from ..ops import wire as wire_mod
 from ..optimizers import SparseOptimizer
 from ..utils.fs import local_path
 from . import collectives as coll
+from . import zero
 from .mesh import Mesh, make_mesh
 from .sharded import (build_hot_identity, build_mig_identity,
                       grouped_apply_gradients, grouped_conflict_patch,
@@ -70,8 +83,6 @@ from .sharded import (build_hot_identity, build_mig_identity,
 # constructor arguments of the JAX MeshTrainer the port does not have:
 # name -> (default, ROADMAP.md item)
 NOT_PORTED = {
-    "dense_shard": (False, "3 (ZeRO)"), "dense_wire": (None, "3 (ZeRO)"),
-    "dense_topk": (None, "3 (ZeRO)"), "dense_stats": (False, "3 (ZeRO)"),
     "offload_pipeline": (False, "4"), "offload_densify": (1, "4"),
     "offload_stage_depth": (1, "4"),
     "sentinel": (False, "1.5"), "halt_on_nonfinite": (False, "1.5"),
@@ -103,10 +114,19 @@ class MeshTrainer(Trainer):
     - `pipeline_steps`: `train_many` windows pipelined (inert at S = 1);
       `conflict_factor` in [0, 1] caps the conflict patch at that share of
       the bucket capacity (0: exact, every conflicting row patched).
+    - `dense_shard`: ZeRO, each rank holds 1/S of the flat dense optimizer
+      state (`parallel/zero.py`; inert at S = 1). `dense_wire` (needs
+      `dense_shard`): the dense collectives' format, None / "fp32"
+      (lossless), "bf16", "int8" or "sparse_topk"; `dense_topk`: the
+      elements a destination chunk ships under "sparse_topk" (None: about
+      1/16 of the chunk, `dense_topk_for`). `dense_stats`: each step's
+      stats carry `dense/grad_density`, the mean over the ranks of the
+      nonzero share of their dense gradients before the reduce.
 
     `init` gives each rank its shard of every table (shard r of S draws
     from its own generator: no rank builds a whole table) and the same
-    dense params (rank 0's, broadcast). `train_step`, `train_many` and
+    dense params (rank 0's, broadcast), their slots in the ZeRO flat form
+    where `zero_enabled`. `train_step`, `train_many` and
     `eval_step` run eagerly; `jit_train_step()` / `jit_train_many()` are
     CUDA graphs (`model.CompiledStep`): at S = 1 the graph holds no
     collective, at S >= 2 over NCCL it captures them (the process group
@@ -122,6 +142,8 @@ class MeshTrainer(Trainer):
                  hot_wire: Optional[str] = None,
                  error_feedback: Optional[bool] = None,
                  pipeline_steps: bool = False, conflict_factor: float = 0.0,
+                 dense_shard: bool = False, dense_wire: Optional[str] = None,
+                 dense_topk: Optional[int] = None, dense_stats: bool = False,
                  **unported):
         for key, value in unported.items():
             if key not in NOT_PORTED:
@@ -164,6 +186,33 @@ class MeshTrainer(Trainer):
         self.pipeline_steps = bool(pipeline_steps)
         self.conflict_factor = float(conflict_factor)
         self._side = None  # the prefetch's stream, made at first use
+        self.dense_shard = bool(dense_shard)
+        if dense_wire in ("fp32", "none"):
+            dense_wire = None
+        if dense_wire is not None:
+            if dense_wire not in ("bf16", "int8", "sparse_topk"):
+                raise ValueError(
+                    f"dense_wire={dense_wire!r}: expected 'int8', 'bf16', "
+                    "'sparse_topk', or None/'fp32' (the lossless round-14 "
+                    "path)")
+            if not self.dense_shard:
+                raise ValueError(
+                    "dense_wire quantizes the ZeRO dense collectives — "
+                    "construct MeshTrainer(dense_shard=True, dense_wire=...)")
+        self.dense_wire = dense_wire
+        if dense_topk is not None:
+            dense_topk = int(dense_topk)
+            if dense_topk <= 0:
+                raise ValueError(
+                    f"dense_topk={dense_topk}: expected a positive element "
+                    "count (or None to auto-size from the chunk)")
+            if dense_wire != "sparse_topk":
+                raise ValueError(
+                    "dense_topk sizes the sparse_topk payload — construct "
+                    "MeshTrainer(dense_wire='sparse_topk', dense_topk=...)")
+        self.dense_topk = dense_topk
+        self.dense_stats = bool(dense_stats)
+        self._zero_plan = None
 
     # -- wire formats ---------------------------------------------------------
 
@@ -231,6 +280,164 @@ class MeshTrainer(Trainer):
         return {n: s for n, s in self.model.ps_specs().items()
                 if self.mig_rows_for(n)}
 
+    # -- ZeRO dense-state sharding (parallel/zero.py) -----------------------------
+
+    @property
+    def zero_enabled(self) -> bool:
+        """Whether the dense update runs sharded: asked for, on two ranks or
+        more (at S = 1 the chunk is the whole vector)."""
+        return self.dense_shard and self.num_shards > 1
+
+    def _dense_trainable(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """{slot key: tensor} of the trainable dense leaves: the module's
+        parameters and the sparse_as_dense tables (the port's modules hold
+        no frozen state)."""
+        return dict(dense_leaves(state.dense, state.embeddings))
+
+    def _zero_plan_for(self, state: TrainState) -> zero.DenseShardPlan:
+        """The flat layout of the trainable leaves (cached: the shapes are
+        the model's). Under a dense wire every chunk is whole in-band codec
+        blocks; the extra padding is inert."""
+        if self._zero_plan is None:
+            align = wire_mod.INBAND_BLOCK if self.dense_wire else 1
+            self._zero_plan = zero.build_plan(
+                zero.trainable_leaves(state.dense, state.embeddings),
+                self.optimizer, self.num_shards, align=align)
+        return self._zero_plan
+
+    @property
+    def dense_ef_enabled(self) -> bool:
+        """The dense wires that keep the `__dense_ef__` residual: int8's
+        rounding and sparse_topk's untransmitted mass; bf16 goes without."""
+        return self.dense_wire in ("int8", "sparse_topk")
+
+    def dense_topk_for(self, plan: zero.DenseShardPlan) -> int:
+        """k of dense_wire="sparse_topk": `dense_topk` clamped to the chunk,
+        else about 1/16 of the chunk rounded up to whole INBAND_BLOCK codec
+        blocks."""
+        if plan.chunk <= 0:
+            return 0
+        k = self.dense_topk
+        if k is None:
+            k = -(-plan.chunk // 16)
+            k = -(-k // wire_mod.INBAND_BLOCK) * wire_mod.INBAND_BLOCK
+        return max(1, min(int(k), plan.chunk))
+
+    def _chunk(self, plan: zero.DenseShardPlan, flat: torch.Tensor
+               ) -> torch.Tensor:
+        """This rank's (1, C) chunk of a (padded,) or (1, padded) vector."""
+        C, r = plan.chunk, self.mesh.rank
+        return flat.reshape(-1)[r * C:(r + 1) * C].reshape(1, -1)
+
+    @torch.no_grad()
+    def dense_to_sharded(self, state: TrainState) -> TrainState:
+        """The per-leaf dense slots -> the flat form, in place (nothing to do
+        when ZeRO is off or the slots are flat already): this rank's chunk
+        of each vector slot, the shared scalar slots, and under a dense wire
+        the chunk's float32 masters (from the params) and a zero residual.
+        Slices only: `dense_to_replicated` gives the slots back byte for
+        byte."""
+        if not self.zero_enabled or zero.is_sharded_slots(state.dense_slots):
+            return state
+        plan = self._zero_plan_for(state)
+        if plan.total == 0:
+            return state
+        zero.check_scalar_slots_equal(plan, state.dense_slots)
+        flat = {name: (self._chunk(plan, v) if name in plan.vector_slots
+                       else v).clone()
+                for name, v in zero.shard_slots(plan,
+                                                state.dense_slots).items()}
+        if self.dense_wire:
+            flat[zero.DENSE_MASTER_KEY] = self._chunk(plan, zero.flatten_tree(
+                plan, self._dense_trainable(state))).clone()
+            if self.dense_ef_enabled:
+                flat[zero.DENSE_EF_KEY] = torch.zeros(
+                    (1, plan.padded), dtype=torch.float32, device=self.device)
+        state.dense_slots = {zero.ZERO_KEY: flat}
+        return state
+
+    @torch.no_grad()
+    def dense_to_replicated(self, state: TrainState) -> TrainState:
+        """The flat dense slots -> the per-leaf form a run without ZeRO
+        holds, as a new `TrainState` sharing the tables (`state` is left as
+        it is): every vector slot all_gathered and cut back per leaf. Under
+        a dense wire the new state's dense module and sparse_as_dense
+        tables are copies holding the all_gathered float32 masters, not the
+        bfloat16-rounded params the forward pass reads, and the residual is
+        dropped (it re-seeds to zeros). The state a checkpoint or an export
+        is written from."""
+        if not zero.is_sharded_slots(state.dense_slots):
+            return state
+        plan = self._zero_plan_for(state)
+        flat = state.dense_slots[zero.ZERO_KEY]
+        whole = {name: (coll.all_gather_tiled(self.mesh, flat[name]
+                                              .reshape(-1)).reshape(1, -1)
+                        if name in plan.vector_slots else flat[name])
+                 for name in (*plan.vector_slots, *plan.scalar_slots)}
+        slots = zero.unshard_slots(plan, whole)
+        if zero.DENSE_MASTER_KEY not in flat:
+            return dataclasses.replace(state, dense_slots=slots)
+        master = coll.all_gather_tiled(
+            self.mesh, flat[zero.DENSE_MASTER_KEY].reshape(-1))
+        dense = copy.deepcopy(state.dense)
+        embeddings = {n: t.clone() for n, t in state.embeddings.items()}
+        zero.write_tree(plan, master, dict(dense_leaves(dense, embeddings)))
+        return dataclasses.replace(state, dense=dense, dense_slots=slots,
+                                   embeddings=embeddings)
+
+    def externalize(self, state: TrainState) -> TrainState:
+        """`hot_sync`, then the dense slots unsharded
+        (`dense_to_replicated`): what `save` writes and an export should be
+        written from."""
+        return self.dense_to_replicated(self.hot_sync(state))
+
+    @torch.no_grad()
+    def _adopt(self, state: TrainState, rep: TrainState) -> TrainState:
+        """`rep` (per-leaf, from `dense_to_replicated` or a load into it)
+        made `state`'s dense part, then sharded: its params and
+        sparse_as_dense tables copied into `state`'s tensors, its slots
+        taken over."""
+        if rep.dense is not state.dense:
+            for (_, dst), (_, src) in zip(
+                    dense_leaves(state.dense, state.embeddings),
+                    dense_leaves(rep.dense, rep.embeddings)):
+                dst.copy_(src)
+        state.dense_slots = rep.dense_slots
+        return self.dense_to_sharded(state)
+
+    def set_dense_wire(self, state: TrainState, dense_wire,
+                       dense_topk=None) -> TrainState:
+        """Switch the dense collectives' format between steps, in place:
+        nothing when the format and k are the ones in use; else the state
+        unsharded (the params take the masters, the residual drops), the
+        format swapped, and the state sharded again under the new layout
+        (its alignment and wire slots depend on the format). Every
+        `CompiledStep` captures anew (`graph_epoch`). The int8 and sparse_topk
+        residual re-seeds to zeros, as after a checkpoint's round trip."""
+        if dense_wire in (None, "fp32"):
+            dense_wire = None
+        elif dense_wire not in ("int8", "bf16", "sparse_topk"):
+            raise ValueError(
+                f"set_dense_wire: dense_wire={dense_wire!r}: expected "
+                "'int8', 'bf16', 'sparse_topk', or None/'fp32'")
+        if dense_topk is not None:
+            if dense_wire != "sparse_topk":
+                raise ValueError(
+                    "set_dense_wire: dense_topk only applies to "
+                    "dense_wire='sparse_topk'")
+            dense_topk = int(dense_topk)
+            if dense_topk <= 0:
+                raise ValueError(f"set_dense_wire: dense_topk={dense_topk} "
+                                 "must be positive")
+        if dense_wire == self.dense_wire and dense_topk == self.dense_topk:
+            return state
+        rep = self.dense_to_replicated(state)
+        self.dense_wire = dense_wire
+        self.dense_topk = dense_topk
+        self._zero_plan = None
+        self.graph_epoch += 1
+        return self._adopt(state, rep)
+
     # -- init -----------------------------------------------------------------
 
     def init(self, sample_batch) -> TrainState:
@@ -265,10 +472,10 @@ class MeshTrainer(Trainer):
         with torch.no_grad():
             for p in list(dense.parameters()) + list(embeddings.values()):
                 coll.broadcast_(mesh, p.data)
-        return TrainState(
+        return self.dense_to_sharded(TrainState(
             step=0, dense=dense,
             dense_slots=init_dense_slots(self.optimizer, dense, embeddings),
-            tables=tables, model_version=0, embeddings=embeddings)
+            tables=tables, model_version=0, embeddings=embeddings))
 
     def _attach_empty(self, spec: EmbeddingSpec,
                       ts: EmbeddingTableState) -> None:
@@ -448,10 +655,19 @@ class MeshTrainer(Trainer):
         becomes the ids of every shard that found no slot; `ef` loads from
         the `__ef__` slot where the checkpoint has it. The hot cache and
         the directory keep their sets and re-gather their rows from the
-        loaded shards."""
+        loaded shards. Under ZeRO the dense part loads in its per-leaf form
+        and is sharded again into the state's own flat tensors (the graphs
+        hold their addresses); the masters come from the loaded params and
+        the residual re-seeds to zeros."""
         from .checkpoint import load_sharded
-        load_sharded(state, self.model, local_path(path),
+        sharded = zero.is_sharded_slots(state.dense_slots)
+        target = self.dense_to_replicated(state) if sharded else state
+        load_sharded(target, self.model, local_path(path),
                      num_shards=self.num_shards, rank=self.mesh.rank)
+        if sharded:
+            self._reshard_into(state, target)
+        else:
+            self.dense_to_sharded(state)
         for ts in state.tables.values():
             if ts.overflow is not None:
                 ts.overflow.copy_(coll.psum(self.mesh, ts.overflow))
@@ -467,6 +683,17 @@ class MeshTrainer(Trainer):
             mig_gather(spec, ts, self._identity(ts.mig, spec, "mig"),
                        mesh=self.mesh)
         return state
+
+    @torch.no_grad()
+    def _reshard_into(self, state: TrainState, rep: TrainState) -> None:
+        """`rep`'s dense part (per-leaf, just loaded) written into `state`'s
+        params, sparse_as_dense tables and flat slots, in place, and its
+        step counters taken over."""
+        fresh = self._adopt(dataclasses.replace(state, dense_slots=None), rep)
+        flat = state.dense_slots[zero.ZERO_KEY]
+        for name, v in fresh.dense_slots[zero.ZERO_KEY].items():
+            flat[name].copy_(v)
+        state.step, state.model_version = rep.step, rep.model_version
 
     def _identity(self, part, spec: EmbeddingSpec, kind: str) -> dict:
         """The identity a cache or directory holds (an empty one for
@@ -541,25 +768,134 @@ class MeshTrainer(Trainer):
             stats.update({f"{n}/{k}": v for k, v in st.items()})
         return stats
 
-    def reduce_dense_grads(self, state, sad_leaves) -> None:
+    def reduce_dense_grads(self, grads):
         """Every dense gradient summed over the ranks, in rank order: one
-        collective per dtype over the gradients laid end to end."""
-        if self.mesh.size == 1:
-            return
-        leaves = [p for _, p in state.dense.named_parameters()]
-        leaves += [sad_leaves[n] for n in sorted(sad_leaves)]
-        for leaf in leaves:
-            if leaf.grad is None:
-                leaf.grad = torch.zeros_like(leaf)
-        for dtype in sorted({leaf.dtype for leaf in leaves}, key=str):
-            group = [leaf for leaf in leaves if leaf.dtype == dtype]
+        collective per dtype over the gradients laid end to end. Under ZeRO
+        as they are: the sum folds into `dense_update`'s reduce_scatter."""
+        if self.mesh.size == 1 or self.zero_enabled:
+            return grads
+        out = dict(grads)
+        for dtype in sorted({g.dtype for g in grads.values()}, key=str):
+            group = [k for k, g in grads.items() if g.dtype == dtype]
             total = coll.dense_sum(self.mesh, torch.cat(
-                [leaf.grad.reshape(-1) for leaf in group]))
+                [grads[k].reshape(-1) for k in group]))
             off = 0
-            for leaf in group:
-                n = leaf.numel()
-                leaf.grad = total[off:off + n].view_as(leaf)
+            for k in group:
+                n = grads[k].numel()
+                out[k] = total[off:off + n].view_as(grads[k])
                 off += n
+        return out
+
+    def dense_grad_stats(self, grads) -> Dict[str, torch.Tensor]:
+        """`dense/grad_density` where `dense_stats`: the nonzero share of this
+        rank's dense gradients before the reduce, divided by S, so the
+        stats' sum over the ranks (`reduce_metrics`) is the ranks' mean.
+        The count adds in float32 and the share is the count times the
+        float32 reciprocal of total * S, what XLA makes of the JAX
+        package's division by that constant."""
+        if not self.dense_stats:
+            return {}
+        total = sum(g.numel() for g in grads.values())
+        if total == 0:
+            return {}
+        nnz = torch.zeros((), dtype=torch.float32, device=self.device)
+        for g in grads.values():
+            nnz = nnz + torch.count_nonzero(g).to(torch.float32)
+        return {"dense/grad_density":
+                nnz * (1.0 / float(total * self.num_shards))}
+
+    @torch.no_grad()
+    def dense_update(self, state, grads) -> None:
+        """The ZeRO dense update (the dense optimizer over all ranks
+        otherwise), in place; `grads` are each rank's own, not summed:
+
+        - fp32: the flat gradient reduce_scattered (summed in rank order),
+          this rank's chunk of the params updated with its chunk of the
+          flat slots (`optimizer.apply` on a (1, C) row), the new chunks
+          all_gathered into the params;
+        - "bf16" / "int8": the flat gradient (int8: plus the residual)
+          encoded, all_to_all'd by destination chunk, the S sources decoded
+          and added in float32 in rank order; the update reads and writes
+          the chunk's float32 masters, and the params are all_gathered on
+          the bfloat16 carrier. int8 keeps the new residual, the gradient
+          less what its encoding decodes to, as one rounding: XLA contracts
+          the JAX package's `flat_g - decode_flat(enc)` into a fused
+          multiply-add (`wire.residual`);
+        - "sparse_topk": as int8, but each destination chunk ships its k
+          largest-magnitude elements (`zero.encode_flat_topk`), the sources'
+          payloads decoded to dense chunks and added; the residual keeps
+          what was not shipped and the shipped elements' rounding (two
+          roundings: XLA does not contract this one).
+
+        Ranges `trainer.dense_reduce_scatter` / `trainer.dense_grad_exchange`,
+        `trainer.dense_update` and `trainer.dense_gather`."""
+        if not self.zero_enabled:
+            return super().dense_update(state, grads)
+        plan = self._zero_plan_for(state)
+        if plan.total == 0:
+            return super().dense_update(state, grads)
+        mesh, fmt = self.mesh, self.dense_wire
+        S, C = plan.num_shards, plan.chunk
+        flat_slots = state.dense_slots[zero.ZERO_KEY]
+        params = self._dense_trainable(state)
+        new_ef = None
+        if not fmt:
+            with record_function("trainer.dense_reduce_scatter"):
+                g_local = coll.reduce_scatter(
+                    mesh, zero.flatten_tree(plan, grads))
+        elif fmt == "sparse_topk":
+            with record_function("trainer.dense_grad_exchange"):
+                k = self.dense_topk_for(plan)
+                flat_g = zero.flatten_tree(plan, grads) \
+                    + flat_slots[zero.DENSE_EF_KEY].reshape(-1)
+                enc = zero.encode_flat_topk(flat_g, S, k)   # (S, Wk) int8
+                new_ef = (flat_g.reshape(S, C)
+                          - zero.decode_flat_topk(enc, k, C)).reshape(1, -1)
+                recv = coll.all_to_all(mesh, enc.reshape(S, 1, -1))
+                parts = zero.decode_flat_topk(recv.reshape(S, -1), k, C)
+                g_local = coll.rank_sum(list(parts.unbind(0)))
+        else:
+            with record_function("trainer.dense_grad_exchange"):
+                flat_g = zero.flatten_tree(plan, grads)
+                if fmt == "int8":
+                    flat_g = flat_g + flat_slots[zero.DENSE_EF_KEY].reshape(-1)
+                enc = zero.encode_flat(flat_g, fmt)         # (padded/B, W)
+                if fmt == "int8":
+                    new_ef = wire_mod.residual(
+                        flat_g.reshape(-1, wire_mod.INBAND_BLOCK), enc,
+                        wire_mod.INBAND_BLOCK, fmt).reshape(1, -1)
+                W = enc.shape[1]
+                recv = coll.all_to_all(mesh, enc.reshape(S, -1, W))
+                parts = zero.decode_flat(recv.reshape(-1, W), fmt).reshape(
+                    S, C)
+                g_local = coll.rank_sum(list(parts.unbind(0)))
+        with record_function("trainer.dense_update"):
+            if fmt:
+                w_local = flat_slots[zero.DENSE_MASTER_KEY]
+                opt_slots = {k: v for k, v in flat_slots.items()
+                             if k not in (zero.DENSE_MASTER_KEY,
+                                          zero.DENSE_EF_KEY)}
+            else:
+                w_local = self._chunk(plan, zero.flatten_tree(plan, params))
+                opt_slots = flat_slots
+            new_w, new_slots = self.optimizer.apply(
+                w_local, opt_slots, g_local.reshape(1, -1),
+                torch.ones(1, dtype=torch.int32, device=self.device))
+        with record_function("trainer.dense_gather"):
+            if fmt:
+                carrier = new_w.reshape(-1).to(torch.bfloat16).view(
+                    torch.int16)
+                flat_new = coll.all_gather_tiled(mesh, carrier).view(
+                    torch.bfloat16).to(torch.float32)
+            else:
+                flat_new = coll.all_gather_tiled(mesh, new_w.reshape(-1))
+            zero.write_tree(plan, flat_new, params)
+        for k, v in new_slots.items():
+            flat_slots[k].copy_(v)
+        if fmt:
+            flat_slots[zero.DENSE_MASTER_KEY].copy_(new_w)
+        if new_ef is not None:
+            flat_slots[zero.DENSE_EF_KEY].copy_(new_ef)
 
     def reduce_module_state(self, module: nn.Module) -> None:
         """Float buffers a forward pass updates (none in the port's
