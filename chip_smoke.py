@@ -223,7 +223,29 @@ final line:
    bit-equal) only
    where the machine has
    two cards or more; otherwise the phase says it did not run;
-13. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+13. persist — persistence (`openembedding_tpu_torch/persist.py`), each
+   run bit-equal after its restore. (s) the array flagship through
+   `jit_train_step`, 12 steps with an `IncrementalPersister` (a persist
+   every 2 steps, a full base every third, window 2, keep 2): restored into
+   a fresh state whose graph driver was captured before the restore, the
+   whole state (tables, slots, dense, step) and the step after equal the
+   live run's; the touched-row read through the gather kernel equals its
+   plain version; the bytes of each full persist and delta, the touched
+   rows a delta, the ms of each snapshot (`persist()` returning) and write,
+   the restore's, and the step's ms with the persister on and off over the
+   same batches. (h) the hashed flagship on the TSV, 6 graph steps, a
+   persist every 2: restored equal by id -> rows. (m) four gloo ranks on
+   the card (2^22 rows a shard, global batch 4096), the int8 wire with
+   residuals, 1,024 hot rows and 256 annex rows, and ZeRO on Adam, 4 eager
+   steps each with a persist every 2: one delta file and one done marker
+   a rank, rank 0 alone commits; the root restored at S = 4 equals the
+   live state on every rank, and the step after; restored on one device,
+   each rank's rows and the dense part equal the live state's. (e) the
+   entry point's `--persist ROOT --persist-steps 5 --persist-incremental`
+   over the TSV: restored equal to `main`'s state. NCCL across cards only
+   where there are two cards or more. Gather and apply launches counted
+   on the path;
+14. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -3687,6 +3709,500 @@ def phase_mesh(torch, mb, ops, data, optimizers, tsv: str,
     return launches
 
 
+# -- persist: the PMem backend's port (`openembedding_tpu_torch/persist.py`)
+
+PERSIST_STEPS = 12        # (s): graph steps, a persist every 2
+PERSIST_HASH_STEPS = 6    # (h): the hashed flagship's graph steps
+PERSIST_MESH_STEPS = 4    # (m): eager steps of each mesh configuration
+PERSIST_ENTRY_STEPS = 20  # (e): one pass of the TSV, a persist every 5
+# (m)'s configurations: name -> (MeshTrainer arguments, optimizer)
+PERSIST_MESH_CONFIGS = {
+    "d int8 hot mig": (dict(wire="int8", hot_rows=PLACE_HOT,
+                            mig_rows=PLACE_MIG, hot_wire="int8"), "adagrad"),
+    "a zero adam": (dict(wire="fp32", dense_shard=True), "adam"),
+}
+
+
+def _bits_equal(torch, mb, got: dict, want: dict) -> list:
+    """The keys of two {name: tensor} dicts whose bits differ (or that one
+    lacks): empty when equal bit for bit."""
+    if got.keys() != want.keys():
+        return sorted(set(got) ^ set(want))
+    return sorted(k for k in got if got[k].shape != want[k].shape
+                  or not torch.equal(mb.bits(got[k].reshape(-1)),
+                                     mb.bits(want[k].reshape(-1))))
+
+
+def _live_bits(torch, mb, state, rank: int = 0, by_id: bool = False) -> dict:
+    """`mb.state_bits` (hash tables by id with `by_id`), the migration
+    annex cut to the rows this rank owns: the other rows are copies no
+    step reads, which a load refreshes."""
+    out = by_id_bits(torch, mb, state) if by_id else mb.state_bits(state)
+    for name, t in state.tables.items():
+        if t.mig is not None:
+            live = t.mig.owners == rank
+            out[f"{name}/mig/weights"] = t.mig.weights[live]
+            out.update({f"{name}/mig/{k}": v[live]
+                        for k, v in t.mig.slots.items()})
+    return out
+
+
+def _history(p) -> list:
+    return [{k: r.get(k) for k in ("kind", "step", "snapshot_ms",
+                                   "write_ms", "bytes", "rows")}
+            for r in p.history]
+
+
+def _kind_stats(history, kind: str) -> dict:
+    rows = [r for r in history if r["kind"] == kind]
+    return {f"{kind}_count": len(rows),
+            f"{kind}_snapshot_ms": [r["snapshot_ms"] for r in rows],
+            f"{kind}_write_ms": [r["write_ms"] for r in rows],
+            f"{kind}_bytes": [r["bytes"] for r in rows],
+            **({"delta_rows": [r["rows"] for r in rows]}
+               if kind == "delta" else {})}
+
+
+def persist_single(torch, mb, ops, data, optimizers, tmp: str) -> dict:
+    """(s) The array flagship through `jit_train_step`, 12 steps with an
+    IncrementalPersister (a persist every 2 steps, a full base every third
+    persist, window 2, keep 2), against the same steps with no persister;
+    the root restored into a fresh state whose graph driver was captured
+    before the restore: whole state bit-equal, and the step after. The
+    touched-row read through the kernel against its plain version."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.persist import (
+        IncrementalPersister, PersistPolicy, list_deltas, list_persists,
+        read_touched_rows, restore_server_model)
+    batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                         seed=TRAIN_SEED,
+                                         steps=PERSIST_STEPS + 1))
+    model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    state = trainer.init(batches[0])
+    off = state.clone()
+    root = os.path.join(tmp, "single")
+
+    def timed(step, st, p=None):
+        """Each step timed (its persist included), and the step, the
+        tracker's `observe` and `maybe_persist` apart -> (state, ms a
+        step, {part: ms a step})."""
+        ms, parts = [], {"step": [], "observe": [], "maybe_persist": []}
+        for b in batches[:PERSIST_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step(st, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if p is not None:
+                p.observe(b)
+                t2 = time.perf_counter()
+                p.maybe_persist(st)
+                torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ms.append((t3 - t0) * 1e3)
+            parts["step"].append((t1 - t0) * 1e3)
+            if p is not None:
+                parts["observe"].append((t2 - t1) * 1e3)
+                parts["maybe_persist"].append((t3 - t2) * 1e3)
+        return st, ms, parts
+
+    step_off = trainer.jit_train_step()
+    off, off_ms, _ = timed(step_off, off)
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()  # the path's run: counts read just after
+    p = IncrementalPersister(trainer, model, root, window=2, keep=2,
+                             policy=PersistPolicy(every_steps=2),
+                             full_every=3)
+    try:
+        state, on_ms, on_parts = timed(step, state, p)
+        t0 = time.perf_counter()
+        p.wait()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        p.close()
+    launches = ran_launches(ops.launch_counts(), [graph_record(step)])
+    history = _history(p)
+    check([r["kind"] for r in history] == ["full", "delta", "delta",
+                                           "delta", "full", "delta"],
+          f"(s): fulls at steps 2 and 10, deltas between ({history})")
+    check([s for s, _ in list_persists(root)] == [2, 10]
+          and [s for s, _ in list_deltas(root)] == [12],
+          "(s): keep=2 fulls, the deltas below the newest full pruned")
+    check(launches["gather_rows"] > 0 and launches["fused_sparse_apply"] > 0,
+          f"(s) launched both kernels ({launches})")
+
+    # restore into a fresh state whose graph driver was captured first
+    fresh_trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    fresh = fresh_trainer.init(batches[0])
+    drv = fresh_trainer.jit_train_step()
+    fresh, _ = drv(fresh, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = restore_server_model(fresh, model, root, trainer=fresh_trainer)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    unequal = _bits_equal(torch, mb, mb.state_bits(fresh),
+                          mb.state_bits(state))
+    check(not unequal and fresh.step == state.step == PERSIST_STEPS,
+          f"(s): the restored state equals the live one ({unequal})")
+    fresh, m1 = drv(fresh, batches[PERSIST_STEPS])
+    state, m2 = step(state, batches[PERSIST_STEPS])
+    unequal_next = _bits_equal(torch, mb, mb.state_bits(fresh),
+                               mb.state_bits(state))
+    check(not unequal_next and torch.equal(m1["loss"], m2["loss"]),
+          f"(s): the step after the restore equals the live one "
+          f"({unequal_next})")
+
+    # the touched-row read of the last delta's ids, kernel against plain
+    spec, ts = model.specs["categorical"], state.tables["categorical"]
+    ids = np.unique(np.concatenate([b["sparse"]["categorical"].reshape(-1)
+                                    for b in batches[10:12]]))
+    ids_t = torch.from_numpy(ids.astype(np.int64)).cuda()
+
+    def read():
+        return read_touched_rows(spec, ts, ids_t)
+
+    found, w, slots = read()
+    with ops.plain_versions():
+        pfound, pw, pslots = read()
+    read_equal = (torch.equal(found, pfound) and torch.equal(w, pw)
+                  and all(torch.equal(slots[k], pslots[k]) for k in slots))
+    check(read_equal, "(s): the touched-row read through the kernel "
+          "equals its plain version, bit for bit")
+    read_ms = mb.device_ms(read)
+    snapshot_bytes = sum(t.numel() * t.element_size()
+                         for t in mb.state_bits(state).values())
+    on = sorted(on_ms[2:])
+    off_sorted = sorted(off_ms[2:])
+    rec = {"run": "persist (s)", "steps": PERSIST_STEPS,
+           "launches": launches, "history": history,
+           **_kind_stats(history, "full"), **_kind_stats(history, "delta"),
+           "touched_ids_last_delta": int(ids.size),
+           "touched_read_bit_equal_plain": read_equal,
+           "touched_read_ms": read_ms,
+           "restore_ms": restore_ms, "drain_ms": drain_ms,
+           "step_ms_on": on_ms, "step_ms_off": off_ms,
+           "step_ms_on_parts": on_parts,
+           "step_ms_on_median": on[len(on) // 2],
+           "step_ms_off_median": off_sorted[len(off_sorted) // 2],
+           "restored_driver_captures": drv.captures,
+           "host_bytes_per_pending_full": snapshot_bytes}
+    del fresh, off, state
+    return rec
+
+
+def persist_hash(torch, mb, ops, data, optimizers, tsv: str,
+                 tmp: str) -> dict:
+    """(h) The hashed flagship on the TSV, 6 graph steps, a persist every
+    2 (a full base, then deltas; `full_every=2`); the root restored into a
+    fresh state equals the live one by id -> rows, and in its dense part
+    and counters bit for bit."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.persist import (
+        IncrementalPersister, PersistPolicy, restore_server_model)
+    batches = _tsv_batches(data, tsv, HASH_ID_SPACE, PERSIST_HASH_STEPS)
+    model = make_deepfm(VOCAB, DIM, hashed=True, capacity=HASH_CAPACITY)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    state = trainer.init(batches[0])
+    root = os.path.join(tmp, "hash")
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()  # the path's run: counts read just after
+    with IncrementalPersister(trainer, model, root, window=2,
+                              policy=PersistPolicy(every_steps=2),
+                              full_every=2) as p:
+        for b in batches:
+            state, _ = step(state, b)
+            p.maybe_persist(state, batch=b)
+    launches = ran_launches(ops.launch_counts(), [graph_record(step)])
+    history = _history(p)
+    check([r["kind"] for r in history] == ["full", "delta", "delta"],
+          f"(h): a full base, then deltas ({history})")
+    fresh_trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+    fresh = fresh_trainer.init(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh = restore_server_model(fresh, model, root, trainer=fresh_trainer)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    unequal = _bits_equal(torch, mb, by_id_bits(torch, mb, fresh),
+                          by_id_bits(torch, mb, state))
+    check(not unequal and fresh.step == state.step,
+          f"(h): the restored table equals the live one by id ({unequal})")
+    ts = state.tables["categorical"]
+    rec = {"run": "persist (h)", "steps": PERSIST_HASH_STEPS,
+           "launches": launches, "history": history,
+           **_kind_stats(history, "full"), **_kind_stats(history, "delta"),
+           "resident": int((ts.keys >= 0).sum()),
+           "overflow": int(ts.overflow), "restore_ms": restore_ms}
+    del fresh, state
+    return rec
+
+
+def persist_mesh_rank(mesh, tmp: str):
+    """(m) One rank of four (gloo, its tensors on the card): the flagship at
+    2^22 rows a shard, global batch 4096, each configuration of
+    `PERSIST_MESH_CONFIGS` 4 eager steps with an IncrementalPersister (a
+    persist every 2 steps, `full_every=2`); the root restored at S = 4 into
+    a fresh state with the same placement: bit-equal, and the step after;
+    restored into a single-device Trainer: this rank's rows (id = l*S +
+    r) and the dense part equal to the live state's. Returns numpy and
+    plain numbers only."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.persist import (
+        IncrementalPersister, PersistPolicy, restore_server_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S, r = mesh.size, mesh.rank
+    check(mesh.staged and S == MESH_STAGED, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED,
+        steps=PERSIST_MESH_STEPS + 1))
+    batches = [local_batch(b, mesh) for b in globals_]
+    uniq, cnt = np.unique(np.concatenate(
+        [b["sparse"]["categorical"].reshape(-1) for b in globals_]),
+        return_counts=True)
+    order = np.argsort(-cnt, kind="stable")
+    hot_ids = uniq[order][:PLACE_HOT].astype(np.int64)
+    cold = uniq[order][-PLACE_MIG:].astype(np.int64)
+    moves = (cold, (cold + 1) % S)
+    opts = {"adagrad": lambda: optimizers.Adagrad(learning_rate=0.05),
+            "adam": lambda: optimizers.Adam(learning_rate=0.001)}
+    out = {"rank": r, "runs": []}
+    for name, (kw, opt) in PERSIST_MESH_CONFIGS.items():
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+
+        def trainer_of():
+            return MeshTrainer(model, opts[opt](), mesh=mesh, **kw)
+
+        def placed(tr, st):
+            if tr.hot_enabled:
+                st = tr.refresh_hot_rows(st, hot_ids={"categorical":
+                                                      hot_ids})
+            if tr.mig_enabled:
+                st = tr.migrate_rows(st, moves={"categorical": moves})
+            return st
+
+        trainer = trainer_of()
+        state = placed(trainer, trainer.init(batches[0]))
+        root = os.path.join(tmp, name.split()[0])
+        ops.reset_launch_counts()  # the path's run: counts read just after
+        staged0 = mesh.staged_bytes
+        with IncrementalPersister(trainer, model, root, window=2,
+                                  policy=PersistPolicy(every_steps=2),
+                                  full_every=2) as p:
+            for b in batches[:PERSIST_MESH_STEPS]:
+                state, _ = trainer.train_step(state, b)
+                p.maybe_persist(state, batch=b)
+        launches = _mesh_launches(ops.launch_counts())
+        staged = mesh.staged_bytes - staged0
+        history = _history(p)
+        check([h["kind"] for h in history] == ["full", "delta"],
+              f"rank {r} {name}: a full base, then a delta ({history})")
+        delta = os.path.join(root, "delta_%012d" % PERSIST_MESH_STEPS)
+        files = sorted(os.listdir(delta))
+        check(all(f"table_categorical.p{q}.npz" in files
+                  and f"done.{q}" in files for q in range(S))
+              and "COMMIT" in files,
+              f"rank {r} {name}: one delta file and one marker a rank, "
+              f"committed ({files})")
+        fresh_trainer = trainer_of()
+        fresh = placed(fresh_trainer, fresh_trainer.init(batches[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = restore_server_model(fresh, model, root,
+                                     trainer=fresh_trainer)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        unequal = _bits_equal(torch, mb, _live_bits(torch, mb, fresh, r),
+                              _live_bits(torch, mb, state, r))
+        check(not unequal, f"rank {r} {name}: the restored state equals "
+              f"the live one ({unequal})")
+        nxt = batches[PERSIST_MESH_STEPS]
+        fresh, m1 = fresh_trainer.train_step(fresh, nxt)
+        live, m2 = trainer.train_step(state.clone(), nxt)
+        unequal_next = _bits_equal(torch, mb, _live_bits(torch, mb, fresh, r),
+                                   _live_bits(torch, mb, live, r))
+        check(not unequal_next and torch.equal(m1["loss"], m2["loss"]),
+              f"rank {r} {name}: the step after the restore equals the "
+              f"live one ({unequal_next})")
+        del fresh, live, fresh_trainer
+        # one device: this rank's rows and the dense part of the live state
+        ext = trainer.externalize(state)
+        one = Trainer(make_deepfm(vocabulary=VOCAB, dim=DIM), opts[opt]())
+        single = one.init(batches[0])
+        single = restore_server_model(single, one.model, root, trainer=one)
+        rows = torch.arange(ext.tables["categorical"].weights.shape[0],
+                            device=mesh.device) * S + r
+        got, want = mb.state_bits(single), mb.state_bits(ext)
+        t = single.tables["categorical"]
+        mismatch = [k for k in got if k.startswith("dense")
+                    and not torch.equal(mb.bits(got[k]), mb.bits(want[k]))]
+        for k, v in [("weights", t.weights), *t.slots.items()]:
+            mine = v[rows]
+            if not torch.equal(mb.bits(mine), mb.bits(
+                    want[f"categorical/{k}"])):
+                mismatch.append(f"categorical/{k}")
+        check(not mismatch and single.step == state.step,
+              f"rank {r} {name}: the single-device restore equals the "
+              f"live state by id ({mismatch})")
+        del single, one, ext
+        out["runs"].append({
+            "config": name, "launches": launches, "history": history,
+            **_kind_stats(history, "full"),
+            **_kind_stats(history, "delta"),
+            "staged_bytes": staged, "restore_ms": restore_ms})
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def persist_mesh(torch, tmp: str) -> dict:
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(persist_mesh_rank, MESH_STAGED, backend="gloo",
+                      device="cuda", args=(os.path.join(tmp, "mesh"),),
+                      timeout_s=600, threads=0)
+    rec = {"run": "persist (m) mesh4-staged", "ranks": MESH_STAGED,
+           "wall_seconds": time.perf_counter() - t0, "per_rank": ranks}
+    for out in ranks:
+        for run in out["runs"]:
+            for k in ("gather_rows", "fused_sparse_apply"):
+                check(run["launches"][k] > 0, f"rank {out['rank']} "
+                      f"({run['config']}) launched {k}")
+    # only rank 0 commits: its history holds the committed bytes
+    check(all(h["bytes"] is None for out in ranks[1:] for run in out["runs"]
+              for h in run["history"])
+          and all(h["bytes"] > 0 for run in ranks[0]["runs"]
+                  for h in run["history"]),
+          "(m): rank 0 alone committed each persist")
+    return rec
+
+
+def persist_entry(torch, mb, ops, data, tsv: str, tmp: str) -> dict:
+    """(e) The entry point's `--persist ROOT --persist-steps 5
+    --persist-incremental` over the TSV: the root restored into a fresh
+    state equals the state `main` returns."""
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    from openembedding_tpu_torch.persist import restore_server_model
+    root = os.path.join(tmp, "entry")
+    out, launches = _run_main(ops, ex, [
+        "--data", tsv, "--vocabulary", str(VOCAB), "--dim", str(DIM),
+        "--batch-size", str(BATCH), "--steps", str(PERSIST_ENTRY_STEPS),
+        "--persist", root, "--persist-steps", "5", "--persist-incremental"])
+    history = _history(out["persister"])
+    check(out["persist"] == root and [h["kind"] for h in history]
+          == ["full", "delta", "delta", "delta"],
+          f"(e): a full base at step 5, then deltas ({history})")
+    trainer = out["trainer"]
+    fresh = trainer.init(_tsv_batches(data, tsv, VOCAB, 1)[0])
+    fresh = restore_server_model(fresh, out["model"], root, trainer=trainer)
+    unequal = _bits_equal(torch, mb, mb.state_bits(fresh),
+                          mb.state_bits(out["state"]))
+    check(not unequal and fresh.step == PERSIST_ENTRY_STEPS,
+          f"(e): the restored state equals main's ({unequal})")
+    return {"run": "persist (e) entry point", "launches": launches,
+            "history": history, **_kind_stats(history, "full"),
+            **_kind_stats(history, "delta"),
+            "steady_ms_per_step": out["steady_seconds"] * 1e3
+            / max(out["steady_steps"], 1)}
+
+
+def persist_nccl_rank(mesh, tmp: str):
+    """Over NCCL across cards: the flagship at fp32, 4 graph steps with an
+    IncrementalPersister (every 2, `full_every=2`), restored into a fresh
+    state: bit-equal on every rank."""
+    import torch
+    from openembedding_tpu_torch import data, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.persist import (
+        IncrementalPersister, PersistPolicy, restore_server_model)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = [local_batch(b, mesh) for b in data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=TRAIN_SEED, steps=PERSIST_MESH_STEPS)]
+    model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+    trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                          mesh=mesh, wire="fp32")
+    state = trainer.init(batches[0])
+    step = trainer.jit_train_step()
+    with IncrementalPersister(trainer, model, tmp, window=2,
+                              policy=PersistPolicy(every_steps=2),
+                              full_every=2) as p:
+        for b in batches:
+            state, _ = step(state, b)
+            p.maybe_persist(state, batch=b)
+    fresh_trainer = MeshTrainer(model, optimizers.Adagrad(
+        learning_rate=0.05), mesh=mesh, wire="fp32")
+    fresh = restore_server_model(fresh_trainer.init(batches[0]), model, tmp,
+                                 trainer=fresh_trainer)
+    unequal = _bits_equal(torch, mb, mb.state_bits(fresh),
+                          mb.state_bits(state))
+    check(not unequal, f"rank {mesh.rank}: NCCL restore equals the live "
+          f"state ({unequal})")
+    return {"rank": mesh.rank, "history": _history(p),
+            "captures": step.captures}
+
+
+def phase_persist(torch, mb, ops, data, optimizers, tsv: str) -> dict:
+    """Persistence (`openembedding_tpu_torch/persist.py`): (s) the array
+    flagship, (h) the hashed flagship, (m) four staged ranks in two
+    configurations, (e) the entry point's --persist, and NCCL across cards
+    where there are some -> {kernel: launches of the phase}."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-persist-")
+    try:
+        runs = [persist_single(torch, mb, ops, data, optimizers, tmp)]
+        emit({"phase": "persist", **runs[-1]})
+        torch.cuda.empty_cache()
+        runs.append(persist_hash(torch, mb, ops, data, optimizers, tsv, tmp))
+        emit({"phase": "persist", **runs[-1]})
+        torch.cuda.empty_cache()
+        mesh = persist_mesh(torch, tmp)
+        emit({"phase": "persist", **mesh})
+        torch.cuda.empty_cache()
+        runs.append(persist_entry(torch, mb, ops, data, tsv, tmp))
+        emit({"phase": "persist", **runs[-1]})
+        torch.cuda.empty_cache()
+        launches = {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+        for out in mesh["per_rank"]:
+            for run in out["runs"]:
+                for k in KERNELS:
+                    launches[k] += run["launches"][k]
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            from openembedding_tpu_torch.parallel.multihost import run_local
+            S = min(4, cards)
+            nccl = run_local(persist_nccl_rank, S, backend="nccl",
+                             device="cuda",
+                             args=(os.path.join(tmp, "nccl"),),
+                             timeout_s=600, threads=0)
+            emit({"phase": "persist", "run": f"nccl x{S}",
+                  "per_rank": nccl})
+        else:
+            emit({"phase": "persist", "run": "nccl across cards",
+                  "not_run": f"the machine has {cards} card: NCCL refuses "
+                  "two ranks of one communicator on one card"})
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] > 0, f"the persist path launched {k}")
+        emit({"phase": "persist", "launches": launches,
+              "wall_seconds": time.perf_counter() - t0})
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -3854,6 +4370,9 @@ def main() -> int:
         mesh_launches = phase_mesh(torch, mb, ops, data, optimizers, tsv,
                                    array_graph)
         torch.cuda.empty_cache()
+        persist_launches = phase_persist(torch, mb, ops, data, optimizers,
+                                         tsv)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -3865,8 +4384,9 @@ def main() -> int:
                    "lr_example": lr_launches[k],
                    "zoo": zoo_launches[k],
                    "mesh": mesh_launches[k],
+                   "persist": persist_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
-    for path in ("hash", "lr_example", "zoo", "mesh"):
+    for path in ("hash", "lr_example", "zoo", "mesh", "persist"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

@@ -9,7 +9,9 @@ lookup, predict and the REST surface. Slice 2 is single-device training of
 the same model (`model.Trainer`, `optimizers`, `checkpoint`). Later slices
 add the CUDA-graph drivers, the Criteo entry points
 (`examples/criteo_deepctr.py`, `examples/criteo_lr_subclass.py`), hashed
-tables (`tables/hash_table.py`) and the zoo's CTR families (`models/`).
+tables (`tables/hash_table.py`), the zoo's CTR families (`models/`), the
+mesh (`parallel/`) and async persistence (`persist.py`: full persists and
+touched-row deltas, restored on one device or over the mesh's ranks).
 The device kernels are hand-written CUDA: the row gather
 (`csrc/gather_rows.cu`, wrapper `ops/gather.py`), the window gather
 (`csrc/gather_rows_windows.cu`) and the fused sparse optimizer apply
@@ -20,5 +22,8 @@ with `device=None` and no CUDA device they raise instead of falling back.
 """
 
 from .device import resolve_device
+from .persist import (AsyncPersister, IncrementalPersister, PersistPolicy,
+                      persist_server_model, restore_server_model)
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "AsyncPersister", "IncrementalPersister",
+           "PersistPolicy", "persist_server_model", "restore_server_model"]

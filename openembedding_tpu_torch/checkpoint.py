@@ -98,7 +98,9 @@ def compact_hash_table(ts) -> tuple:
 def save_server_model(state, model, path: str, *,
                       include_optimizer: bool = True,
                       model_sign: str = "") -> ModelMeta:
-    """Dump a `TrainState` into `path` (see the module docstring)."""
+    """Dump a `TrainState` into `path` (see the module docstring): a live
+    state or its host copy (`parallel.checkpoint.snapshot_addressable`),
+    byte for byte alike."""
     from .convert import table_to_numpy
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"

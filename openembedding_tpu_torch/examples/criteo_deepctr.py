@@ -26,6 +26,14 @@ Flag map to the reference benchmark, as in the JAX script:
   --prefetch    batches reach the card through pinned memory on a side stream
                 (`data.prefetch_to_device`)
   --save/--load/--export  checkpoint, resume, standalone serving export
+  --persist ROOT    the reference's pmem AutoPersist: an async persist every
+                --persist-steps steps (`persist.AsyncPersister`), or with
+                --persist-incremental a full base and touched-row deltas
+                between (`persist.IncrementalPersister`); restore with
+                `persist.restore_server_model`. Under --mesh every rank
+                persists its shards and rank 0 commits. The persister
+                observes each trained batch as the host read it (never the
+                card's prefetched copy) and closes before the rates print.
   --mesh        `parallel.MeshTrainer` over the world group (tables
                 row-sharded, the batch data-parallel): under torchrun S
                 ranks, NCCL on cards (rank r on cuda:<LOCAL_RANK>), gloo on
@@ -46,6 +54,7 @@ the run made (state, losses, rates), for callers that check it.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -77,9 +86,6 @@ FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
 # flag -> (its default, what is missing, the ROADMAP.md item)
 NOT_PORTED = {
     "offload": (0, "host-cached tables", "4"),
-    "persist": ("", "persistence (persist.py)", "3"),
-    "persist_steps": (50, "persistence (persist.py)", "3"),
-    "persist_incremental": (False, "persistence (persist.py)", "3"),
     "report_interval": (0.0, "metrics reporting (utils/metrics)", "6"),
     "metrics_log": ("", "metrics reporting (utils/metrics)", "6"),
     "profile": ("", "the profiler trace of the train loop", "6"),
@@ -130,11 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity-factor", type=float, default=0.0)
     ap.add_argument("--on-overflow", default="count",
                     choices=["count", "grow", "raise"])
+    ap.add_argument("--persist", default="", metavar="ROOT",
+                    help="async persist root dir")
+    ap.add_argument("--persist-steps", type=int, default=50)
+    ap.add_argument("--persist-incremental", action="store_true",
+                    help="dirty-window persistence: deltas proportional to "
+                         "the rows touched since the last persist "
+                         "(persist.IncrementalPersister)")
     g = ap.add_argument_group("not ported (raise NotImplementedError)")
     g.add_argument("--offload", type=int, default=0, metavar="SLOTS")
-    g.add_argument("--persist", default="")
-    g.add_argument("--persist-steps", type=int, default=50)
-    g.add_argument("--persist-incremental", action="store_true")
     g.add_argument("--report-interval", type=float, default=0.0)
     g.add_argument("--metrics-log", default="", metavar="PATH")
     g.add_argument("--profile", default="", metavar="DIR")
@@ -228,12 +238,35 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if mesh is not None:
         batches = _local_batches(batches, mesh)
         device = mesh.device
+    host = None
+    if args.persist:
+        host = collections.deque()
+        batches = _tap(batches, host)
     if args.prefetch:
         batches = prefetch_to_device(batches, device=device)
     try:
-        return _train(args, model, trainer, batches, device, recipe)
+        return _train(args, model, trainer, batches, device, recipe, host)
     finally:
         batches.close()
+
+
+def _tap(batches, host):
+    """The batches, each also appended to `host` as the host read it: the
+    persister observes the trained batches from there, in order, whatever
+    the prefetch holds on the card."""
+    for b in batches:
+        host.append(b)
+        yield b
+
+
+def _persisted(persister, host, state, steps: int) -> None:
+    """The `steps` host batches just trained, observed (an incremental
+    persister), then the policy's persist."""
+    for _ in range(steps):
+        b = host.popleft()
+        if hasattr(persister, "observe"):
+            persister.observe(b)
+    persister.maybe_persist(state)
 
 
 def _local_batches(batches, mesh):
@@ -261,13 +294,21 @@ def _check_drops(trainer, pending) -> None:
               "(the graphs capture anew)")
 
 
-def _train(args, model, trainer, batches, device, recipe) -> dict:
+def _train(args, model, trainer, batches, device, recipe, host) -> dict:
     mesh = getattr(trainer, "mesh", None) is not None
     first = next(batches)
     state = trainer.init(first)
     if args.load:
         state = trainer.load(state, args.load)
         print(f"resumed at step {state.step}")
+    persister = None
+    if args.persist:
+        from ..persist import (AsyncPersister, IncrementalPersister,
+                               PersistPolicy)
+        cls = (IncrementalPersister if args.persist_incremental
+               else AsyncPersister)
+        persister = cls(trainer, model, args.persist,
+                        policy=PersistPolicy(every_steps=args.persist_steps))
 
     losses, labels, scores = [], [], []
     t0 = time.perf_counter()
@@ -280,6 +321,8 @@ def _train(args, model, trainer, batches, device, recipe) -> dict:
                 window.append(next(batches))
             state, m = many(state, stack_batches(window))
             losses.append(m["loss"].clone())
+            if persister is not None:
+                _persisted(persister, host, state, len(window))
             if mesh:
                 _check_drops(trainer, _drops(m))
             if not done:  # the steady rate leaves out the first window
@@ -296,6 +339,8 @@ def _train(args, model, trainer, batches, device, recipe) -> dict:
         driver = step
         state, m = step(state, first)
         losses.append(m["loss"].clone().reshape(1))
+        if persister is not None:
+            _persisted(persister, host, state, 1)
         pending = _drops(m) if mesh else None
         _sync(device)
         t1, steady_steps = time.perf_counter(), args.steps - 1
@@ -305,6 +350,8 @@ def _train(args, model, trainer, batches, device, recipe) -> dict:
             losses.append(m["loss"].clone().reshape(1))
             labels.append(batch["label"])
             scores.append(m["logits"].reshape(-1).clone())
+            if persister is not None:
+                _persisted(persister, host, state, 1)
             if mesh:
                 pending = pending + _drops(m)
             if i % 20 == 0:
@@ -317,6 +364,9 @@ def _train(args, model, trainer, batches, device, recipe) -> dict:
             _check_drops(trainer, pending)
         mode = ""
     t2 = time.perf_counter()
+    if persister is not None:
+        persister.close()
+        print(f"persisted {len(persister.history)} times -> {args.persist}")
     seconds, steady_seconds = t2 - t0, t2 - t1
     trained = args.steps
     rate = trained * args.batch_size / seconds
@@ -354,7 +404,8 @@ def _train(args, model, trainer, batches, device, recipe) -> dict:
             "losses": torch.cat(losses).cpu().numpy(), "loss": loss,
             "seconds": seconds, "examples_per_s": rate,
             "steady_steps": steady_steps, "steady_seconds": steady_seconds,
-            "steady_examples_per_s": steady_rate, "train_auc": train_auc}
+            "steady_examples_per_s": steady_rate, "train_auc": train_auc,
+            "persist": args.persist or None, "persister": persister}
 
 
 if __name__ == "__main__":

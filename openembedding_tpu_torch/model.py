@@ -472,6 +472,13 @@ class Trainer:
             return load_sharded(state, self.model, path)
         return load_server_model(state, self.model, path)
 
+    def load_into(self, state: TrainState, fill) -> TrainState:
+        """`fill(state)` writes a restored state into `state` in place
+        (`persist.restore_server_model`); one device needs nothing around
+        it (`parallel.MeshTrainer.load_into` does)."""
+        fill(state)
+        return state
+
     # -- overflow governance (the JAX package's hooks) ----------------------
 
     @staticmethod

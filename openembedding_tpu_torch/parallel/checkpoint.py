@@ -1,7 +1,6 @@
 """Sharded checkpoints: each rank writes its own shard, in chunks (port of
-`openembedding_tpu/parallel/checkpoint.py`; the JAX package's snapshot for
-a background writer, `snapshot_addressable`, waits with `persist.py`,
-ROADMAP.md item 3).
+`openembedding_tpu/parallel/checkpoint.py`), and the host snapshot a
+background writer saves from (`snapshot_addressable`, for `persist.py`).
 
 The reference dumps each server's shard into its own file
 (`EmbeddingDumpOperator.cpp:36-96`), so no node holds more than its shard.
@@ -26,6 +25,12 @@ dense files. The disk layout is the JAX package's (meta `tpu-1`,
         (`hot`, `mig`) is never written: `MeshTrainer.save` writes it
         back into the shards first.
 
+`save_sharded` and `checkpoint.save_server_model` write from a live state
+or from `snapshot_addressable`'s host copy of it, byte for byte alike. The
+JAX package's `HostShardedArray` (the shards of a global array that one
+process holds) has no class here: a rank's tensors are its one shard
+already, so the snapshot is a `TrainState` of host tensors.
+
 `load_sharded` restores such a checkpoint at ANY target mesh size: an
 index remap for array tables (id = l*S + s = m*T + t), a re-insert for
 hash tables (`np_hash_insert`, the device probe's sequence inside the
@@ -36,14 +41,16 @@ target shard). It also reads a single-device checkpoint
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
 import uuid
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..checkpoint import (MODEL_META_FILE, load_dense, load_hash_table,
                           read_meta, variable_meta, write_dense_and_meta)
@@ -91,6 +98,88 @@ def _resident(keys: torch.Tensor, chunk_rows: int) -> tuple:
     return pos[order], ids[order]
 
 
+class HostCopies:
+    """Host copies of device tensors, made in stream order: each copy is
+    enqueued on the tensor's device's current stream, behind the work that
+    wrote the tensor, into a pinned host buffer (PyTorch's caching host
+    allocator keeps the buffers for reuse); `wait()` synchronizes each
+    device's stream once, after which every copy is complete. A CPU
+    tensor is cloned (its `.numpy()` would share the live memory). The
+    copies share nothing with the originals: a later in-place step does
+    not reach them."""
+
+    def __init__(self):
+        self._streams: List[torch.cuda.Stream] = []
+        self.bytes = 0
+
+    def tensor(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if t is None:
+            return None
+        t = t.detach()
+        self.bytes += t.numel() * t.element_size()
+        if t.device.type != "cuda":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        stream = torch.cuda.current_stream(t.device)
+        if all(s != stream for s in self._streams):
+            self._streams.append(stream)
+        return out
+
+    def tree(self, tree):
+        """A nested dict of tensors, copied leaf by leaf."""
+        if isinstance(tree, dict):
+            return {k: self.tree(v) for k, v in tree.items()}
+        return self.tensor(tree)
+
+    def module(self, module: nn.Module) -> nn.Module:
+        """A copy of the module whose parameters and buffers are host
+        copies (no device copy of them is made on the way)."""
+        memo = {}
+        for p in module.parameters():
+            memo[id(p)] = nn.Parameter(self.tensor(p),
+                                       requires_grad=p.requires_grad)
+        for b in module.buffers():
+            memo[id(b)] = self.tensor(b)
+        return copy.deepcopy(module, memo)
+
+    def table(self, ts):
+        """A table's weights, slots, keys, counter and residuals (not its
+        placement state, which checkpoints never write)."""
+        from ..embedding import EmbeddingTableState
+        return EmbeddingTableState(
+            weights=self.tensor(ts.weights), slots=self.tree(ts.slots),
+            keys=self.tensor(ts.keys), overflow=self.tensor(ts.overflow),
+            ef=self.tensor(ts.ef))
+
+    def wait(self) -> None:
+        for s in self._streams:
+            s.synchronize()
+        self._streams = []
+
+
+def snapshot_addressable(state):
+    """A host copy of this rank's state, complete when it returns: every
+    table shard, slot, key array, counter and residual, the dense module,
+    the sparse_as_dense tables and the dense slots (`HostCopies`: one
+    pinned copy each in stream order, then one synchronization), with the
+    step counters. A rank holds only its own shards, so the copy is never
+    a global table. `save_sharded` or `checkpoint.save_server_model` write
+    it on another thread while the next steps update the live tensors in
+    place. On a card it holds the rank's whole state in pinned host
+    memory until it is dropped."""
+    from ..model import TrainState
+    host = HostCopies()
+    snap = TrainState(
+        step=int(state.step), dense=host.module(state.dense),
+        dense_slots=host.tree(state.dense_slots),
+        tables={n: host.table(ts) for n, ts in state.tables.items()},
+        model_version=int(state.model_version),
+        embeddings=host.tree(state.embeddings))
+    host.wait()
+    return snap
+
+
 def save_sharded(state, model, path: str, *, num_shards: int = 1,
                  rank: int = 0, include_optimizer: bool = True,
                  model_sign: str = "",
@@ -98,7 +187,8 @@ def save_sharded(state, model, path: str, *, num_shards: int = 1,
     """Write rank `rank`'s shards of the train state into `path` (rank 0
     also the meta and the dense files). Every rank of the mesh calls it;
     the checkpoint is whole once all have returned (`MeshTrainer.save`
-    waits at a barrier)."""
+    waits at a barrier; a persist commits once every rank's done marker
+    is there). `state` is a live state or `snapshot_addressable`'s copy."""
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or (f"{uuid.uuid4().hex}-"
                                 f"{int(state.model_version)}")

@@ -10,8 +10,9 @@ sharding `P("data")` seen from one rank.
 
 `run_local` spawns S ranks on this machine (the tests and `chip_smoke.py`
 use it); `torchrun --nproc-per-node S` is the production launcher.
-`allgather_host_ids` and `host_sharded_reader` are not ported yet
-(ROADMAP.md item 3).
+`allgather_host_ids` unions the ranks' host-side id sets (the incremental
+persister's touched rows); `host_sharded_reader` reads a TSV stream split
+by rows over the ranks.
 """
 
 from __future__ import annotations
@@ -23,12 +24,13 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh
+from .mesh import Mesh, make_mesh
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -100,6 +102,65 @@ def local_batch(batch, mesh: Mesh):
         return x[r * m:(r + 1) * m]
 
     return take(batch)
+
+
+def allgather_host_ids(ids, mesh: Optional[Mesh] = None) -> np.ndarray:
+    """The union of every rank's host-side id set -> sorted unique int64
+    (negative ids dropped). A collective: every rank calls it at the same
+    point with its own set (the incremental persister's touched ids: each
+    rank observes only its slice of the batch, but a row any rank's batch
+    touched belongs in the delta). Two rounds over the mesh's group, as in
+    the JAX package: the counts, then the ids padded with -1 to the
+    largest count. `mesh`: None is the world group (or this process alone
+    without one)."""
+    ids = np.unique(np.asarray(ids, np.int64).reshape(-1))
+    ids = ids[ids >= 0]
+    if mesh is None:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return ids
+        mesh = make_mesh(device="cpu" if dist.get_backend() == "gloo"
+                         else None)
+    if mesh.size == 1:
+        return ids
+    from . import collectives as coll
+    dev = mesh.device
+    counts = coll.all_gather(mesh, torch.tensor([ids.size],
+                                                dtype=torch.int64,
+                                                device=dev))
+    m = int(torch.cat(counts).max())
+    if m == 0:
+        return np.empty((0,), np.int64)
+    padded = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    padded[:ids.size] = torch.from_numpy(ids).to(dev)
+    gathered = torch.cat(coll.all_gather(mesh, padded)).cpu().numpy()
+    gathered = np.unique(gathered)
+    return gathered[gathered >= 0]
+
+
+def host_sharded_reader(paths: Sequence[str], global_batch_size: int,
+                        mesh: Optional[Mesh] = None, *,
+                        id_space: int = 1 << 25, repeat: bool = False,
+                        native: str = "auto") -> Iterator[Dict]:
+    """Criteo TSV split over the ranks by rows: rank r of S reads rows
+    `i % S == r` (the reference's tf.data shard per worker) and yields its
+    local batches of `global_batch_size // S` rows, numpy, what
+    `MeshTrainer` steps on (the JAX package assembles them into global
+    arrays; a port rank keeps its own). `mesh`: None is this process's
+    rank in the world group (`host_id`, `num_hosts`). Every rank yields as
+    many batches a pass: rows differ by at most one between ranks, which
+    the dropped remainder absorbs."""
+    from ..data.criteo import read_criteo_tsv
+    hosts = mesh.size if mesh is not None else num_hosts()
+    me = mesh.rank if mesh is not None else host_id()
+    if global_batch_size % max(1, hosts) != 0:
+        raise ValueError(
+            f"global batch {global_batch_size} not divisible by {hosts} "
+            "hosts")
+    local_bs = global_batch_size // max(1, hosts)
+    yield from read_criteo_tsv(paths, local_bs, id_space=id_space,
+                               host_id=me, num_hosts=hosts,
+                               drop_remainder=True, repeat=repeat,
+                               native=native)
 
 
 def _rank_main(fn, rank: int, world_size: int, backend: str, device: str,

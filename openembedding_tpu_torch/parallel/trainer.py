@@ -660,10 +660,20 @@ class MeshTrainer(Trainer):
         hold their addresses); the masters come from the loaded params and
         the residual re-seeds to zeros."""
         from .checkpoint import load_sharded
+        return self.load_into(state, lambda target: load_sharded(
+            target, self.model, local_path(path),
+            num_shards=self.num_shards, rank=self.mesh.rank))
+
+    def load_into(self, state: TrainState, fill) -> TrainState:
+        """`load`'s path around `fill(target)`, which writes a restored
+        state into this rank's `target` in place (`persist`'s restore loads
+        a base and replays its deltas there): under ZeRO `target` is the
+        per-leaf form, sharded again into the state's own flat tensors
+        after it; every hash counter becomes the sum over the ranks; the
+        cache and the directory gather their rows from the result."""
         sharded = zero.is_sharded_slots(state.dense_slots)
         target = self.dense_to_replicated(state) if sharded else state
-        load_sharded(target, self.model, local_path(path),
-                     num_shards=self.num_shards, rank=self.mesh.rank)
+        fill(target)
         if sharded:
             self._reshard_into(state, target)
         else:

@@ -141,9 +141,42 @@ def test_eager_and_graph_drivers_agree_on_the_cpu():
     assert synthetic["losses"].shape == (3,)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--persist-steps", "2"],
+    ["--persist-steps", "2", "--persist-incremental"],
+    ["--persist-steps", "3", "--persist-incremental", "--prefetch"],
+    ["--persist-steps", "2", "--persist-incremental", "--scan", "2"]],
+    ids=["full", "incremental", "incremental-prefetch",
+         "incremental-scan"])
+def test_persist_restores_mains_state(argv, tmp_path):
+    """`--persist ROOT` (every `--persist-steps`, incremental or not, with
+    prefetch or `--scan` windows): a restore of the root into a fresh state
+    equals the state `main` returns, bit for bit."""
+    from openembedding_tpu_torch.microbench import state_bits
+    from openembedding_tpu_torch.persist import (list_deltas, list_persists,
+                                                 restore_server_model)
+    root = str(tmp_path / "persist")
+    out = criteo_deepctr.main(BASE + ["--steps", "6", "--persist", root]
+                              + argv)
+    assert out["persist"] == root
+    kinds = [r["kind"] for r in out["persister"].history]
+    assert kinds == (["full"] * 3 if "--persist-incremental" not in argv
+                     else ["full", "delta", "delta"] if "2" in argv
+                     else ["full", "delta"])
+    assert list_persists(root) and (
+        bool(list_deltas(root)) == ("--persist-incremental" in argv))
+    trainer = out["trainer"]
+    fresh = trainer.init(_jax_batches(1)[0])
+    got = restore_server_model(fresh, out["model"], root, trainer=trainer)
+    assert (got.step, got.model_version) == (6, 6)
+    want = out["state"]
+    a, b = state_bits(got), state_bits(want)
+    assert a.keys() == b.keys()
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []
+
+
 @pytest.mark.parametrize("flag", [
-    ["--offload", "64"], ["--persist", "/tmp/p"], ["--persist-steps", "5"],
-    ["--persist-incremental"], ["--report-interval", "1"],
+    ["--offload", "64"], ["--report-interval", "1"],
     ["--metrics-log", "m.jsonl"], ["--profile", "trace"],
     ["--flight-recorder", "8"], ["--trace-dump", "t.json"],
     ["--skew-report"]], ids=lambda f: f[0])

@@ -17,6 +17,7 @@ from openembedding_tpu_torch.examples import criteo_deepctr
 from openembedding_tpu_torch.parallel.multihost import run_local
 
 import torch_mesh_ranks as ranks
+import torch_persist_ranks as persist_ranks
 
 TRAIN100 = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples", "train100.tsv")
@@ -36,9 +37,27 @@ def test_mesh_entry_point_matches_the_mesh_trainer(S, tmp_path):
     assert out[0]["main"] == out[-1]["main"]  # the loss is the ranks' mean
 
 
-@pytest.mark.parametrize("flag", [
-    ["--offload", "64"], ["--persist", "/tmp/p"], ["--persist-steps", "5"],
-    ["--persist-incremental"]], ids=lambda f: f[0])
+def test_mesh_entry_point_persists_and_restores(tmp_path):
+    """`--mesh --persist ROOT --persist-incremental` at two ranks: every
+    rank writes its own delta files, and a restore of the root into a
+    fresh MeshTrainer state equals the state `main` returned on the rank,
+    bit for bit."""
+    root = str(tmp_path / "persist")
+    argv = ARGV + ["--steps", "4", "--persist", root, "--persist-steps",
+                   "2", "--persist-incremental"]
+    out = run_local(persist_ranks.entry_persist, 2, args=(argv,),
+                    timeout_s=90, tmp_dir=str(tmp_path))
+    for r in out:
+        assert r["unequal"] == [], r["rank"]
+        assert r["kinds"] == ["full", "delta"]
+        assert r["step"] == 4
+    assert sorted(n for n in os.listdir(os.path.join(
+        root, "delta_000000000004")) if n.startswith("table")) == [
+        "table_categorical.p0.npz", "table_categorical.p1.npz"]
+
+
+@pytest.mark.parametrize("flag", [["--offload", "64"]],
+                         ids=lambda f: f[0])
 def test_refused_flags_still_raise_under_mesh(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         criteo_deepctr.main(ARGV + flag)
