@@ -245,7 +245,34 @@ final line:
    over the TSV: restored equal to `main`'s state. NCCL across cards only
    where there are two cards or more. Gather and apply launches counted
    on the path;
-14. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+14. offload — host-cached tables (`tables/host_offload.py`) at full width:
+   (o1) the hashed flagship, its table host-cached in a 2^17-slot cache
+   (78,643 ids under the 0.6 mark; one pass of the TSV holds about 411
+   thousand distinct ids), 40 `jit_train_step` calls (two passes) with
+   `offload_prepare` before each: one capture across every eviction, at
+   least three evictions, rows re-admitted from the store, a store larger
+   than the cache; bit-equal (losses, cache and store by id, dense state)
+   to the same steps through the plain versions; launches exactly one
+   gather and one apply a step, four gathers an eviction, two a resident
+   read. (o2) a Constant(0.0) cache against the in-HBM hashed flagship of
+   2^24 slots over the same batches: losses and rows by id bit-equal.
+   (o3) `offload_pipeline=True`, `offload_stage_depth=2`,
+   `offload_densify=4`, staging one batch ahead and, in a second run, two:
+   each bit-equal to (o1), with its hits and misses per ring slot. (o4) the entry point's `--offload` over the
+   TSV, stepwise with `--persist` and with `--scan 4` (a 2^18-slot cache,
+   which holds a window's union), each with `--save` and `--export`: the
+   export's logits equal `eval_step`'s, the checkpoint loads into the
+   in-HBM flagship equal by id, the persist root restores bit-equal.
+   (o5) mesh4-offload: four staged gloo ranks on the card, a cache of 4 x
+   2^15 slots, 6 eager steps: bit-equal by id to the plain versions and
+   to the in-HBM mesh at Constant(0.0); one full persist restored
+   bit-equal. (o6) `jit_eval_step` on the array flagship: five calls, one
+   capture, logits and loss bit-equal to the eager `eval_step`. Reports
+   the median ms of `prepare` and its parts (split, store lookup, upload,
+   admission), of an eviction and a flush, the graph step with the cache
+   against the in-HBM table's, the store's rows and bytes, the launches,
+   and the card's name and power limit;
+15. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -4203,6 +4230,530 @@ def phase_persist(torch, mb, ops, data, optimizers, tsv: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+OFFLOAD_CAPACITY = 1 << 17    # the cache: 2^17 slots, 78,643 under the mark
+OFFLOAD_SCAN_CAPACITY = 1 << 18  # --scan K: the cache holds a window's union
+OFFLOAD_HIGH_WATER = 0.6
+OFFLOAD_STEPS = 40            # two passes of the 20-batch TSV
+OFFLOAD_ENTRY_STEPS = 20      # the entry point: one pass a run
+OFFLOAD_K = 4                 # its --scan K
+OFFLOAD_MESH = 4              # mesh4-offload: ranks on the one card (gloo)
+OFFLOAD_MESH_CAPACITY = 4 * (1 << 15)
+OFFLOAD_MESH_BIG = 4 * (1 << 19)   # its in-HBM twin's slots
+OFFLOAD_MESH_STEPS = 6
+EVAL_CALLS = 5                # (o6): jit_eval_step calls
+
+
+def _offload_model(capacity: int, storage: str = "host_cached",
+                   constant: bool = False):
+    """The hashed flagship, its table host-cached (or in HBM) at `capacity`
+    slots; `constant`: a Constant(0.0) table (the cache then equals a large
+    in-HBM table bit for bit)."""
+    import dataclasses
+    from openembedding_tpu_torch.initializers import Constant
+    from openembedding_tpu_torch.models import make_deepfm
+    model = make_deepfm(VOCAB, DIM, hashed=True, capacity=capacity)
+    spec = model.specs["categorical"]
+    model.specs["categorical"] = dataclasses.replace(
+        spec, storage=storage,
+        initializer=Constant(0.0) if constant else spec.initializer)
+    return model
+
+
+def _medians(ot) -> dict:
+    """The median ms of each timed part of a host-cached table."""
+    return {k: float(np.median(v)) for k, v in ot.timings.items() if v}
+
+
+def _store_bits(torch, store) -> dict:
+    return {"store/ids": torch.from_numpy(store.ids.view(np.int32)),
+            "store/weights": torch.from_numpy(store.weights),
+            **{f"store/{k}": torch.from_numpy(v)
+               for k, v in store.slots.items()}}
+
+
+def _offload_bits(torch, mb, trainer, state, cache: bool = True) -> dict:
+    """A host-cached run's whole state by id: the cache's residents (unless
+    `cache` is False: a restore's cache starts empty), every dense tensor,
+    and the store with the residents written back."""
+    out = {k: v.cpu() for k, v in by_id_bits(torch, mb, state).items()
+           if cache or k.split("/")[0] not in trainer.offload}
+    for name, store in trainer.offload_store_snapshots(state).items():
+        out.update({f"{name}/{k}": v for k, v in
+                    _store_bits(torch, store).items()})
+    return out
+
+
+def _same(torch, mb, got: dict, want: dict, what: str) -> list:
+    check(got.keys() == want.keys(), f"{what}: the same tensors")
+    unequal = sorted(k for k in got if got[k].shape != want[k].shape
+                     or not torch.equal(mb.bits(got[k]), mb.bits(want[k])))
+    check(not unequal, f"{what}: bit-equal ({unequal})")
+    return unequal
+
+
+def _offload_run(torch, trainer, batches, step, stage_ahead: int = 0
+                 ) -> tuple:
+    """`offload_prepare` then `step` over the batches (staging
+    `stage_ahead` batches ahead), synchronized around each part -> (state,
+    losses, ms a prepare, ms a step)."""
+    state = trainer.init(batches[0])
+    for b in batches[:stage_ahead]:
+        trainer.offload_stage(b)
+    losses, prep, steps = [], [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.offload_prepare(state, b)
+        if stage_ahead and i + stage_ahead < len(batches):
+            trainer.offload_stage(batches[i + stage_ahead])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+        torch.cuda.synchronize()
+        prep.append((t1 - t0) * 1e3)
+        steps.append((time.perf_counter() - t1) * 1e3)
+    return (state, torch.stack(losses).cpu().numpy(), prep[WARM_STEPS:],
+            steps[WARM_STEPS:])
+
+
+def _offload_launches(ot, steps: int) -> dict:
+    """The launches a run of prepared steps must make: one gather and one
+    apply a step, four gathers an eviction (the cold and hot rows and
+    their accumulators), two a read of the residents (flush, snapshot)."""
+    c = ot.counters
+    return {"gather_rows": steps + 4 * c["evictions"]
+            + 2 * c["resident_reads"],
+            "gather_rows_windows": 0, "fused_sparse_apply": steps}
+
+
+def offload_single(torch, mb, ops, optimizers, batches) -> dict:
+    """(o1) the cache through `jit_train_step` against the plain versions,
+    (o2) a Constant(0.0) cache against the in-HBM flagship of 2^24 slots,
+    (o3) pipelined staging against (o1)."""
+    from openembedding_tpu_torch.model import Trainer
+    rec, launches = {}, {k: 0 for k in KERNELS}
+
+    def trainer(model, **kw):
+        return Trainer(model, optimizers.Adagrad(learning_rate=0.05), **kw)
+
+    # (o1): the graph run, the counts set to 0 just before and read after
+    t1 = trainer(_offload_model(OFFLOAD_CAPACITY))
+    step = t1.jit_train_step()
+    ops.reset_launch_counts()
+    state, losses, prep, step_ms = _offload_run(torch, t1, batches, step)
+    ot = t1.offload["categorical"]
+    store_rows, store_bytes = len(ot.store), ot.store.nbytes()
+    bits = _offload_bits(torch, mb, t1, state)
+    graph = graph_record(step)
+    ran = ran_launches(ops.launch_counts(), [graph])
+    want = _offload_launches(ot, OFFLOAD_STEPS)
+    check(ran == want, f"(o1) launches {ran} are one gather and one apply "
+          f"a step, four gathers an eviction, two a resident read ({want})")
+    check(step.captures == 1, f"(o1) one capture across the evictions "
+          f"({step.captures})")
+    c = ot.counters
+    check(c["evictions"] >= 3, f"(o1) evicted at least three times ({c})")
+    check(store_rows > OFFLOAD_CAPACITY, f"(o1) the store ({store_rows} "
+          f"rows) holds more ids than the cache has slots")
+    check(c["readmitted"] > 0, f"(o1) rows came back from the store ({c})")
+    for k in KERNELS:
+        launches[k] += ran[k]
+    rec["o1"] = {
+        "steps": OFFLOAD_STEPS, "capacity": OFFLOAD_CAPACITY,
+        "high_water": OFFLOAD_HIGH_WATER,
+        "under_the_mark": int(OFFLOAD_HIGH_WATER * OFFLOAD_CAPACITY),
+        "counters": dict(c), "store_rows": store_rows,
+        "store_bytes": store_bytes, "resident": ot.resident_count,
+        "device_cache_bytes": ot.device_cache_bytes(),
+        "prepare_ms_median": float(np.median(prep)),
+        "graph_step_ms_median": float(np.median(step_ms)),
+        "part_ms_median": _medians(ot), "graph": graph, "launches": ran,
+        "losses_first_last": [float(losses[0]), float(losses[-1])]}
+    del state, step, t1
+    torch.cuda.empty_cache()
+
+    ref_t = trainer(_offload_model(OFFLOAD_CAPACITY))
+    with ops.plain_versions():
+        ops.reset_launch_counts()
+        ref, ref_losses, _, _ = _offload_run(torch, ref_t, batches,
+                                             ref_t.train_step)
+        check(sum(ops.launch_counts().values()) == 0,
+              "the plain run launched no kernel")
+        ref_bits = _offload_bits(torch, mb, ref_t, ref)
+    check(np.array_equal(losses.view(np.int32), ref_losses.view(np.int32)),
+          "(o1) losses bit-equal to the plain run's")
+    _same(torch, mb, bits, ref_bits, "(o1) vs plain (cache and store by id)")
+    rec["o1"]["bit_equal_vs_plain"] = True
+    del ref, ref_t
+    torch.cuda.empty_cache()
+
+    # (o3): pipelined staging, a ring of two, densified writebacks; one
+    # batch ahead (staged after the previous admission) and two ahead
+    # (staged before it: stale where the two batches share new ids)
+    rec["o3"] = {}
+    for ahead in (1, 2):
+        t3 = trainer(_offload_model(OFFLOAD_CAPACITY),
+                     offload_pipeline=True, offload_stage_depth=2,
+                     offload_densify=4)
+        step = t3.jit_train_step()
+        ops.reset_launch_counts()
+        state, losses3, prep3, _ = _offload_run(torch, t3, batches, step,
+                                                stage_ahead=ahead)
+        ot3 = t3.offload["categorical"]
+        bits3 = _offload_bits(torch, mb, t3, state)
+        ran = ran_launches(ops.launch_counts(), [graph_record(step)])
+        check(ran == _offload_launches(ot3, OFFLOAD_STEPS),
+              f"(o3, {ahead} ahead) launches {ran}")
+        for k in KERNELS:
+            launches[k] += ran[k]
+        check(np.array_equal(losses3.view(np.int32),
+                             ref_losses.view(np.int32)),
+              f"(o3, {ahead} ahead) losses bit-equal to (o1)'s")
+        _same(torch, mb, bits3, ref_bits, f"(o3, {ahead} ahead) vs (o1)")
+        check(ot3.pipe_hits > 0, f"(o3, {ahead} ahead) staged payloads "
+              f"consumed ({ot3.pipe_hits} hits, {ot3.pipe_misses} misses)")
+        ot3.close()
+        rec["o3"][f"{ahead}_ahead"] = {
+            "bit_equal_vs_o1": True, "pipe_hits": ot3.pipe_hits,
+            "pipe_misses": ot3.pipe_misses, "slot_hits": ot3.slot_hits,
+            "slot_misses": ot3.slot_misses,
+            "occupancy": ot3.pipeline_occupancy,
+            "counters": dict(ot3.counters),
+            "prepare_ms_median": float(np.median(prep3)),
+            "part_ms_median": _medians(ot3), "launches": ran}
+        del state, step, t3, bits3
+        torch.cuda.empty_cache()
+    del ref_bits
+
+    # (o2): Constant(0.0), the cache against the in-HBM flagship table
+    t2 = trainer(_offload_model(OFFLOAD_CAPACITY, constant=True))
+    step = t2.jit_train_step()
+    ops.reset_launch_counts()
+    state, losses2, prep2, step2 = _offload_run(torch, t2, batches, step)
+    ran = ran_launches(ops.launch_counts(), [graph_record(step)])
+    for k in KERNELS:
+        launches[k] += ran[k]
+    ot2 = t2.offload["categorical"]
+    store = t2.offload_store_snapshots(state)["categorical"]
+    del state, step
+    torch.cuda.empty_cache()
+    th = trainer(_offload_model(HASH_CAPACITY, "hbm", constant=True))
+    hstep = th.jit_train_step()
+    ops.reset_launch_counts()
+    hstate = th.init(batches[0])
+    hlosses, hstep_ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hstate, m = hstep(hstate, b)
+        hlosses.append(m["loss"].clone())
+        torch.cuda.synchronize()
+        hstep_ms.append((time.perf_counter() - t0) * 1e3)
+    ran = ran_launches(ops.launch_counts(), [graph_record(hstep)])
+    for k in KERNELS:
+        launches[k] += ran[k]
+    hlosses = torch.stack(hlosses).cpu().numpy()
+    ts = hstate.tables["categorical"]
+    sel = torch.nonzero(ts.keys >= 0).squeeze(1)
+    order = sel[torch.argsort(ts.keys[sel])]
+    hbm = {"store/ids": torch.from_numpy(
+               ts.keys[order].cpu().numpy().view(np.int32)),
+           "store/weights": ts.weights[order].cpu(),
+           "store/accum": ts.slots["accum"][order].cpu()}
+    losses_equal = np.array_equal(losses2.view(np.int32),
+                                  hlosses.view(np.int32))
+    check(losses_equal, "(o2) losses bit-equal to the in-HBM table's")
+    _same(torch, mb, _store_bits(torch, store), hbm,
+          "(o2) rows by id vs the in-HBM table")
+    rec["o2"] = {"bit_equal_vs_in_hbm": True,
+                 "counters": dict(ot2.counters),
+                 "prepare_ms_median": float(np.median(prep2)),
+                 "graph_step_ms_median": float(np.median(step2)),
+                 "in_hbm_graph_step_ms_median": float(np.median(
+                     hstep_ms[WARM_STEPS:])),
+                 "in_hbm_resident": int(sel.numel())}
+    del hstate, hstep, th, t2
+    torch.cuda.empty_cache()
+    rec["launches"] = launches
+    return rec
+
+
+def offload_entry(torch, mb, ops, data, optimizers, tsv: str,
+                  tmp: str) -> dict:
+    """(o4) the entry point's --offload over the TSV: stepwise with
+    --persist, and with --scan K (a cache of OFFLOAD_SCAN_CAPACITY slots,
+    which holds a window's union under the mark), each with --save and
+    --export."""
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    from openembedding_tpu_torch.export import StandaloneModel
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.persist import restore_server_model
+    base = ["--data", tsv, "--vocabulary", str(HASH_ID_SPACE), "--dim",
+            str(DIM), "--batch-size", str(BATCH),
+            "--steps", str(OFFLOAD_ENTRY_STEPS)]
+    first = _tsv_batches(data, tsv, HASH_ID_SPACE, 1)[0]
+    runs, launches = [], {k: 0 for k in KERNELS}
+    for what, extra in (("step", ["--offload", str(OFFLOAD_CAPACITY),
+                                  "--persist", os.path.join(tmp, "root"),
+                                  "--persist-steps",
+                                  str(OFFLOAD_ENTRY_STEPS // 4)]),
+                        ("scan", ["--offload", str(OFFLOAD_SCAN_CAPACITY),
+                                  "--scan", str(OFFLOAD_K)])):
+        ckpt = os.path.join(tmp, f"ckpt_{what}")
+        export = os.path.join(tmp, f"export_{what}")
+        out, ran = _run_main(ops, ex, base + extra + ["--save", ckpt,
+                                                      "--export", export])
+        trainer, state = out["trainer"], out["state"]
+        ot = trainer.offload["categorical"]
+        steps = OFFLOAD_ENTRY_STEPS
+        # the save and the export each read the residents once more
+        check(ran["fused_sparse_apply"] == steps
+              and ran["gather_rows"] == steps + 4 * ot.counters["evictions"]
+              + 2 * ot.counters["resident_reads"],
+              f"(o4 {what}) launches {ran} ({dict(ot.counters)})")
+        for k in KERNELS:
+            launches[k] += ran[k]
+        store = trainer.offload_store_snapshots(state)["categorical"]
+        rec = {"run": f"entry --offload {what}", "counters": dict(ot.counters),
+               "store_rows": len(store),
+               "examples_per_s": out["examples_per_s"],
+               "steady_ms_per_step": out["steady_seconds"] * 1e3
+               / max(out["steady_steps"], 1)}
+        check(ot.counters["evictions"] + ot.counters["flushes"] > 0,
+              f"(o4 {what}) the cache evicted ({dict(ot.counters)})")
+        state = trainer.offload_prepare(state, first)
+        ops.reset_launch_counts()
+        served = StandaloneModel.load(export)
+        logits = served.predict(first)
+        want = trainer.eval_step(state, first)["logits"]
+        got = ops.launch_counts()
+        for k in KERNELS:
+            launches[k] += got[k]
+        rec["export_logits_equal_eval_step"] = bool(torch.equal(
+            logits.reshape(-1), want.reshape(-1)))
+        check(rec["export_logits_equal_eval_step"],
+              f"(o4 {what}) the export's logits equal eval_step's")
+        del served
+        # the checkpoint into the in-HBM hashed flagship, by id
+        plain = Trainer(_offload_model(HASH_CAPACITY, "hbm"),
+                        optimizers.Adagrad(learning_rate=0.05))
+        ops.reset_launch_counts()
+        loaded = plain.load(plain.init(first), ckpt)
+        ts = loaded.tables["categorical"]
+        sel = torch.nonzero(ts.keys >= 0).squeeze(1)
+        order = sel[torch.argsort(ts.keys[sel])]
+        _same(torch, mb, _store_bits(torch, store), {
+            "store/ids": torch.from_numpy(
+                ts.keys[order].cpu().numpy().view(np.int32)),
+            "store/weights": ts.weights[order].cpu(),
+            "store/accum": ts.slots["accum"][order].cpu()},
+            f"(o4 {what}) the checkpoint in HBM by id")
+        rec["checkpoint_in_hbm_equal_by_id"] = True
+        del loaded, plain
+        if what == "step":
+            fresh_t = Trainer(out["model"],
+                              optimizers.Adagrad(learning_rate=0.05))
+            fresh = restore_server_model(fresh_t.init(first), out["model"],
+                                         os.path.join(tmp, "root"),
+                                         trainer=fresh_t)
+            check(fresh.step == steps, f"(o4) restored step {fresh.step}")
+            _same(torch, mb, _offload_bits(torch, mb, fresh_t, fresh,
+                                           cache=False),
+                  _offload_bits(torch, mb, trainer, out["state"],
+                                cache=False),
+                  "(o4) the persist root restored (store and dense)")
+            rec["persist_restored_bit_equal"] = True
+            rec["persists"] = len(out["persister"].history)
+            del fresh, fresh_t
+        got = ops.launch_counts()
+        for k in KERNELS:
+            launches[k] += got[k]
+        runs.append(rec)
+        del out, trainer, state
+        torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches}
+
+
+def offload_mesh_rank(mesh, tmp: str):
+    """(o5) one rank of four on the one card (gloo, staged): the Constant
+    (0.0) cache over OFFLOAD_MESH_STEPS eager prepared steps, the same
+    through the plain versions, the in-HBM mesh; a full persist and its
+    restore. Returns numpy and plain values."""
+    import torch
+    from openembedding_tpu_torch import (AsyncPersister, PersistPolicy,
+                                         data, ops, optimizers,
+                                         restore_server_model)
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.staged and mesh.size == OFFLOAD_MESH, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(
+        BATCH, id_space=HASH_ID_SPACE, seed=TRAIN_SEED,
+        steps=OFFLOAD_MESH_STEPS))
+    batches = [local_batch(b, mesh) for b in globals_]
+    ids = np.unique(np.concatenate([b["sparse"]["categorical"].reshape(-1)
+                                    for b in globals_]))
+
+    def run(storage, capacity):
+        trainer = MeshTrainer(_offload_model(capacity, storage,
+                                             constant=True),
+                              optimizers.Adagrad(learning_rate=0.05),
+                              mesh=mesh, wire="fp32")
+        state = trainer.init(batches[0])
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.offload_prepare(state, b)
+            state, m = trainer.train_step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if trainer.offload:
+            rows = trainer.offload["categorical"].lookup_anywhere(ids)
+        else:
+            from openembedding_tpu_torch.parallel.sharded import \
+                sharded_lookup
+            rows = sharded_lookup(
+                trainer.model.specs["categorical"],
+                state.tables["categorical"],
+                torch.from_numpy(ids).to(mesh.device),
+                mesh=mesh).cpu().numpy()
+        return trainer, state, np.float32(losses), rows, ms
+
+    ops.reset_launch_counts()
+    trainer, state, losses, rows, ms = run("host_cached",
+                                           OFFLOAD_MESH_CAPACITY)
+    launches = ops.launch_counts()
+    ot = trainer.offload["categorical"]
+    out = {"rank": mesh.rank, "launches": launches,
+           "counters": dict(ot.counters), "store_rows": len(ot.store),
+           "ms_per_step": ms[1:], "losses": losses.tolist()}
+    with ops.plain_versions():
+        _, _, plosses, prows, _ = run("host_cached", OFFLOAD_MESH_CAPACITY)
+    out["bit_equal_vs_plain"] = (losses.tobytes() == plosses.tobytes()
+                                 and rows.tobytes() == prows.tobytes())
+    check(out["bit_equal_vs_plain"], f"rank {mesh.rank}: (o5) bit-equal "
+          "to the plain versions by id")
+    _, _, hlosses, hrows, _ = run("hbm", OFFLOAD_MESH_BIG)
+    out["bit_equal_vs_in_hbm"] = (losses.tobytes() == hlosses.tobytes()
+                                  and rows.tobytes() == hrows.tobytes())
+    check(out["bit_equal_vs_in_hbm"], f"rank {mesh.rank}: (o5) bit-equal "
+          "to the in-HBM mesh by id")
+    root = os.path.join(tmp, "mesh_root")
+    with AsyncPersister(trainer, trainer.model, root,
+                        policy=PersistPolicy(every_steps=1)) as p:
+        p.persist(state)
+    fresh = MeshTrainer(trainer.model, optimizers.Adagrad(learning_rate=0.05),
+                        mesh=mesh, wire="fp32")
+    restored = restore_server_model(fresh.init(batches[0]), fresh.model,
+                                    root, trainer=fresh)
+    got = fresh.offload["categorical"].lookup_anywhere(ids)
+    want = trainer.offload["categorical"].lookup_anywhere(ids)
+    dense_equal = all(torch.equal(mb.bits(a), mb.bits(b)) for a, b in zip(
+        [p.detach() for p in restored.dense.parameters()],
+        [p.detach() for p in state.dense.parameters()]))
+    out["persist_restored_bit_equal"] = (got.tobytes() == want.tobytes()
+                                         and dense_equal
+                                         and restored.step == state.step)
+    check(out["persist_restored_bit_equal"], f"rank {mesh.rank}: (o5) the "
+          "persist restored bit for bit")
+    return out
+
+
+def offload_mesh(torch, tmp: str) -> dict:
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(offload_mesh_rank, OFFLOAD_MESH, backend="gloo",
+                      device="cuda", args=(tmp,), timeout_s=600, threads=0)
+    for r in ranks:
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(r["launches"][k] > 0, f"rank {r['rank']} launched {k}")
+    return {"run": "mesh4-offload", "ranks": OFFLOAD_MESH,
+            "capacity": OFFLOAD_MESH_CAPACITY, "steps": OFFLOAD_MESH_STEPS,
+            "wall_seconds": time.perf_counter() - t0, "per_rank": ranks}
+
+
+def offload_eval(torch, mb, ops, optimizers, data) -> dict:
+    """(o6) `jit_eval_step` on the array flagship: EVAL_CALLS calls, one
+    capture, logits and loss bit-equal to the eager `eval_step`."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                         seed=TRAIN_SEED, steps=EVAL_CALLS))
+    trainer = Trainer(make_deepfm(VOCAB, DIM),
+                      optimizers.Adagrad(learning_rate=0.05))
+    state = trainer.init(batches[0])
+    state, _ = trainer.train_step(state, batches[0])
+    ev = trainer.jit_eval_step()
+    ops.reset_launch_counts()
+    equal, ms = True, []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ev(state, b)
+        got = {k: v.clone() for k, v in got.items()}
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = trainer.eval_step(state, b)
+        equal = equal and all(torch.equal(mb.bits(got[k]), mb.bits(want[k]))
+                              for k in ("logits", "loss"))
+    ran = ran_launches(ops.launch_counts(), [graph_record(ev)])
+    check(equal, "(o6) jit_eval_step's logits and loss bit-equal to "
+          "eval_step's")
+    check(ran["gather_rows"] == 2 * EVAL_CALLS
+          and ran["fused_sparse_apply"] == 0,
+          f"(o6) one gather a graph call and one an eager call ({ran})")
+    rec = {"calls": EVAL_CALLS, "bit_equal_vs_eager": equal,
+           "graph": graph_record(ev), "graph_call_ms": ms[1:],
+           "launches": ran}
+    del state, ev, trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_offload(torch, mb, ops, data, optimizers, tsv: str,
+                  smi: str) -> dict:
+    """Host-cached tables (`tables/host_offload.py`): (o1)-(o3) on one
+    device over two passes of the TSV, (o4) the entry point, (o5) four
+    staged ranks, (o6) `jit_eval_step` -> {kernel: launches of the
+    phase}."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-offload-")
+    try:
+        batches = _tsv_batches(data, tsv, HASH_ID_SPACE, OFFLOAD_STEPS)
+        new_ids = new_ids_per_step(batches)
+        emit({"phase": "offload", "new_ids_per_step": new_ids,
+              "distinct_ids_a_pass": sum(new_ids),
+              "cache_slots": OFFLOAD_CAPACITY,
+              "under_the_mark": int(OFFLOAD_HIGH_WATER * OFFLOAD_CAPACITY),
+              "largest_batch_distinct": max(
+                  int((np.unique(b["sparse"]["categorical"]) >= 0).sum())
+                  for b in batches)})
+        single = offload_single(torch, mb, ops, optimizers, batches)
+        emit({"phase": "offload", **{k: v for k, v in single.items()}})
+        entry = offload_entry(torch, mb, ops, data, optimizers, tsv, tmp)
+        emit({"phase": "offload", "o4": entry})
+        mesh = offload_mesh(torch, tmp)
+        emit({"phase": "offload", "o5": mesh})
+        ev = offload_eval(torch, mb, ops, optimizers, data)
+        emit({"phase": "offload", "o6": ev})
+        launches = {k: single["launches"][k] + entry["launches"][k]
+                    + ev["launches"][k]
+                    + sum(r["launches"][k] for r in mesh["per_rank"])
+                    for k in KERNELS}
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] > 0, f"the offload path launched {k}")
+        emit({"phase": "offload", "launches": launches, "card": smi,
+              "wall_seconds": time.perf_counter() - t0})
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -4373,6 +4924,9 @@ def main() -> int:
         persist_launches = phase_persist(torch, mb, ops, data, optimizers,
                                          tsv)
         torch.cuda.empty_cache()
+        offload_launches = phase_offload(torch, mb, ops, data, optimizers,
+                                         tsv, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -4385,8 +4939,9 @@ def main() -> int:
                    "zoo": zoo_launches[k],
                    "mesh": mesh_launches[k],
                    "persist": persist_launches[k],
+                   "offload": offload_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
-    for path in ("hash", "lr_example", "zoo", "mesh", "persist"):
+    for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

@@ -24,6 +24,13 @@ contents, and the JAX package's load of the same files slot for slot; the
 overflow counter restarts at the ids that found no slot. A checkpoint
 written by either package loads in the other. One device; the mesh's
 per-shard checkpoints are `parallel/checkpoint.py`'s.
+
+A host-cached table (`tables/host_offload.py`) writes its whole host store
+(`offload_stores`: `Trainer.offload_store_snapshots`), already id-sorted:
+the files of a hash table, so a trainer with or without the offload loads
+them. Loaded with `offload=` ({name: HostOffloadTable}), the rows go into
+the store and the cache is reset; a hash table's files from a trainer
+without the offload load the same way.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from __future__ import annotations
 import json
 import os
 import uuid
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -97,10 +104,13 @@ def compact_hash_table(ts) -> tuple:
 
 def save_server_model(state, model, path: str, *,
                       include_optimizer: bool = True,
-                      model_sign: str = "") -> ModelMeta:
+                      model_sign: str = "",
+                      offload_stores: Optional[Dict[str, Any]] = None
+                      ) -> ModelMeta:
     """Dump a `TrainState` into `path` (see the module docstring): a live
     state or its host copy (`parallel.checkpoint.snapshot_addressable`),
-    byte for byte alike."""
+    byte for byte alike. `offload_stores`: {name: HostStore} of the
+    host-cached tables, each written in place of the table's cache."""
     from .convert import table_to_numpy
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or f"{uuid.uuid4().hex}-{int(state.model_version)}"
@@ -111,6 +121,9 @@ def save_server_model(state, model, path: str, *,
         meta.variables.append(variable_meta(spec))
         if spec.sparse_as_dense:
             continue  # its table is in dense_params.npz
+        if offload_stores and name in offload_stores:
+            write_store(vdir, offload_stores[name], include_optimizer)
+            continue
         ts = state.tables[name]
         weights = table_to_numpy(ts.weights)
         slots = {k: _to_numpy(v) for k, v in ts.slots.items()}
@@ -125,6 +138,27 @@ def save_server_model(state, model, path: str, *,
                 np.save(os.path.join(vdir, f"slot_{slot_name}.npy"), arr)
     write_dense_and_meta(state, model, path, meta, include_optimizer)
     return meta
+
+
+def write_store(vdir: str, store, include_optimizer: bool) -> None:
+    """A host store as a compacted hash table: `ids.npy`, `weights.npy` and
+    (with the optimizer) `slot_<name>.npy`, id-sorted."""
+    os.makedirs(vdir, exist_ok=True)
+    np.save(os.path.join(vdir, "ids.npy"), store.ids)
+    np.save(os.path.join(vdir, "weights.npy"), store.weights)
+    if include_optimizer:
+        for slot_name, arr in store.slots.items():
+            np.save(os.path.join(vdir, f"slot_{slot_name}.npy"), arr)
+
+
+def store_rows(weights: np.ndarray) -> np.ndarray:
+    """Saved weight rows as the store's float32 (a bfloat16 table's 2-byte
+    words widened)."""
+    if weights.dtype.itemsize == 2 and (weights.dtype.kind == "V"
+                                        or weights.dtype.name == "bfloat16"):
+        return torch.from_numpy(np.ascontiguousarray(weights).view(
+            np.int16)).view(torch.bfloat16).float().numpy()
+    return np.asarray(weights, np.float32)
 
 
 def variable_meta(spec) -> ModelVariableMeta:
@@ -163,19 +197,30 @@ def write_dense_and_meta(state, model, path: str, meta: ModelMeta,
             json.dump(model.config, f, indent=2, sort_keys=True)
 
 
-def load_server_model(state, model, path: str):
+def load_server_model(state, model, path: str, *,
+                      offload: Optional[Dict[str, Any]] = None):
     """Restore a checkpoint into `state` (a `TrainState` of the same model,
     e.g. from `Trainer.init`) in place, and return it. Tables and slots keep
     their device and dtype. A dense slot or table slot missing from the
     checkpoint, or saved with another shape (another optimizer), keeps the
     state's value; so does every row of a hash table that no loaded id
-    takes."""
+    takes. `offload`: {name: HostOffloadTable} of the host-cached tables,
+    loaded into their stores (`HostOffloadTable.load_store`)."""
     from .convert import tables_from_numpy
     _, extra = read_meta(path, model)
     device = load_dense(state, model, path)
     for name, spec in model.ps_specs().items():
         vdir = os.path.join(path, f"variable_{spec.variable_id}")
         ts = state.tables[name]
+        if offload and name in offload:
+            slots = {k: np.load(os.path.join(vdir, f"slot_{k}.npy"))
+                     for k in ts.slots
+                     if os.path.exists(os.path.join(vdir, f"slot_{k}.npy"))}
+            offload[name].load_store(
+                np.load(os.path.join(vdir, "ids.npy")),
+                store_rows(np.load(os.path.join(vdir, "weights.npy"))),
+                slots)
+            continue
         w = tables_from_numpy({"w": np.load(os.path.join(vdir, "weights.npy"))},
                               device=device)["w"]
         slot_files = {k: os.path.join(vdir, f"slot_{k}.npy") for k in ts.slots}

@@ -465,3 +465,97 @@ def mesh_state_to_jax(rank_states) -> Dict:
                 for k in t["mig"]["slots"]}}
         out["tables"][name] = table
     return out
+
+
+# -- host-cached tables (`tables/host_offload.py`) -----------------------------
+
+
+def offload_to_jax(ot) -> Dict:
+    """A `HostOffloadTable` as numpy in the JAX package's layout: {"store":
+    {"ids", "weights", "slots"} (drained first), "resident" (sorted int64
+    ids), "ref" (their clock bits), "shard_counts", "overflow_flushed",
+    "table": the cache as `train_state_to_jax` gives a hash table}. Every
+    array is a copy."""
+    ot.store.drain()
+    t = ot.state
+    return {
+        "store": {"ids": ot.store.ids.copy(),
+                  "weights": ot.store.weights.copy(),
+                  "slots": {k: v.copy() for k, v in ot.store.slots.items()}},
+        "resident": ot._resident_sorted.copy(), "ref": ot._ref.copy(),
+        "shard_counts": ot._shard_counts.copy(),
+        "overflow_flushed": int(ot._overflow_flushed),
+        "table": {"weights": np.array(table_to_numpy(t.weights), copy=True),
+                  "slots": {k: v.detach().cpu().numpy().copy()
+                            for k, v in t.slots.items()},
+                  "keys": t.keys.detach().cpu().numpy().copy(),
+                  "overflow": int(t.overflow)}}
+
+
+def offload_from_jax(source, ot) -> None:
+    """Carry a JAX `HostOffloadTable` (read through `np.asarray`, any mesh
+    size) or `offload_to_jax`'s dict into the port's `ot`, in place: the
+    store (its pending chunks drained), the residency, its clock bits and
+    shard counts, the banked overflow and the cache, whose tensors keep
+    their identity. Split-pair uint32 keys (`keys.ndim == 2`) are joined
+    to int64 and re-inserted by their ids (`np_hash_insert`): such a cache
+    equals the JAX one by id, not slot for slot. On a mesh rank `ot`
+    takes rank r's rows of a shard-major cache and the store rows it
+    owns."""
+    if not isinstance(source, Mapping):
+        source.store.drain()
+        st = source.state
+        source = {
+            "store": {"ids": source.store.ids,
+                      "weights": source.store.weights,
+                      "slots": source.store.slots},
+            "resident": source._resident_sorted, "ref": source._ref,
+            "shard_counts": source._shard_counts,
+            "overflow_flushed": source._overflow_flushed,
+            "table": {"weights": np.asarray(st.weights),
+                      "slots": {k: np.asarray(v)
+                                for k, v in st.slots.items()},
+                      "keys": np.asarray(st.keys),
+                      "overflow": int(np.asarray(st.overflow))}}
+    S, r = ot.num_shards, ot.rank
+    store = source["store"]
+    ids = np.asarray(store["ids"], np.int64)
+    mine = np.flatnonzero(ids % S == r)
+    ot.store.replace_all(ids[mine], np.asarray(store["weights"])[mine],
+                         {k: np.asarray(v)[mine]
+                          for k, v in store["slots"].items()})
+    ot._resident_sorted = np.asarray(source["resident"], np.int64).copy()
+    ot._ref = np.asarray(source["ref"], bool).copy()
+    ot._shard_counts = np.asarray(source["shard_counts"], np.int64).copy()
+    ot._overflow_flushed = int(source["overflow_flushed"])
+    ot._defer_count = 0
+    ot._epoch += 1
+    t = source["table"]
+    rps = ot.rows_per_shard
+    keys = np.asarray(t["keys"])
+    weights = np.asarray(t["weights"])
+    slots = {k: np.asarray(v, np.float32) for k, v in t["slots"].items()}
+    if keys.ndim == 2:
+        from .tables.hash_table import np_hash_insert, np_resident_ids
+        sel, joined = np_resident_ids(keys)
+        src = np.flatnonzero(sel)
+        out = np.full(keys.shape[0], -1, np.int64)
+        pos = np_hash_insert(out, joined, S)
+        ok = pos >= 0
+
+        def move(a):
+            moved = a.copy()
+            moved[pos[ok]] = a[src[ok]]
+            return moved
+
+        keys, weights = out, move(weights)
+        slots = {k: move(v) for k, v in slots.items()}
+    rows = slice(r * rps, (r + 1) * rps)
+    dev = ot.state.weights.device
+    with torch.no_grad():
+        ot.state.keys.copy_(torch.from_numpy(np.array(keys[rows], np.int64)))
+        ot.state.weights.copy_(tables_from_numpy(
+            {"w": weights[rows]}, device=dev)["w"])
+        for k, v in ot.state.slots.items():
+            v.copy_(torch.from_numpy(np.array(slots[k][rows])))
+        ot.state.overflow.fill_(int(t["overflow"]))

@@ -6,7 +6,8 @@ counter) and its init, the serving lookup, the training pull
 (`lookup_train`) and push (`apply_gradients`), the validity masks and the
 combiner pooling. Array tables index rows by id; hash tables
 (`input_dim=-1`, the 63-bit hashed id space) probe `tables/hash_table.py`.
-Host-cached tables are not ported yet (ROADMAP.md A.4).
+A host-cached hash table (`storage="host_cached"`) keeps its state here as
+the device cache of `tables/host_offload.py`, which the trainers drive.
 
 Ids are single-lane int64 tensors throughout the port: torch has int64 on
 every device, so the JAX package's split-pair uint32 id layout has no
@@ -195,11 +196,8 @@ def init_table_state(spec: EmbeddingSpec, optimizer: SparseOptimizer,
     """Weights from the spec's initializer (drawn from `generator`, on its
     device) and the optimizer's slots at their initial values; with
     `num_shards`, one shard of the table (`init_table`).
-    `error_feedback`: a zero `ef` residual beside the weights."""
-    if spec.storage != "hbm":
-        raise NotImplementedError(
-            f"variable {spec.name!r}: storage={spec.storage!r} (host-cached "
-            "tables) is not ported yet (ROADMAP.md A.4)")
+    `error_feedback`: a zero `ef` residual beside the weights. A
+    host-cached table's state is its device cache (`capacity` slots)."""
     weights = init_table(spec, generator, num_shards)
     slots = optimizer.init_slots(weights.shape[0], spec.output_dim,
                                  spec.dtype, device=weights.device)

@@ -26,6 +26,13 @@ Flag map to the reference benchmark, as in the JAX script:
   --prefetch    batches reach the card through pinned memory on a side stream
                 (`data.prefetch_to_device`)
   --save/--load/--export  checkpoint, resume, standalone serving export
+  --offload SLOTS  the table bigger than the card: a SLOTS-slot hashed
+                device cache in front of the whole table in host RAM
+                (storage="host_cached", `tables/host_offload.py`): each
+                step's ids are admitted first (`Trainer.offload_prepare`,
+                fed the host batch), a --scan window's union at once
+                (`offload_train_many`); --save, --export and --persist
+                write the host store. Not with --cache.
   --persist ROOT    the reference's pmem AutoPersist: an async persist every
                 --persist-steps steps (`persist.AsyncPersister`), or with
                 --persist-incremental a full base and touched-row deltas
@@ -85,7 +92,6 @@ FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
 
 # flag -> (its default, what is missing, the ROADMAP.md item)
 NOT_PORTED = {
-    "offload": (0, "host-cached tables", "4"),
     "report_interval": (0.0, "metrics reporting (utils/metrics)", "6"),
     "metrics_log": ("", "metrics reporting (utils/metrics)", "6"),
     "profile": ("", "the profiler trace of the train loop", "6"),
@@ -136,6 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--capacity-factor", type=float, default=0.0)
     ap.add_argument("--on-overflow", default="count",
                     choices=["count", "grow", "raise"])
+    ap.add_argument("--offload", type=int, default=0, metavar="SLOTS",
+                    help="train the table bigger than the card: a SLOTS-row "
+                         "device cache, the whole table in host RAM "
+                         "(storage='host_cached', tables/host_offload.py)")
     ap.add_argument("--persist", default="", metavar="ROOT",
                     help="async persist root dir")
     ap.add_argument("--persist-steps", type=int, default=50)
@@ -144,7 +154,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "the rows touched since the last persist "
                          "(persist.IncrementalPersister)")
     g = ap.add_argument_group("not ported (raise NotImplementedError)")
-    g.add_argument("--offload", type=int, default=0, metavar="SLOTS")
     g.add_argument("--report-interval", type=float, default=0.0)
     g.add_argument("--metrics-log", default="", metavar="PATH")
     g.add_argument("--profile", default="", metavar="DIR")
@@ -156,12 +165,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_model(args, recipe):
     """The zoo model of the recipe, its table sparse_as_dense under
-    --cache."""
+    --cache, a host-cached hash table of --offload slots under
+    --offload."""
     model = zoo.from_config(recipe)
+    spec = model.specs["categorical"]
     if args.cache > 0 and args.vocabulary <= args.cache:
-        spec = model.specs["categorical"]
         model.specs["categorical"] = dataclasses.replace(
             spec, sparse_as_dense=True)
+    if args.offload > 0:
+        model.specs["categorical"] = dataclasses.replace(
+            spec, input_dim=-1, capacity=args.offload,
+            storage="host_cached", sparse_as_dense=False)
     return model
 
 
@@ -203,6 +217,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.mesh and args.export and not args.save:
         parser.error("--export under --mesh exports from the sharded "
                      "checkpoint: give --save too")
+    if args.offload > 0 and args.cache > 0:
+        parser.error("--cache (dense-mirrored) and --offload (host-cached) "
+                     "are mutually exclusive")
     device = resolve_device(args.device)
     recipe = {"family": args.model, "vocabulary": args.vocabulary,
               "dim": args.dim}
@@ -212,6 +229,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.cache > 0 and args.vocabulary <= args.cache:
         print(f"cache mode: categorical ({args.vocabulary}) is "
               "dense-mirrored")
+    if args.offload > 0:
+        print(f"offload mode: {args.offload}-row device cache, the whole "
+              "table in host RAM")
     opt = OPTIMIZERS[args.optimizer](args.learning_rate)
     mesh = None
     if args.mesh:
@@ -239,7 +259,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         batches = _local_batches(batches, mesh)
         device = mesh.device
     host = None
-    if args.persist:
+    if args.persist or args.offload:
         host = collections.deque()
         batches = _tap(batches, host)
     if args.prefetch:
@@ -252,21 +272,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
 def _tap(batches, host):
     """The batches, each also appended to `host` as the host read it: the
-    persister observes the trained batches from there, in order, whatever
-    the prefetch holds on the card."""
+    host-cached table's admission and the persister read the trained
+    batches from there, in order, whatever the prefetch holds on the
+    card."""
     for b in batches:
         host.append(b)
         yield b
 
 
-def _persisted(persister, host, state, steps: int) -> None:
-    """The `steps` host batches just trained, observed (an incremental
+def _persisted(persister, read, state) -> None:
+    """The host batches just trained (`read`), observed (an incremental
     persister), then the policy's persist."""
-    for _ in range(steps):
-        b = host.popleft()
-        if hasattr(persister, "observe"):
+    if hasattr(persister, "observe"):
+        for b in read:
             persister.observe(b)
     persister.maybe_persist(state)
+
+
+def _take(host, steps: int) -> list:
+    """The next `steps` host batches (none without a tap)."""
+    return [host.popleft() for _ in range(steps)] if host is not None else []
 
 
 def _local_batches(batches, mesh):
@@ -296,6 +321,7 @@ def _check_drops(trainer, pending) -> None:
 
 def _train(args, model, trainer, batches, device, recipe, host) -> dict:
     mesh = getattr(trainer, "mesh", None) is not None
+    offload = args.offload > 0
     first = next(batches)
     state = trainer.init(first)
     if args.load:
@@ -319,10 +345,16 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
         while done < args.steps:
             while len(window) < min(args.scan, args.steps - done):
                 window.append(next(batches))
-            state, m = many(state, stack_batches(window))
+            read = _take(host, len(window))
+            if offload:
+                # one admission of the window's union, then the window
+                state, m = trainer.offload_train_many(
+                    state, stack_batches(window), driver=many)
+            else:
+                state, m = many(state, stack_batches(window))
             losses.append(m["loss"].clone())
             if persister is not None:
-                _persisted(persister, host, state, len(window))
+                _persisted(persister, read, state)
             if mesh:
                 _check_drops(trainer, _drops(m))
             if not done:  # the steady rate leaves out the first window
@@ -337,21 +369,27 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
     else:
         step = trainer.train_step if args.eager else trainer.jit_train_step()
         driver = step
+        read = _take(host, 1)
+        if offload:
+            state = trainer.offload_prepare(state, read[0])
         state, m = step(state, first)
         losses.append(m["loss"].clone().reshape(1))
         if persister is not None:
-            _persisted(persister, host, state, 1)
+            _persisted(persister, read, state)
         pending = _drops(m) if mesh else None
         _sync(device)
         t1, steady_steps = time.perf_counter(), args.steps - 1
         for i in range(1, args.steps):
             batch = next(batches)
+            read = _take(host, 1)
+            if offload:
+                state = trainer.offload_prepare(state, read[0])
             state, m = step(state, batch)
             losses.append(m["loss"].clone().reshape(1))
             labels.append(batch["label"])
             scores.append(m["logits"].reshape(-1).clone())
             if persister is not None:
-                _persisted(persister, host, state, 1)
+                _persisted(persister, read, state)
             if mesh:
                 pending = pending + _drops(m)
             if i % 20 == 0:
@@ -392,12 +430,16 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
                 one = Trainer(build_model(args, recipe), trainer.optimizer,
                               device=device)
                 whole = one.load(one.init(first), args.save)
-                export_standalone(whole, one.model, args.export)
+                export_standalone(
+                    whole, one.model, args.export,
+                    offload_stores=one.offload_store_snapshots(whole))
                 del one, whole
             from ..parallel.collectives import barrier
             barrier(trainer.mesh)
         else:
-            export_standalone(state, model, args.export)
+            export_standalone(
+                state, model, args.export,
+                offload_stores=trainer.offload_store_snapshots(state))
         print(f"standalone serving export -> {args.export}")
     return {"model": model, "trainer": trainer, "state": state,
             "driver": driver, "steps": trained,

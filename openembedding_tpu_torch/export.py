@@ -95,15 +95,20 @@ def load_model_config(path: str) -> Optional[EmbeddingModel]:
 
 def export_standalone(state: Union[WeightsState, TrainState],
                       model: EmbeddingModel, path: str,
-                      *, model_sign: str = "") -> ModelMeta:
+                      *, model_sign: str = "",
+                      offload_stores: Optional[Dict[str, Any]] = None
+                      ) -> ModelMeta:
     """Write every embedding variable and the dense module into a
     self-contained directory, from fresh weights or from a training state.
     Weights only (no optimizer slots). A hash table writes its resident
     ids sorted (`ids.npy`) and their rows (fresh weights from
     `init_weights` hold no id). A sparse_as_dense table is written as a
-    plain array table, and served like one. A ZeRO mesh state whose params
-    are the dense wire's bfloat16 carrier is refused: write
-    `MeshTrainer.externalize(state)`, which holds the masters."""
+    plain array table, and served like one. `offload_stores` ({name:
+    HostStore}, `Trainer.offload_store_snapshots(state)`) gives a
+    host-cached table's whole table: its cache holds only the resident
+    rows. A ZeRO mesh state whose params are the dense wire's bfloat16
+    carrier is refused: write `MeshTrainer.externalize(state)`, which holds
+    the masters."""
     from .checkpoint import compact_hash_table
     from .parallel import zero
     if isinstance(state, TrainState) and zero.DENSE_MASTER_KEY in \
@@ -117,7 +122,10 @@ def export_standalone(state: Union[WeightsState, TrainState],
     meta = ModelMeta(model_sign=model_sign, uri=path, num_shards=1)
     for name, spec in model.specs.items():
         ids = None
-        if isinstance(state, TrainState):
+        if offload_stores and name in offload_stores:
+            store = offload_stores[name]  # the whole table, id-sorted
+            ids, weights = store.ids, torch.from_numpy(store.weights)
+        elif isinstance(state, TrainState):
             weights = (state.embeddings[name] if spec.sparse_as_dense
                        else state.tables[name].weights)
             if spec.use_hash_table:

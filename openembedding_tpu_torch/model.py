@@ -3,9 +3,11 @@
 Port of `openembedding_tpu/model.py` for one device: `EmbeddingModel`,
 `binary_logloss`, `IDS_KEY`/`attach_ids`, `sad_rows`, `WeightsState` (the
 tables and dense module an export is written from), `TrainState`, the
-dense-path optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer` and
-its compiled steps (`CompiledStep`: a step or a `train_many` window as a
-CUDA graph).
+dense-path optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer`
+with its host-cached tables' drivers (`offload_prepare`, `offload_stage`,
+`offload_train_many`, `offload_flush`, `offload_store_snapshots`;
+`tables/host_offload.py`) and its compiled steps (`CompiledStep`: a step, a
+`train_many` window or `eval_step` as a CUDA graph).
 
 The dense module is a `torch.nn.Module` called as `module(embedded, dense)`
 where `embedded` maps variable name -> (B, ..., dim) pulled rows.
@@ -405,11 +407,24 @@ class Trainer:
 
     def __init__(self, model: EmbeddingModel,
                  optimizer: Optional[SparseOptimizer] = None, seed: int = 0,
-                 *, device=None):
+                 *, device=None, offload_pipeline: bool = False,
+                 offload_densify: int = 1, offload_stage_depth: int = 1):
         self.model = model
         self.optimizer = optimizer or Adagrad()
         self.seed = seed
         self.device = resolve_device(device)
+        # the host-cached tables' knobs (`tables/host_offload.py`): staging
+        # a batch's store lookup and upload ahead on a worker
+        # (`offload_stage`), up to `offload_stage_depth` batches ahead, and
+        # `offload_densify` K: K eviction writebacks folded into one merge
+        self.offload_pipeline = bool(offload_pipeline)
+        self.offload_densify = int(offload_densify)
+        self.offload_stage_depth = int(offload_stage_depth)
+        # {name: HostOffloadTable} of the storage="host_cached" tables,
+        # filled by `init`; empty when every table lives on the card
+        self.offload: Dict[str, Any] = {}
+        self._offload_prepared = False
+        self._offload_many = None
 
     # bumped when what a captured step holds stops being valid (the mesh's
     # bucket capacity grew): every `CompiledStep` then captures anew
@@ -434,10 +449,14 @@ class Trainer:
         (a sparse_as_dense table with the dense slots); the dense module
         from one forward pass over `sample_batch`."""
         model = self.model
-        tables = {name: init_table_state(
-                      spec, self.opt_for(spec),
-                      _table_generator(self.seed, spec, self.device))
-                  for name, spec in model.ps_specs().items()}
+        tables = {}
+        for name, spec in model.ps_specs().items():
+            if spec.storage == "host_cached":
+                tables[name] = self._offload_table(spec).state
+            else:
+                tables[name] = init_table_state(
+                    spec, self.opt_for(spec),
+                    _table_generator(self.seed, spec, self.device))
         embeddings = {name: init_table(
                           spec, _table_generator(self.seed, spec,
                                                  self.device))
@@ -451,26 +470,130 @@ class Trainer:
             dense_slots=init_dense_slots(self.optimizer, dense, embeddings),
             tables=tables, model_version=0, embeddings=embeddings)
 
+    def _offload_table(self, spec: EmbeddingSpec):
+        """A host-cached table's `HostOffloadTable` (a new one at every
+        `init`, as the JAX package's `init_tables` makes it), kept in
+        `self.offload`; on a `parallel.MeshTrainer` this rank's shard of the
+        row-sharded cache."""
+        from .tables.host_offload import HostOffloadTable
+        old = self.offload.get(spec.name)
+        if old is not None:
+            old.close()
+        ot = HostOffloadTable(
+            spec, self.opt_for(spec), seed=self.seed,
+            mesh=getattr(self, "mesh", None), device=self.device,
+            pipeline=self.offload_pipeline, densify_k=self.offload_densify,
+            stage_depth=self.offload_stage_depth)
+        self.offload[spec.name] = ot
+        return ot
+
     # -- checkpoints ---------------------------------------------------------
 
     def save(self, state: TrainState, path: str, **kw):
         """`checkpoint.save_server_model` of the state into the local
         directory `path` (remote URIs: ROADMAP.md item 7); pass
-        `include_optimizer=False` to leave the optimizer slots out."""
+        `include_optimizer=False` to leave the optimizer slots out. A
+        host-cached table writes its whole store, the residents written
+        back first (`offload_store_snapshots`)."""
         from .checkpoint import save_server_model
-        return save_server_model(state, self.model, local_path(path), **kw)
+        return save_server_model(
+            state, self.model, local_path(path),
+            offload_stores=self.offload_store_snapshots(state), **kw)
 
     def load(self, state: TrainState, path: str) -> TrainState:
         """`checkpoint.load_server_model` from the local directory `path`
         into `state`, in place; returns it. A sharded checkpoint (written by
         `parallel.MeshTrainer.save` at any mesh size) loads through
-        `parallel/checkpoint.load_sharded`, as in the JAX package."""
+        `parallel/checkpoint.load_sharded`, as in the JAX package. A
+        host-cached table loads into its store, its cache reset."""
         from .checkpoint import load_server_model
         from .parallel.checkpoint import checkpoint_layout, load_sharded
         path = local_path(path)
         if checkpoint_layout(path) == "sharded":
-            return load_sharded(state, self.model, path)
-        return load_server_model(state, self.model, path)
+            return load_sharded(state, self.model, path,
+                                offload=self._adopted(state))
+        return load_server_model(state, self.model, path,
+                                 offload=self._adopted(state))
+
+    def _adopted(self, state: TrainState) -> Dict[str, Any]:
+        """`self.offload`, each table holding `state`'s cache."""
+        for name, ot in self.offload.items():
+            ot.adopt(state.tables[name])
+        return self.offload
+
+    # -- host-cached tables (`tables/host_offload.py`) -----------------------
+    #
+    # The ids are known on the host from the input pipeline, so the trainer
+    # drives the cache around the step:
+    #
+    #     state = trainer.offload_prepare(state, batch)   # admit / evict
+    #     state, metrics = step(state, batch)             # the card's step
+    #
+    # For a K-step window, `offload_train_many` admits the union of the K
+    # batches first.
+
+    def offload_prepare(self, state: TrainState, batch) -> TrainState:
+        """Admit the batch's ids (numpy or tensors; a stacked window's too)
+        into each host-cached table's cache, evicting or flushing first
+        where a cache would pass its high-water mark; returns `state`, its
+        caches updated in place. No-op without host-cached tables."""
+        if not self.offload:
+            return state
+        batch = self._host_transformed(batch)
+        for name, ot in self._adopted(state).items():
+            ot.prepare(batch["sparse"][self.model.specs[name].feature_name])
+        self._offload_prepared = True  # train_many's guard
+        return state
+
+    def _host_transformed(self, batch):
+        """The batch as the step sees it, its ids on the host: the model's
+        `batch_transform` (torch ops) runs on CPU tensors."""
+        if self.model.batch_transform is None:
+            return batch
+        return self.model.batch_transform(_batch_to_device(batch, "cpu"))
+
+    def offload_stage(self, batch) -> None:
+        """Start a future batch's store lookup and upload on each table's
+        staging worker while the card runs the current step (no-op unless
+        the trainer was built with `offload_pipeline=True`):
+
+            trainer.offload_stage(batches[0])
+            for i, batch in enumerate(batches):
+                state = trainer.offload_prepare(state, batch)  # consumes
+                if i + 1 < len(batches):
+                    trainer.offload_stage(batches[i + 1])      # overlaps
+                state, m = step(state, batch)
+
+        With `offload_stage_depth=D` up to D batches may be staged ahead.
+        A stage is a hint: `offload_prepare` checks it and takes the
+        synchronous path where it no longer holds."""
+        if not self.offload:
+            return
+        batch = self._host_transformed(batch)
+        for name, ot in self.offload.items():
+            ot.stage(batch["sparse"][self.model.specs[name].feature_name])
+
+    def offload_flush(self, state: TrainState) -> TrainState:
+        """Every resident row written back to the store and the caches
+        reset, in place (end of training, or before handing tables
+        elsewhere)."""
+        for ot in self._adopted(state).values():
+            ot.flush()
+        return state
+
+    def offload_store_snapshots(self, state: Optional[TrainState] = None
+                                ) -> Dict[str, Any]:
+        """{name: HostStore copy} with every resident row written back:
+        what checkpoints, exports and persists write for a host-cached
+        table (on a mesh rank, the rows it owns). Empty without host-cached
+        tables."""
+        if state is not None:
+            self._adopted(state)
+        out = {}
+        for name, ot in self.offload.items():
+            ot.sync_to_store()
+            out[name] = ot.store.snapshot()
+        return out
 
     def load_into(self, state: TrainState, fill) -> TrainState:
         """`fill(state)` writes a restored state into `state` in place
@@ -496,12 +619,14 @@ class Trainer:
 
     def table_overflow(self, state: TrainState, name: str) -> int:
         """Lifetime count of the ids a hash table's pulls found no slot for
-        (0 for an array table); reads the device counter back to the
-        host."""
+        (0 for an array table); reads the device counter back to the host.
+        A host-cached table's count includes what earlier caches banked
+        (its device counter restarts at 0 at every flush)."""
         ts = state.tables.get(name)
-        if ts is None or ts.overflow is None:
-            return 0
-        return int(ts.overflow)
+        dev = 0 if ts is None or ts.overflow is None else int(ts.overflow)
+        if name in self.offload:
+            return self.offload[name]._overflow_flushed + dev
+        return dev
 
     # -- the packed weights+slots layout of train_many ----------------------
 
@@ -693,7 +818,7 @@ class Trainer:
         (B,), "stats": {"<table>_overflow": () int32 per hash table}});
         nothing is read back to the host. The JAX package's single-device
         step has no overflow stats (ROADMAP.md §C); the numerics sentinel's
-        stats are not ported (ROADMAP.md item 1.5)."""
+        stats are not ported (ROADMAP.md item 6)."""
         with record_function("trainer.h2d"):
             b = self._device_batch(batch)
         loss, logits, stats = self._step(state, b, {})
@@ -703,6 +828,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        """Read-only pulls (nothing inserted), the forward pass and the loss
+        -> {"logits", "loss"}."""
         b = _transformed(self.model, self._device_batch(batch))
         embedded = {}
         for name, spec in self.model.ps_specs().items():
@@ -726,6 +853,7 @@ class Trainer:
         counter apart, updated in place), copies the values back into the
         split tensors at exit; the state's split table objects are back in
         place whatever happens."""
+        self._check_offload_prepared()
         layouts = self._packed_layouts(state)
         split = {name: state.tables[name] for name in layouts}
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -773,24 +901,68 @@ class Trainer:
         state.model_version += k_steps
         return state, metrics
 
+    def _check_offload_prepared(self) -> None:
+        """A window over host-cached tables needs the union of its batches
+        admitted first: an unprepared cache would train initializer rows
+        where the store holds trained ones."""
+        if self.offload and not self._offload_prepared:
+            raise ValueError(
+                "train_many on storage='host_cached' tables needs the union "
+                "of the K batches' ids admitted first: use "
+                "trainer.offload_train_many(state, batches) (or call "
+                "offload_prepare(state, batches) before every window).")
+
+    def offload_train_many(self, state: TrainState, batches, *,
+                           driver=None
+                           ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """A K-step window over host-cached tables: one admission of the
+        union of the K batches' ids (evicting or flushing first where
+        needed), then the window through `driver` (default: a
+        `jit_train_many` the trainer keeps, a CUDA graph on the card; or
+        `train_many`, or another `jit_train_many()`). Each cache must hold
+        the union: size `capacity` (and K) so that the union stays under
+        the high-water mark, or the admission warns and the ids that
+        overflow train initializer rows. Without host-cached tables it is
+        the plain window."""
+        state = self.offload_prepare(state, batches)
+        state, m = (driver or self._many_driver())(state, batches)
+        self._adopted(state)
+        return state, m
+
+    def _many_driver(self):
+        """The window driver `offload_train_many` keeps: `jit_train_many`."""
+        if self._offload_many is None:
+            self._offload_many = self.jit_train_many()
+        return self._offload_many
+
     # -- compiled steps ------------------------------------------------------
 
     def jit_train_step(self) -> "CompiledStep":
         """`train_step` as a CUDA graph: `step(state, batch) -> (state,
         metrics)`, the state updated in place (see `CompiledStep`)."""
-        return CompiledStep(self, many=False)
+        return CompiledStep(self, kind="step")
 
     def jit_train_many(self) -> "CompiledStep":
         """A whole `train_many` window (its K steps, and the pack and unpack
         where the gate packs) as one CUDA graph, one dispatch per window:
         the port's counterpart of the jitted scan (see `CompiledStep`)."""
-        return CompiledStep(self, many=True)
+        return CompiledStep(self, kind="many")
+
+    def jit_eval_step(self) -> "CompiledStep":
+        """`eval_step` as a CUDA graph: `fn(state, batch) -> {"logits",
+        "loss"}`, the graph's static outputs (clone to keep), bit-equal to
+        the eager `eval_step`; captured and kept per batch structure and
+        state as `jit_train_step`'s graphs are (see `CompiledStep`). On the
+        CPU it runs `eval_step`."""
+        return CompiledStep(self, kind="eval")
 
 
 class CompiledStep:
-    """`Trainer.train_step` or a `Trainer.train_many` window captured as a
-    CUDA graph. Called as `step(state, batch) -> (state, metrics)`, like the
-    JAX package's jitted step functions; the state is updated in place.
+    """`Trainer.train_step`, a `Trainer.train_many` window (`kind="many"`)
+    or `Trainer.eval_step` (`kind="eval"`) captured as a CUDA graph. Called
+    as `step(state, batch) -> (state, metrics)`, like the JAX package's
+    jitted step functions, the state updated in place; the eval graph as
+    `fn(state, batch) -> {"logits", "loss"}`, reading the state only.
 
     On the card:
 
@@ -807,7 +979,7 @@ class CompiledStep:
       whose exchange capacity grew), drops every graph and captures anew.
     - Every later call copies the batch into its graph's static device
       buffers (outside the graph), replays the graph (one dispatch) and
-      advances the state's step counters.
+      advances the state's step counters (a train step's).
     - `metrics` are the graph's static outputs ("loss", "logits" and
       "stats"; for a window what `train_many` returns: "loss" (K,) and
       "overflow", and a pipelined mesh window's "conflict" and
@@ -831,9 +1003,14 @@ class CompiledStep:
 
     MAX_GRAPHS = 4
 
-    def __init__(self, trainer: Trainer, *, many: bool):
+    KINDS = ("step", "many", "eval")
+
+    def __init__(self, trainer: Trainer, *, kind: str = "step"):
+        if kind not in self.KINDS:
+            raise ValueError(f"kind={kind!r}: expected one of {self.KINDS}")
         self.trainer = trainer
-        self.many = many
+        self.kind = kind
+        self.many = kind == "many"
         self.captures = 0
         self.replays = 0
         self.launches_captured: Dict[str, int] = {}
@@ -855,22 +1032,32 @@ class CompiledStep:
 
     def _run(self, state: TrainState, b) -> Dict[str, torch.Tensor]:
         tr = self.trainer
+        if self.kind == "eval":
+            return tr.eval_step(state, b)
         if self.many:
             return tr._many(state, b)
         loss, logits, stats = tr._step(state, b, {})
         return {"loss": loss, "logits": logits, "stats": stats}
 
     def _advance(self, state: TrainState, batch) -> None:
+        if self.kind == "eval":
+            return
         k = len(batch["label"]) if self.many else 1
         state.step += k
         state.model_version += k
 
-    def __call__(self, state: TrainState, batch
-                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def _result(self, state: TrainState, metrics):
+        return metrics if self.kind == "eval" else (state, metrics)
+
+    def __call__(self, state: TrainState, batch):
         tr = self.trainer
         if tr.device.type != "cuda":
+            if self.kind == "eval":
+                return tr.eval_step(state, batch)
             return (tr.train_many(state, batch) if self.many
                     else tr.train_step(state, batch))
+        if self.many:
+            tr._check_offload_prepared()
         key = _batch_key(batch)
         if (state is not self._state or _state_key(state) != self._state_ptrs
                 or tr.graph_epoch != self._epoch):
@@ -888,7 +1075,7 @@ class CompiledStep:
         for k, n in launches.items():
             self.launches_replayed[k] = self.launches_replayed.get(k, 0) + n
         self._advance(state, batch)
-        return state, static_out
+        return self._result(state, static_out)
 
     def _capture(self, state: TrainState, batch, key):
         from .ops import launch_counts
@@ -918,4 +1105,4 @@ class CompiledStep:
         self._state, self._state_ptrs = state, _state_key(state)
         self._graphs[key] = (graph, static_in, static_out, launches)
         self._advance(state, batch)
-        return state, out
+        return self._result(state, out)

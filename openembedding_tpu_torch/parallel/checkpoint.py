@@ -31,6 +31,14 @@ JAX package's `HostShardedArray` (the shards of a global array that one
 process holds) has no class here: a rank's tensors are its one shard
 already, so the snapshot is a `TrainState` of host tensors.
 
+A host-cached table (`tables/host_offload.py`) writes its host store:
+each rank the rows it owns (`offload_stores`: its
+`Trainer.offload_store_snapshots`), as that rank's hash shard, id-sorted.
+The JAX package, whose one process holds the whole store, writes it as
+one source shard and says so in the variable's meta (`src_shards: 1`);
+`load_sharded` reads either. Loaded with `offload=`, a rank's rows go
+into its store and its cache is reset.
+
 `load_sharded` restores such a checkpoint at ANY target mesh size: an
 index remap for array tables (id = l*S + s = m*T + t), a re-insert for
 hash tables (`np_hash_insert`, the device probe's sequence inside the
@@ -53,7 +61,8 @@ import torch
 from torch import nn
 
 from ..checkpoint import (MODEL_META_FILE, load_dense, load_hash_table,
-                          read_meta, variable_meta, write_dense_and_meta)
+                          read_meta, store_rows, variable_meta,
+                          write_dense_and_meta, write_store)
 from ..convert import table_to_numpy, tables_from_numpy
 from ..meta import ModelMeta
 
@@ -183,12 +192,15 @@ def snapshot_addressable(state):
 def save_sharded(state, model, path: str, *, num_shards: int = 1,
                  rank: int = 0, include_optimizer: bool = True,
                  model_sign: str = "",
-                 chunk_rows: int = DEFAULT_CHUNK_ROWS) -> ModelMeta:
+                 chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                 offload_stores: Optional[Dict] = None) -> ModelMeta:
     """Write rank `rank`'s shards of the train state into `path` (rank 0
     also the meta and the dense files). Every rank of the mesh calls it;
     the checkpoint is whole once all have returned (`MeshTrainer.save`
     waits at a barrier; a persist commits once every rank's done marker
-    is there). `state` is a live state or `snapshot_addressable`'s copy."""
+    is there). `state` is a live state or `snapshot_addressable`'s copy.
+    `offload_stores`: {name: this rank's HostStore} of the host-cached
+    tables, written in place of their caches."""
     os.makedirs(path, exist_ok=True)
     model_sign = model_sign or (f"{uuid.uuid4().hex}-"
                                 f"{int(state.model_version)}")
@@ -199,6 +211,9 @@ def save_sharded(state, model, path: str, *, num_shards: int = 1,
             continue  # lives in dense_params.npz
         sdir = _shard_dir(os.path.join(path, f"variable_{spec.variable_id}"),
                           rank, num_shards)
+        if offload_stores and name in offload_stores:
+            write_store(sdir, offload_stores[name], include_optimizer)
+            continue
         os.makedirs(sdir, exist_ok=True)
         ts = state.tables[name]
         arrays = {"weights": ts.weights}
@@ -228,6 +243,31 @@ def _slots_with_ef(ts) -> Dict[str, torch.Tensor]:
     if ts.ef is None:
         return dict(ts.slots)
     return {**ts.slots, EF_SLOT: ts.ef}
+
+
+def _load_store(ot, ts, src: Dict[int, str], T: int, rank: int) -> None:
+    """Every source shard's ids that rank `rank` of T owns, with their rows
+    and slot rows, into the host-cached table's store."""
+    ids, weights = [], []
+    slots = {k: [] for k in ts.slots}
+    for sdir in src.values():
+        src_ids = np.load(os.path.join(sdir, "ids.npy"))
+        sel = np.flatnonzero(src_ids % T == rank)
+        ids.append(src_ids[sel])
+        weights.append(store_rows(np.load(
+            os.path.join(sdir, "weights.npy"), mmap_mode="r")[sel]))
+        for k in list(slots):
+            p = os.path.join(sdir, f"slot_{k}.npy")
+            if os.path.exists(p):
+                slots[k].append(np.asarray(np.load(p, mmap_mode="r")[sel]))
+            else:
+                del slots[k]
+    dim = ts.weights.shape[1]
+    ot.load_store(
+        np.concatenate(ids) if ids else np.empty((0,), np.int64),
+        np.concatenate(weights) if weights else
+        np.empty((0, dim), np.float32),
+        {k: np.concatenate(v) for k, v in slots.items() if v})
 
 
 def checkpoint_layout(path: str) -> str:
@@ -268,20 +308,26 @@ def _array_target_shard(t: int, T: int, rows_t: int, src: Dict[int, str],
 
 
 def load_sharded(state, model, path: str, *, num_shards: int = 1,
-                 rank: int = 0):
+                 rank: int = 0, offload: Optional[Dict] = None):
     """Restore a checkpoint (either layout, written at any mesh size) into
     rank `rank`'s shard of a state split in `num_shards` (a `MeshTrainer`
     state; a single-device state is shard 0 of 1), in place; returns it.
     The host holds one target shard of one array at a time. A hash shard
     re-inserts the ids it owns, in source-shard order; its overflow counter
     becomes the ids of this shard that found no slot (`MeshTrainer.load`
-    sums them over the ranks)."""
+    sums them over the ranks). `offload`: {name: HostOffloadTable} of the
+    host-cached tables: the ids this rank owns load into its store."""
     meta, extra = read_meta(path, model)
     layout = extra.get("layout", "single")
-    S = meta.num_shards if layout == "sharded" else 1
+    # a variable may name its own source shards (the JAX package writes a
+    # host store as one)
+    src_shards = {v.storage_name: v.table.get("src_shards", meta.num_shards)
+                  for v in meta.variables}
     T = num_shards
     device = load_dense(state, model, path)
     for name, spec in model.ps_specs().items():
+        S = src_shards.get(name, meta.num_shards) \
+            if layout == "sharded" else 1
         src = _source_dirs(os.path.join(path,
                                         f"variable_{spec.variable_id}"),
                            layout)
@@ -290,6 +336,9 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
                 f"variable {name!r}: checkpoint has {len(src)} shard dirs, "
                 f"its meta says {S} (an incomplete dump?)")
         ts = state.tables[name]
+        if offload and name in offload:
+            _load_store(offload[name], ts, src, T, rank)
+            continue
         slots = _slots_with_ef(ts)
         first = next(iter(src.values()))
         names = ["weights"] + [f"slot_{k}" for k in slots if os.path.exists(

@@ -42,7 +42,13 @@ serial window at every wire format, residuals included, with the
 window's counters "conflict" and "conflict_overflow" (`conflict_factor`
 caps the patch).
 
-The JAX MeshTrainer's host offload, the numerics sentinel and
+Host-cached tables (`storage="host_cached"`, `tables/host_offload.py`):
+each rank holds its shard of the row-sharded cache and a store of the
+rows it owns; `offload_prepare` admits the union of every rank's batch
+ids, each rank the ids it owns. They carry no hot rows, migration or
+residuals (inert, as in the JAX MeshTrainer).
+
+The JAX MeshTrainer's numerics sentinel, `halt_on_nonfinite` and
 `measure_every` are not ported: setting one away from its default raises
 NotImplementedError naming its ROADMAP.md item.
 So does `refresh_hot_rows` without explicit ids, which reads the
@@ -83,10 +89,8 @@ from .sharded import (build_hot_identity, build_mig_identity,
 # constructor arguments of the JAX MeshTrainer the port does not have:
 # name -> (default, ROADMAP.md item)
 NOT_PORTED = {
-    "offload_pipeline": (False, "4"), "offload_densify": (1, "4"),
-    "offload_stage_depth": (1, "4"),
-    "sentinel": (False, "1.5"), "halt_on_nonfinite": (False, "1.5"),
-    "measure_every": (0, "1.5"),
+    "sentinel": (False, "6"), "halt_on_nonfinite": (False, "6"),
+    "measure_every": (0, "6"),
 }
 
 
@@ -144,7 +148,8 @@ class MeshTrainer(Trainer):
                  pipeline_steps: bool = False, conflict_factor: float = 0.0,
                  dense_shard: bool = False, dense_wire: Optional[str] = None,
                  dense_topk: Optional[int] = None, dense_stats: bool = False,
-                 **unported):
+                 offload_pipeline: bool = False, offload_densify: int = 1,
+                 offload_stage_depth: int = 1, **unported):
         for key, value in unported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"MeshTrainer got an unexpected argument "
@@ -155,7 +160,10 @@ class MeshTrainer(Trainer):
                     f"MeshTrainer({key}=...) is not ported yet (ROADMAP.md "
                     f"item {item})")
         self.mesh = mesh if mesh is not None else make_mesh()
-        super().__init__(model, optimizer, seed, device=self.mesh.device)
+        super().__init__(model, optimizer, seed, device=self.mesh.device,
+                         offload_pipeline=offload_pipeline,
+                         offload_densify=offload_densify,
+                         offload_stage_depth=offload_stage_depth)
         self.num_shards = self.mesh.size
         self.capacity_factor = capacity_factor
         if on_overflow not in ("count", "grow", "raise"):
@@ -234,10 +242,12 @@ class MeshTrainer(Trainer):
 
     def _placed(self, name: str) -> bool:
         """Whether a table can carry placement state: a table on the
-        exchange (not sparse_as_dense) of a mesh of two ranks or more."""
+        exchange (not sparse_as_dense) of a mesh of two ranks or more that
+        is not host-cached (its own cache tier governs it)."""
         spec = self.model.specs.get(name)
         return (self.num_shards > 1 and spec is not None
-                and not spec.sparse_as_dense)
+                and not spec.sparse_as_dense
+                and spec.storage != "host_cached")
 
     def _per_table(self, value, name: str) -> int:
         if isinstance(value, dict):
@@ -451,12 +461,15 @@ class MeshTrainer(Trainer):
         broadcast)."""
         model, mesh, device = self.model, self.mesh, self.device
         shard = (mesh.rank, mesh.size)
-        tables = {name: init_table_state(
-                      spec, self.opt_for(spec),
-                      _table_generator(self.seed, spec, device, shard),
-                      num_shards=mesh.size, error_feedback=self.ef_for(name))
-                  for name, spec in model.ps_specs().items()}
+        tables = {}
         for name, spec in model.ps_specs().items():
+            if spec.storage == "host_cached":
+                tables[name] = self._offload_table(spec).state
+                continue
+            tables[name] = init_table_state(
+                spec, self.opt_for(spec),
+                _table_generator(self.seed, spec, device, shard),
+                num_shards=mesh.size, error_feedback=self.ef_for(name))
             self._attach_empty(spec, tables[name])
         embeddings = {name: init_table(
                           spec, _table_generator(self.seed, spec, device))
@@ -645,7 +658,9 @@ class MeshTrainer(Trainer):
         from .checkpoint import save_sharded
         meta = save_sharded(self.externalize(state), self.model,
                             local_path(path), num_shards=self.num_shards,
-                            rank=self.mesh.rank, **kw)
+                            rank=self.mesh.rank,
+                            offload_stores=self.offload_store_snapshots(
+                                state), **kw)
         coll.barrier(self.mesh)
         return meta
 
@@ -662,7 +677,8 @@ class MeshTrainer(Trainer):
         from .checkpoint import load_sharded
         return self.load_into(state, lambda target: load_sharded(
             target, self.model, local_path(path),
-            num_shards=self.num_shards, rank=self.mesh.rank))
+            num_shards=self.num_shards, rank=self.mesh.rank,
+            offload=self._adopted(state)))
 
     def load_into(self, state: TrainState, fill) -> TrainState:
         """`load`'s path around `fill(target)`, which writes a restored
@@ -1021,6 +1037,7 @@ class MeshTrainer(Trainer):
 
     def _many(self, state: TrainState, b):
         """`Trainer._many`, pipelined where `_pipeline_on`."""
+        self._check_offload_prepared()
         if not self._pipeline_on():
             return super()._many(state, b)
         return self._many_pipelined(state, b)
@@ -1117,4 +1134,18 @@ class MeshTrainer(Trainer):
     def jit_train_many(self):
         self._graphs_allowed()
         return super().jit_train_many()
+
+    def jit_eval_step(self):
+        """`eval_step` as a CUDA graph (its pulls' exchange and the loss's
+        mean over the ranks captured, as the train step's collectives
+        are); none on a staged mesh."""
+        self._graphs_allowed()
+        return super().jit_eval_step()
+
+    def _many_driver(self):
+        """`offload_train_many`'s window: `train_many` on a staged mesh,
+        which has no graph driver."""
+        if self.mesh.staged:
+            return self.train_many
+        return super()._many_driver()
 

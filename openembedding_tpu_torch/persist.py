@@ -31,8 +31,16 @@ on-disk formats are the JAX package's: a root written by either package
 restores in the other, at any mesh size and on one device.
 
 Rank and mesh size come from the trainer's mesh (`parallel.MeshTrainer`;
-a single-device `Trainer` is rank 0 of 1). Host-cached tables
-(`storage="host_cached"`) are not ported (ROADMAP.md item 4).
+a single-device `Trainer` is rank 0 of 1).
+
+Host-cached tables (`storage="host_cached"`, `tables/host_offload.py`): a
+full persist writes each table's whole host store (the residents written
+back first, `Trainer.offload_store_snapshots`: a decoupled copy, taken
+after the earlier writes have drained, so at most one store copy waits),
+and an `IncrementalPersister` of such a trainer persists in full every
+time (its tables' touched rows are not tracked, as in the JAX package). A
+restore loads the stores and resets the caches; a delta replays into the
+store.
 """
 
 from __future__ import annotations
@@ -219,10 +227,18 @@ class AsyncPersister:
     def _persist_full(self, state, t0: float) -> str:
         from .parallel.checkpoint import snapshot_addressable
         step = int(state.step)
+        stores = {}
+        if getattr(self.trainer, "offload", None):
+            # a store copy is the whole table: drain the earlier writes
+            # first, so at most one copy waits (the device window stays)
+            self._q.join()
+            self._raise_pending_error()
+            stores = self.trainer.offload_store_snapshots(state)
         snapshot = snapshot_addressable(state)
         path = os.path.join(self.root, f"persist_{step:012d}")
         record = {"kind": "full", "step": step}
-        self._submit(lambda tmp: self._write_full_payload(snapshot, tmp),
+        self._submit(lambda tmp: self._write_full_payload(snapshot, stores,
+                                                          tmp),
                      step, path, record, t0)
         return path
 
@@ -255,16 +271,18 @@ class AsyncPersister:
             finally:
                 self._q.task_done()
 
-    def _write_full_payload(self, snapshot, tmp: str) -> None:
+    def _write_full_payload(self, snapshot, stores, tmp: str) -> None:
         if self.num_shards > 1:
             from .parallel.checkpoint import save_sharded
             save_sharded(snapshot, self.model, tmp,
                          num_shards=self.num_shards, rank=self.rank,
-                         include_optimizer=self.include_optimizer)
+                         include_optimizer=self.include_optimizer,
+                         offload_stores=stores)
         else:
             from .checkpoint import save_server_model
             save_server_model(snapshot, self.model, tmp,
-                              include_optimizer=self.include_optimizer)
+                              include_optimizer=self.include_optimizer,
+                              offload_stores=stores)
 
     def _write_one(self, write_cb, step: int, path: str) -> Optional[int]:
         """Write this rank's part into `<path>.writing`, then commit: every
@@ -536,9 +554,12 @@ class IncrementalPersister(AsyncPersister):
         unobserved = (not any(v.size for v in touched.values())
                       and self._last_persist_step is not None
                       and step > self._last_persist_step)
+        offload = bool(getattr(self.trainer, "offload", None))
         full = (self._last_persist_step is None
-                or self._since_full >= self.full_every or unobserved)
-        if unobserved and self._since_full < self.full_every:
+                or self._since_full >= self.full_every or offload
+                or unobserved)
+        if unobserved and self._since_full < self.full_every \
+                and not offload:
             warnings.warn(
                 "IncrementalPersister: steps advanced but no batches were "
                 "observed since the last persist — falling back to a FULL "
@@ -661,7 +682,7 @@ def _copy_rows(dst: torch.Tensor, idx: torch.Tensor, rows: np.ndarray
 
 @torch.no_grad()
 def _apply_delta(state, model, path: str, *, rank: int = 0,
-                 num_shards: int = 1) -> None:
+                 num_shards: int = 1, offload=None) -> None:
     """Replay one committed delta into this rank's shards of `state`, in
     place: of each table the ids this shard owns (`id % S == rank`),
     whatever mesh size wrote them; array rows written at their local rows,
@@ -671,7 +692,9 @@ def _apply_delta(state, model, path: str, *, rank: int = 0,
     a table without them drops the column; one without them leaves the
     live residuals as they are. Then the dense params, sparse_as_dense
     tables and dense slots (in the per-leaf form), written into the
-    state's own tensors, and the step counters."""
+    state's own tensors, and the step counters. A host-cached table
+    (`offload`: {name: HostOffloadTable}) merges the rows into its store,
+    its cache reset by the base's load."""
     from .convert import dense_slots_from_flax, flax_leaves, tables_from_numpy
     from .parallel.checkpoint import _slots_with_ef
     from .tables.hash_table import hash_find_or_insert
@@ -691,6 +714,12 @@ def _apply_delta(state, model, path: str, *, rank: int = 0,
             continue
         ids, w = ids[mine], w[mine]
         slots = {k: v[mine] for k, v in slots.items()}
+        if offload and name in offload:
+            store = offload[name].store
+            store.merge(ids, np.asarray(w, np.float32),
+                        {k: np.asarray(v, np.float32)
+                         for k, v in slots.items() if k in store.slots})
+            continue
         targets = _slots_with_ef(ts)
         device = ts.weights.device
         if spec.use_hash_table:
@@ -760,7 +789,10 @@ def restore_server_model(state, model, root: str, *, trainer=None,
     needs `mesh=`: unlike a JAX array, a port tensor does not carry the
     mesh it is sharded over (the JAX package recovers it from the state's
     shardings, `_StateMeshShim`). Such a trainerless restore refuses a
-    state with ZeRO slots or placement state, which need the trainer."""
+    state with ZeRO slots or placement state, which need the trainer. A
+    trainer's host-cached tables restore into their stores (their caches
+    reset); without the trainer such a table loads into its cache as a
+    hash table."""
     from .checkpoint import load_server_model
     from .parallel.checkpoint import checkpoint_layout, load_sharded
     path, deltas = delta_chain(root)
@@ -769,14 +801,18 @@ def restore_server_model(state, model, root: str, *, trainer=None,
     if mesh is None:
         mesh = getattr(trainer, "mesh", None)
     rank, S = _rank_and_size(mesh)
+    offload = trainer._adopted(state) if getattr(trainer, "offload",
+                                                  None) else None
 
     def fill(target):
         if S == 1 and checkpoint_layout(path) != "sharded":
-            load_server_model(target, model, path)
+            load_server_model(target, model, path, offload=offload)
         else:
-            load_sharded(target, model, path, num_shards=S, rank=rank)
+            load_sharded(target, model, path, num_shards=S, rank=rank,
+                         offload=offload)
         for d in deltas:
-            _apply_delta(target, model, d, rank=rank, num_shards=S)
+            _apply_delta(target, model, d, rank=rank, num_shards=S,
+                         offload=offload)
 
     if trainer is not None:
         return trainer.load_into(state, fill)

@@ -175,8 +175,101 @@ def test_persist_restores_mains_state(argv, tmp_path):
     assert [k for k in a if not torch.equal(a[k], b[k])] == []
 
 
+OFFLOAD = 1024  # slots: 0.6 x 1024 holds about one batch's distinct ids
+
+
+@pytest.mark.parametrize("scan", [False, True], ids=["step", "scan"])
+def test_offload_save_export_persist(scan, tmp_path):
+    """`--offload SLOTS`: the table hashed and host-cached, evicting over
+    the stream (stepwise, or a `--scan 2` window's union at once); the
+    checkpoint loads into a trainer without the offload equal by id, the
+    export serves `eval_step`'s logits, the persist root restores the
+    store bit for bit."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.persist import restore_server_model
+    ckpt, export = str(tmp_path / "ckpt"), str(tmp_path / "export")
+    root = str(tmp_path / "persist")
+    argv = BASE + ["--offload", str(OFFLOAD), "--steps", "6", "--save", ckpt,
+                   "--export", export, "--persist", root,
+                   "--persist-steps", "2"] + (["--scan", "2"] if scan else [])
+    out = criteo_deepctr.main(argv)
+    trainer, state, model = out["trainer"], out["state"], out["model"]
+    ot = trainer.offload["categorical"]
+    assert model.specs["categorical"].storage == "host_cached"
+    assert ot.counters["evictions"] + ot.counters["flushes"] > 0
+    assert np.isfinite(out["losses"]).all()
+    store = trainer.offload_store_snapshots(state)["categorical"]
+
+    # into a trainer without the offload (a hash table big enough)
+    spec = dataclasses.replace(model.specs["categorical"], storage="hbm",
+                               capacity=1 << 13)
+    plain_model = criteo_deepctr.build_model(
+        criteo_deepctr.build_parser().parse_args(BASE), model.config)
+    plain_model.specs["categorical"] = spec
+    plain = Trainer(plain_model, trainer.optimizer, device="cpu")
+    batch = _jax_batches(1)[0]
+    loaded = plain.load(plain.init(batch), ckpt)
+    t = loaded.tables["categorical"]
+    sel = np.flatnonzero(t.keys.numpy() >= 0)
+    order = sel[np.argsort(t.keys.numpy()[sel])]
+    assert t.keys.numpy()[order].tobytes() == store.ids.tobytes()
+    assert t.weights.numpy()[order].tobytes() == store.weights.tobytes()
+    assert (t.slots["accum"].numpy()[order].tobytes()
+            == store.slots["accum"].tobytes())
+
+    state = trainer.offload_prepare(state, batch)
+    served = StandaloneModel.load(export, device="cpu")
+    np.testing.assert_array_equal(
+        served.predict(batch).numpy(),
+        trainer.eval_step(state, batch)["logits"].numpy())
+
+    fresh_trainer = Trainer(model, trainer.optimizer, device="cpu")
+    fresh = fresh_trainer.init(batch)
+    got = restore_server_model(fresh, model, root, trainer=fresh_trainer)
+    assert got.step == 6
+    back = fresh_trainer.offload_store_snapshots(got)["categorical"]
+    assert back.ids.tobytes() == store.ids.tobytes()
+    assert back.weights.tobytes() == store.weights.tobytes()
+
+
+def test_offload_equals_an_in_hbm_hash_table_until_it_evicts():
+    """A cache that never evicts places each id where the in-HBM hash
+    table of its size does, with the same initializer rows: the losses
+    and the table are the in-HBM run's, bit for bit."""
+    slots = 1 << 12
+    off = criteo_deepctr.main(BASE + ["--offload", str(slots), "--steps",
+                                      "4"])
+    ot = off["trainer"].offload["categorical"]
+    assert ot.counters["evictions"] + ot.counters["flushes"] == 0
+    model = off["model"]
+    hbm_model = criteo_deepctr.build_model(
+        criteo_deepctr.build_parser().parse_args(BASE), model.config)
+    hbm_model.specs["categorical"] = dataclasses.replace(
+        model.specs["categorical"], storage="hbm")
+    from openembedding_tpu_torch.model import Trainer
+    trainer = Trainer(hbm_model, off["trainer"].optimizer, device="cpu")
+    batches = _jax_batches(4)
+    state = trainer.init(batches[0])
+    losses = []
+    for b in batches:
+        state, m = trainer.train_step(state, b)
+        losses.append(float(m["loss"]))
+    np.testing.assert_array_equal(off["losses"], np.float32(losses))
+    a = off["state"].tables["categorical"]
+    b = state.tables["categorical"]
+    for x, y in ((a.keys, b.keys), (a.weights, b.weights),
+                 (a.slots["accum"], b.slots["accum"])):
+        assert torch.equal(x, y)
+
+
+def test_offload_refused_with_cache():
+    with pytest.raises(SystemExit):
+        criteo_deepctr.main(BASE + ["--offload", "64", "--cache",
+                                    str(VOCAB), "--steps", "1"])
+
+
 @pytest.mark.parametrize("flag", [
-    ["--offload", "64"], ["--report-interval", "1"],
+    ["--report-interval", "1"],
     ["--metrics-log", "m.jsonl"], ["--profile", "trace"],
     ["--flight-recorder", "8"], ["--trace-dump", "t.json"],
     ["--skew-report"]], ids=lambda f: f[0])

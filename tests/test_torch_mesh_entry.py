@@ -4,7 +4,8 @@ At one rank and at two gloo ranks (spawned by
 `parallel.multihost.run_local`, which brings the group up before `main`
 runs, as torchrun does), `main([... "--mesh"])` gives, on every rank, the
 losses of the same run through `parallel.MeshTrainer` directly on the
-rank's rows of the same TSV batches, bit for bit (the same computation).
+rank's rows of the same TSV batches, bit for bit (the same computation),
+with a host-cached table (`--offload`) too.
 The flags still refused raise with their ROADMAP.md items under `--mesh`
 too.
 """
@@ -17,6 +18,7 @@ from openembedding_tpu_torch.examples import criteo_deepctr
 from openembedding_tpu_torch.parallel.multihost import run_local
 
 import torch_mesh_ranks as ranks
+import torch_offload_ranks as offload_ranks
 import torch_persist_ranks as persist_ranks
 
 TRAIN100 = os.path.join(os.path.dirname(os.path.dirname(
@@ -56,7 +58,25 @@ def test_mesh_entry_point_persists_and_restores(tmp_path):
         "table_categorical.p0.npz", "table_categorical.p1.npz"]
 
 
-@pytest.mark.parametrize("flag", [["--offload", "64"]],
+def test_mesh_entry_point_offload(tmp_path):
+    """`--mesh --offload SLOTS` at two ranks: each rank's `main` equals the
+    same prepared steps through MeshTrainer directly, bit for bit; the
+    sharded save holds each rank's store as its shard, and the export
+    (rank 0, from the checkpoint) holds every stored id."""
+    import numpy as np
+    ckpt, export = str(tmp_path / "ckpt"), str(tmp_path / "export")
+    argv = ARGV + ["--offload", "1024", "--save", ckpt, "--export", export]
+    out = run_local(offload_ranks.entry_offload, 2, args=(argv, STEPS),
+                    timeout_s=90, tmp_dir=str(tmp_path))
+    for r in out:
+        assert r["main"] == r["direct"]
+        assert r["evicted"]
+    stored = np.unique(np.concatenate([r["store_ids"] for r in out]))
+    exported = np.load(os.path.join(export, "variable_0", "ids.npy"))
+    assert exported.tobytes() == stored.tobytes()
+
+
+@pytest.mark.parametrize("flag", [["--report-interval", "1"]],
                          ids=lambda f: f[0])
 def test_refused_flags_still_raise_under_mesh(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):

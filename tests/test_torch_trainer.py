@@ -265,7 +265,9 @@ def test_trainer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Host-cached tables are not ported and raise. (batch_transform and
+    """Host-cached tables are ported (tests/test_torch_offload_trainer.py):
+    a host-cached hash table starts as its empty cache, and a host-cached
+    array table is refused, as in the JAX package. (batch_transform and
     sparse_as_dense tables are ported: tests/test_torch_sparse_as_dense.py;
     hash tables: tests/test_torch_hashed.py.)"""
     model = make_deepfm(VOCAB, DIM, hidden=(16, 16))
@@ -275,8 +277,16 @@ def test_trainer_refuses_what_is_not_ported():
                          capacity=4096)
     cached.specs["categorical"] = dataclasses.replace(
         cached.specs["categorical"], storage="host_cached")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cached, device="cpu").init(_batches(steps=1)[0])
+    trainer = Trainer(cached, device="cpu")
+    state = trainer.init(_batches(steps=1)[0])
+    assert state.tables["categorical"] is trainer.offload[
+        "categorical"].state
+    assert int((state.tables["categorical"].keys >= 0).sum()) == 0
+    array = make_deepfm(VOCAB, DIM, hidden=(16, 16))
+    array.specs["categorical"] = dataclasses.replace(
+        array.specs["categorical"], storage="host_cached")
+    with pytest.raises(ValueError, match="hash-table"):
+        Trainer(array, device="cpu").init(_batches(steps=1)[0])
 
 
 def test_per_table_optimizer_reaches_the_spec_and_the_step():
