@@ -272,7 +272,33 @@ final line:
    admission), of an eviction and a flush, the graph step with the cache
    against the in-HBM table's, the store's rows and bytes, the launches,
    and the card's name and power limit;
-15. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+15. seq    — the retrieval and sequence families at published widths.
+   (q1) SASRec at Kang & McAuley's MovieLens-1M widths
+   (`make_sasrec(3416, 50, num_heads=1, num_blocks=2, max_len=200)`,
+   Adam(0.001), batch 128, bfloat16, `synthetic_sequences`): 16 eager
+   steps, 16 `jit_train_step` calls and two `jit_train_many` windows of 8,
+   each bit-equal (losses and whole state) to the same steps through the
+   plain versions, one gather and one apply a step; `jit_eval_step`
+   bit-equal to `eval_step`; the export served over REST, its (128, 200,
+   2) logits equal to `eval_step`'s. (q2) BERT4Rec at Sun et al.'s ML-20m
+   widths (`make_bert4rec(26744, 64, num_heads=2, num_blocks=2,
+   max_len=200)`, Adam(1e-4), batch 256, mask rate 0.2): 8 eager and 8
+   graph steps, each bit-equal to the plain versions; the [MASK] row
+   (id 26,744) trains. (q3) `SeqMeshTrainer` on four staged gloo ranks
+   as a (2, 2) (data, seq) mesh, q2's model at float32 with Adagrad(0.1):
+   ring and Ulysses attention, 4 eager steps each (ring also through the
+   plain versions, bit-equal), the first batch's logits and the four
+   losses within `SEQ_MESH_TOL` of the single-device full-attention
+   Trainer from the same state; staged bytes a step; over NCCL through
+   `jit_train_step` where there are four cards. (q4) the two-tower: the
+   ported example's `main` at its defaults; `make_two_tower(138493,
+   26744)` (dim 16, tower 256-128, combiner mean) with Adagrad(0.1) at
+   batch 4096, 8 eager and 8 graph steps bit-equal to the plain versions,
+   the export served over REST at widths 3/2, equal to the in-process
+   predict. (q5) `EmbeddingVariable` on a 2^24 x 10 table: sparse_read,
+   push_gradients and update_weights of 106,496 Zipfian ids, bit-equal to
+   the plain versions. Step times, device busy time and idle share;
+16. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -4754,6 +4780,576 @@ def phase_offload(torch, mb, ops, data, optimizers, tsv: str,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- 15. seq: the retrieval and sequence families ------------------------------
+
+SEQ_SEED = 5
+# (q1) SASRec at Kang & McAuley (ICDM 2018) section IV-B's MovieLens-1M
+# widths: 3,416 items, d = 50, one head, two blocks, n = 200, Adam(0.001),
+# batch 128
+SASREC = dict(vocabulary=3416, dim=50, num_heads=1, num_blocks=2,
+              max_len=200)
+SASREC_BATCH, SASREC_LR = 128, 0.001
+SASREC_STEPS = 16          # eager, plain and jit_train_step steps
+SASREC_K = 8               # jit_train_many: two windows of 8
+# (q2) BERT4Rec at Sun et al. (CIKM 2019) section 4.3's ML-20m widths:
+# 26,744 items, d = 64, two heads, two blocks, N = 200, Adam(1e-4),
+# batch 256, mask proportion 0.2
+BERT4REC = dict(vocabulary=26744, dim=64, num_heads=2, num_blocks=2,
+                max_len=200)
+BERT4REC_BATCH, BERT4REC_LR, BERT4REC_MASK = 256, 1e-4, 0.2
+BERT4REC_STEPS = 8
+# (q3) q2's model at float32 on four staged gloo ranks as a (2, 2) mesh
+SEQ_MESH = (2, 2)
+SEQ_MESH_STEPS = 4
+SEQ_MESH_LR = 0.1          # Adagrad, as tests/test_torch_seq_mesh.py
+# the CPU test's bounds at the card's widths (tests/test_torch_seq_mesh.py
+# states them): logits against the single-device full-attention Trainer,
+# the loss trajectory against its losses
+SEQ_MESH_TOL = {"logits": 1e-5, "loss": 2e-5}
+# (q4) the two-tower at the factory's widths (dim 16, tower 256-128,
+# combiner mean) with MovieLens-20M's 138,493 users and 26,744 items
+TWO_TOWER = dict(user_vocabulary=138493, item_vocabulary=26744, dim=16,
+                 tower=(256, 128), combiner="mean")
+TWO_TOWER_BATCH, TWO_TOWER_STEPS = 4096, 8
+# (q5) EmbeddingVariable: a 2^24 x 10 table, 4096 x 26 Zipfian ids
+VAR_ROWS, VAR_DIM, VAR_IDS = 1 << 24, 10, 4096 * 26
+
+
+def _seq_clone_run(torch, mb, ops, trainer, state, batches, what):
+    """Eager steps through the kernels (counts read just after), then the
+    same steps from a clone through the plain versions, bit-equal ->
+    (state, losses, launches, ms a step, the plain run's ms a step, the
+    comparison)."""
+    ref = state.clone()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, losses = _eager(torch, trainer, state, batches)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = ops.launch_counts()
+    with ops.plain_versions():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_losses = _eager(torch, trainer, ref, batches)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    check(sum(ops.launch_counts().values()) == sum(launches.values()),
+          f"{what}: the plain run launched no kernel")
+    cmp = _compare(torch, mb, state, losses, ref, ref_losses,
+                   f"{what}_eager_vs_plain")
+    return state, losses, ref, ref_losses, launches, ms, plain_ms, cmp
+
+
+def _seq_graph(torch, mb, ops, trainer, start, batches, ref, ref_losses,
+               what, many_k: int = 0):
+    """The steps from `start` through `jit_train_step` (or, with many_k,
+    `jit_train_many` windows of many_k), bit-equal to the plain run ->
+    the record and the launches that ran."""
+    state = start
+    driver = trainer.jit_train_many() if many_k else trainer.jit_train_step()
+    ops.reset_launch_counts()
+    losses = []
+    calls = batches
+    if many_k:
+        calls = []
+        for w in range(len(batches) // many_k):
+            window = batches[w * many_k:(w + 1) * many_k]
+            calls.append({"sparse": {k: np.stack([b["sparse"][k]
+                                                  for b in window])
+                                     for k in window[0]["sparse"]},
+                          "label": np.stack([b["label"] for b in window])})
+    for i, b in enumerate(calls):
+        if i == 1:  # the first call warms up and captures: untimed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = driver(state, b)
+        if many_k:
+            losses.extend(m["loss"].clone().unbind(0))
+        else:
+            losses.append(m["loss"].clone())
+    torch.cuda.synchronize()
+    ms = ((time.perf_counter() - t0) * 1e3
+          / (len(batches) - (many_k or 1)))
+    ran = ran_launches(ops.launch_counts(), [graph_record(driver)])
+    cmp = _compare(torch, mb, state, torch.stack(losses).cpu().numpy(), ref,
+                   ref_losses, f"{what}_{'many' if many_k else 'graph'}"
+                   "_vs_plain")
+    return state, driver, {"ms_per_step": ms, "launches": ran,
+                           "graph": graph_record(driver), **cmp}, ran
+
+
+def _add(total, launches):
+    for k in KERNELS:
+        total[k] += launches.get(k, 0)
+
+
+def seq_sasrec(torch, mb, ops, optimizers, tmp) -> dict:
+    """(q1) SASRec on one card: eager, jit_train_step and jit_train_many
+    (K = 8), each bit-equal over the whole state to the plain versions;
+    jit_eval_step; the export served over REST equal to eval_step."""
+    from openembedding_tpu_torch.export import export_standalone
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_sasrec, synthetic_sequences
+    from openembedding_tpu_torch.serving import ServingClient, make_server
+    total = {k: 0 for k in KERNELS}
+    model = make_sasrec(**SASREC)
+    trainer = Trainer(model, optimizers.Adam(learning_rate=SASREC_LR))
+    batches = list(synthetic_sequences(SASREC_BATCH, SASREC["max_len"],
+                                       SASREC["vocabulary"], seed=SEQ_SEED,
+                                       steps=SASREC_STEPS))
+    state = trainer.init(batches[0])
+    start = state.clone()
+    state, losses, ref, ref_losses, launches, ms, plain_ms, cmp = \
+        _seq_clone_run(torch, mb, ops, trainer, state, batches, "q1")
+    _add(total, launches)
+    check(launches["gather_rows"] == SASREC_STEPS
+          and launches["fused_sparse_apply"] == SASREC_STEPS,
+          f"(q1) one gather and one apply a step ({launches})")
+    rec = {"eager": {"ms_per_step": ms, "plain_ms_per_step": plain_ms,
+                     "launches": launches, **cmp},
+           "losses": losses.tolist()}
+    check(losses[-1] < losses[0], f"(q1) the loss drops {losses}")
+    for k, key in ((0, "graph"), (SASREC_K, "many")):
+        gstate, driver, grec, ran = _seq_graph(
+            torch, mb, ops, trainer, start.clone(), batches, ref, ref_losses,
+            "q1", many_k=k)
+        _add(total, ran)
+        check(ran["gather_rows"] == SASREC_STEPS
+              and ran["fused_sparse_apply"] == SASREC_STEPS,
+              f"(q1 {key}) one gather and one apply a step ran ({ran})")
+        if key == "graph":
+            grec.update(profile_device(
+                torch, lambda: driver(gstate, batches[-1]), unit="step"))
+        rec[key] = grec
+        del driver
+    # jit_eval_step: one capture, bit-equal to eval_step
+    ev = trainer.jit_eval_step()
+    ops.reset_launch_counts()
+    equal = True
+    for b in batches[:3]:
+        got = {k: v.clone() for k, v in ev(state, b).items()}
+        want = trainer.eval_step(state, b)
+        equal = equal and all(torch.equal(mb.bits(got[k]), mb.bits(want[k]))
+                              for k in ("logits", "loss"))
+    ran = ran_launches(ops.launch_counts(), [graph_record(ev)])
+    _add(total, ran)
+    check(equal and ran["gather_rows"] == 6,
+          f"(q1) jit_eval_step bit-equal to eval_step, one gather a call "
+          f"({ran})")
+    rec["eval"] = {"bit_equal_vs_eager": equal, "launches": ran,
+                   "graph": graph_record(ev)}
+    # the export over REST: (n, 200, 2), equal to eval_step's logits
+    export = os.path.join(tmp, "sasrec")
+    export_standalone(state, model, export)
+    httpd = make_server(os.path.join(tmp, "registry"), port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{httpd.server_address[1]}",
+                               timeout=300)
+        client.create_model("sasrec-smoke", export)
+        b = batches[1]
+        ops.reset_launch_counts()
+        served = client.predict("sasrec-smoke", b["sparse"])
+        got = ops.launch_counts()
+        _add(total, got)
+        want = trainer.eval_step(state, b)["logits"].float().cpu().numpy()
+        equal = bool(served.shape == want.shape
+                     and np.array_equal(served, want))
+        rec["rest"] = {"shape": list(served.shape), "equal_eval_step": equal,
+                       "max_abs_err": float(np.abs(served - want).max()),
+                       "gathers": got["gather_rows"]}
+        check(equal and got["gather_rows"] == 1,
+              f"(q1) REST logits {served.shape} equal eval_step's "
+              f"({rec['rest']})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the server thread stopped")
+    rec["launches"] = total
+    del trainer, state, ref, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq_bert4rec(torch, mb, ops, optimizers) -> dict:
+    """(q2) BERT4Rec on one card: eager and jit_train_step, each bit-equal
+    to the plain versions; the [MASK] row trains."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import (bert4rec_mask_id,
+                                                make_bert4rec,
+                                                synthetic_masked_sequences)
+    total = {k: 0 for k in KERNELS}
+    model = make_bert4rec(**BERT4REC)
+    trainer = Trainer(model, optimizers.Adam(learning_rate=BERT4REC_LR))
+    batches = list(synthetic_masked_sequences(
+        BERT4REC_BATCH, BERT4REC["max_len"], BERT4REC["vocabulary"],
+        mask_rate=BERT4REC_MASK, seed=SEQ_SEED, steps=BERT4REC_STEPS))
+    mask_id = bert4rec_mask_id(BERT4REC["vocabulary"])
+    check(all((b["sparse"]["item"][:, 0] == mask_id).any() for b in batches),
+          "(q2) every batch holds the [MASK] id")
+    state = trainer.init(batches[0])
+    start = state.clone()
+    row0 = state.tables["item"].weights[mask_id].clone()
+    state, losses, ref, ref_losses, launches, ms, plain_ms, cmp = \
+        _seq_clone_run(torch, mb, ops, trainer, state, batches, "q2")
+    _add(total, launches)
+    moved = float((state.tables["item"].weights[mask_id] - row0).abs().max())
+    check(moved > 0, "(q2) the [MASK] row trains")
+    rec = {"eager": {"ms_per_step": ms, "plain_ms_per_step": plain_ms,
+                     "launches": launches, **cmp},
+           "losses": losses.tolist(), "mask_row_moved": moved,
+           "table": list(state.tables["item"].weights.shape)}
+    gstate, driver, grec, ran = _seq_graph(
+        torch, mb, ops, trainer, start, batches, ref, ref_losses, "q2")
+    _add(total, ran)
+    grec.update(profile_device(torch, lambda: driver(gstate, batches[-1]),
+                               unit="step"))
+    rec["graph"] = grec
+    rec["launches"] = total
+    del trainer, state, ref, gstate, driver
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq_mesh_rank(mesh, start, batches):
+    """(q3) one rank of the (2, 2) mesh: q2's model at float32 with ring
+    attention (its steps also through the plain versions, bit-equal) and
+    with Ulysses, each from the same start -> numpy only."""
+    import torch
+    from openembedding_tpu_torch import convert, ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_bert4rec
+    from openembedding_tpu_torch.parallel import SeqMeshTrainer, make_seq_mesh
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.staged and mesh.size == 4, f"a staged mesh {mesh}")
+    mesh2 = make_seq_mesh(*SEQ_MESH, device=mesh.device)
+    local = [local_batch(b, mesh2) for b in batches]
+    out = {"rank": mesh.rank, "runs": {}}
+    for attention in ("ring", "ulysses"):
+        model = make_bert4rec(**BERT4REC, attention=attention,
+                              compute_dtype=torch.float32)
+        trainer = SeqMeshTrainer(
+            model, optimizers.Adagrad(learning_rate=SEQ_MESH_LR),
+            mesh=mesh2, wire="fp32")
+        state = convert.mesh_state_from_jax(start, model, mesh2.size,
+                                            mesh2.rank, device=mesh.device)
+        ref = state.clone() if attention == "ring" else None
+        ev = trainer.eval_step(state, local[0])
+        staged0 = mesh2.total_staged_bytes()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, losses = _eager(torch, trainer, state, local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(local)
+        launches = _mesh_launches(ops.launch_counts())
+        staged = mesh2.total_staged_bytes() - staged0
+        run = {"eval_logits": ev["logits"].cpu().numpy(),
+               "eval_loss": float(ev["loss"]), "losses": losses.tolist(),
+               "ms_per_step": ms, "launches": launches,
+               "staged_bytes_per_step": staged / len(local)}
+        if ref is not None:
+            with ops.plain_versions():
+                ref, ref_losses = _eager(torch, trainer, ref, local)
+            run.update(_compare(torch, mb, state, losses, ref, ref_losses,
+                                "ring_vs_plain"))
+        out["runs"][attention] = run
+        del trainer, state, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_mesh(torch, optimizers) -> dict:
+    """(q3) `SeqMeshTrainer` on four staged gloo ranks as a (2, 2) mesh,
+    ring and Ulysses, against the single-device full-attention Trainer on
+    the same state."""
+    from openembedding_tpu_torch import convert
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import (make_bert4rec,
+                                                synthetic_masked_sequences)
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    from openembedding_tpu_torch.parallel.sharded import interleave_rows
+    S = SEQ_MESH[0] * SEQ_MESH[1]
+    batches = list(synthetic_masked_sequences(
+        BERT4REC_BATCH, BERT4REC["max_len"], BERT4REC["vocabulary"],
+        mask_rate=BERT4REC_MASK, seed=SEQ_SEED + 1, steps=SEQ_MESH_STEPS))
+    model = make_bert4rec(**BERT4REC, compute_dtype=torch.float32)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=SEQ_MESH_LR))
+    state = trainer.init(batches[0])
+    start = convert.train_state_to_jax(state)
+    for t in start["tables"].values():   # id-major -> shard-major
+        t["weights"] = interleave_rows(t["weights"], S)
+        t["slots"] = {k: interleave_rows(v, S) for k, v in t["slots"].items()}
+    ev = trainer.eval_step(state, batches[0])
+    want_logits = ev["logits"].cpu().numpy()
+    state, want_losses = _eager(torch, trainer, state, batches)
+    del trainer, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_local(seq_mesh_rank, S, backend="gloo", device="cuda",
+                      args=(start, batches), timeout_s=600, threads=0)
+    wall = time.perf_counter() - t0
+    D, P = SEQ_MESH
+    rec = {"mesh": list(SEQ_MESH), "wall_seconds": wall, "runs": {}}
+    total = {k: 0 for k in KERNELS}
+    for attention in ("ring", "ulysses"):
+        runs = [r["runs"][attention] for r in ranks]
+        rows = [np.concatenate([runs[d * P + s]["eval_logits"]
+                                for s in range(P)], axis=1)
+                for d in range(D)]
+        logits = np.concatenate(rows, axis=0)
+        logit_err = float(np.abs(logits - want_logits).max())
+        loss_err = max(float(np.abs(np.asarray(r["losses"])
+                                    - want_losses).max()) for r in runs)
+        check(logit_err <= SEQ_MESH_TOL["logits"],
+              f"(q3 {attention}) logits within {SEQ_MESH_TOL['logits']} of "
+              f"the single-device Trainer ({logit_err})")
+        check(loss_err <= SEQ_MESH_TOL["loss"],
+              f"(q3 {attention}) losses within {SEQ_MESH_TOL['loss']} of "
+              f"the single-device Trainer ({loss_err})")
+        for r in runs:
+            for k in ("gather_rows", "fused_sparse_apply"):
+                check(r["launches"][k] > 0, f"(q3 {attention}) a rank "
+                      f"launched {k}")
+            _add(total, r["launches"])
+        rec["runs"][attention] = {
+            "logits_max_abs_err_vs_single_device": logit_err,
+            "loss_max_abs_err_vs_single_device": loss_err,
+            "losses": runs[0]["losses"], "single_device_losses":
+                want_losses.tolist(),
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "staged_bytes_per_step": [r["staged_bytes_per_step"]
+                                      for r in runs],
+            "launches": [r["launches"] for r in runs],
+            **({"ring_vs_plain": [
+                {k: v for k, v in r.items() if "vs_plain" in k}
+                for r in runs]} if attention == "ring" else {})}
+    rec["launches"] = total
+    rec["nccl"] = ("not run: one card" if torch.cuda.device_count() < 4
+                   else seq_mesh_nccl(torch, start, batches, want_logits,
+                                      want_losses, rec))
+    return rec
+
+
+def seq_mesh_nccl_rank(mesh, start, batches):
+    """(q3, four cards) the ring run over NCCL through jit_train_step,
+    captured once -> numpy only."""
+    import torch
+    from openembedding_tpu_torch import convert, ops, optimizers
+    from openembedding_tpu_torch.models import make_bert4rec
+    from openembedding_tpu_torch.parallel import SeqMeshTrainer, make_seq_mesh
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh2 = make_seq_mesh(*SEQ_MESH, device=mesh.device)
+    local = [local_batch(b, mesh2) for b in batches]
+    model = make_bert4rec(**BERT4REC, attention="ring",
+                          compute_dtype=torch.float32)
+    trainer = SeqMeshTrainer(model, optimizers.Adagrad(
+        learning_rate=SEQ_MESH_LR), mesh=mesh2, wire="fp32")
+    state = convert.mesh_state_from_jax(start, model, mesh2.size, mesh2.rank,
+                                        device=mesh.device)
+    eager = state.clone()
+    eager, eager_losses = _eager(torch, trainer, eager, local)
+    step = trainer.jit_train_step()
+    ops.reset_launch_counts()
+    state, losses, ms = _graph_steps(torch, step, state, local + local)
+    rec = graph_record(step)
+    return {"losses": losses.tolist(), "eager_losses": eager_losses.tolist(),
+            "ms_per_step": ms, "graph": rec,
+            "launches": ran_launches(ops.launch_counts(), [rec])}
+
+
+def seq_mesh_nccl(torch, start, batches, want_logits, want_losses, rec):
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    ranks = run_local(seq_mesh_nccl_rank, 4, backend="nccl", device="cuda",
+                      args=(start, batches), timeout_s=600, threads=0)
+    for r in ranks:
+        n = len(batches)
+        check(r["losses"][:n] == r["eager_losses"],
+              f"(q3 nccl) the captured ring steps equal the eager ones")
+        check(np.abs(np.asarray(r["losses"][:n]) - want_losses).max()
+              <= SEQ_MESH_TOL["loss"], "(q3 nccl) losses within the bound "
+              "of the single-device Trainer")
+    return {"per_rank": ranks}
+
+
+def seq_two_tower(torch, mb, ops, optimizers, tmp) -> dict:
+    """(q4) the ported example's main at its defaults; the two-tower at
+    MovieLens-20M's counts, eager and graph bit-equal to the plain
+    versions, exported and served over REST at another width."""
+    from openembedding_tpu_torch.examples import two_tower_retrieval as ex
+    from openembedding_tpu_torch.export import (StandaloneModel,
+                                                export_standalone)
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_two_tower
+    from openembedding_tpu_torch.serving import ServingClient, make_server
+    total = {k: 0 for k in KERNELS}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = ex.main([])
+    ran = ran_launches(ops.launch_counts(), [graph_record(out["step"])])
+    _add(total, ran)
+    losses = out["losses"]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0]
+          and np.isfinite(out["scores"]).all(),
+          f"(q4) the example trains ({losses[0]} -> {losses[-1]}) and "
+          "serves finite scores")
+    check(ran["gather_rows"] >= 2 * 60 and ran["fused_sparse_apply"] == 2 * 60,
+          f"(q4) the example launched a gather and an apply a table a step "
+          f"({ran})")
+    rec = {"example": {"loss_first_last": [float(losses[0]),
+                                           float(losses[-1])],
+                       "seconds": time.perf_counter() - t0,
+                       "launches": ran,
+                       "scores_shape": list(out["scores"].shape)}}
+    del out
+    rng = np.random.default_rng(SEQ_SEED)
+    batches = [ex.synthetic_histories(
+        rng, TWO_TOWER_BATCH, TWO_TOWER["user_vocabulary"],
+        TWO_TOWER["item_vocabulary"], ex.MAX_HIST, ex.MAX_TAGS)
+        for _ in range(TWO_TOWER_STEPS)]
+    model = make_two_tower(**TWO_TOWER)
+    trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.1))
+    state = trainer.init(batches[0])
+    start = state.clone()
+    state, losses, ref, ref_losses, launches, ms, plain_ms, cmp = \
+        _seq_clone_run(torch, mb, ops, trainer, state, batches, "q4")
+    _add(total, launches)
+    check(launches["gather_rows"] == 2 * TWO_TOWER_STEPS
+          and launches["fused_sparse_apply"] == 2 * TWO_TOWER_STEPS,
+          f"(q4) one gather and one apply a table a step ({launches})")
+    rec["ml20m"] = {"eager": {"ms_per_step": ms,
+                              "plain_ms_per_step": plain_ms,
+                              "launches": launches, **cmp},
+                    "losses": losses.tolist()}
+    gstate, driver, grec, gran = _seq_graph(
+        torch, mb, ops, trainer, start, batches, ref, ref_losses, "q4")
+    _add(total, gran)
+    grec.update(profile_device(torch, lambda: driver(gstate, batches[-1]),
+                               unit="step"))
+    rec["ml20m"]["graph"] = grec
+    export = os.path.join(tmp, "two_tower")
+    export_standalone(state, model, export)
+    query = {"user": [[11, 4], [200], [7, 8, 9], [138000, -1, 5]],
+             "item": [[4, 11], [7], [20], [26000, 1]]}
+    httpd = make_server(os.path.join(tmp, "registry-tt"), port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = ServingClient(f"http://127.0.0.1:{httpd.server_address[1]}",
+                               timeout=300)
+        client.create_model("two-tower-smoke", export)
+        ops.reset_launch_counts()
+        served = client.predict("two-tower-smoke", query)
+        got = ops.launch_counts()
+        _add(total, got)
+        from openembedding_tpu_torch.serving import _pad_ragged_bucketed
+        dense = {k: _pad_ragged_bucketed(v) for k, v in query.items()}
+        want = StandaloneModel.load(export).predict(
+            {"sparse": dense}).float().cpu().numpy()
+        equal = bool(np.array_equal(served, want))
+        rec["ml20m"]["rest"] = {"shape": list(served.shape),
+                                "equal_in_process": equal,
+                                "gathers": got["gather_rows"]}
+        check(equal and served.shape == (4, 8) and got["gather_rows"] == 2,
+              f"(q4) REST scores at widths 3/2 equal the in-process "
+              f"predict ({rec['ml20m']['rest']})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        check(not thread.is_alive(), "the server thread stopped")
+    rec["launches"] = total
+    del trainer, state, ref, gstate, driver, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def seq_variable(torch, mb, ops, optimizers) -> dict:
+    """(q5) EmbeddingVariable on a 2^24 x 10 table: sparse_read ->
+    push_gradients -> update_weights on 106,496 Zipfian ids, bit-equal to
+    the same through the plain versions."""
+    from openembedding_tpu_torch.embedding import EmbeddingSpec
+    from openembedding_tpu_torch.variable import EmbeddingVariable
+    spec = EmbeddingSpec(name="v", input_dim=VAR_ROWS, output_dim=VAR_DIM,
+                         variable_id=0)
+    var = EmbeddingVariable(spec, optimizers.Adagrad(learning_rate=0.05),
+                            seed=SEQ_SEED)
+    plain = EmbeddingVariable(spec, optimizers.Adagrad(learning_rate=0.05),
+                              seed=SEQ_SEED)
+    rng = np.random.default_rng(SEQ_SEED)
+    ids = zipf_ids(rng, VAR_IDS, VAR_ROWS).astype(np.int64)
+    grads = rng.normal(size=(VAR_IDS, VAR_DIM)).astype(np.float32)
+    ids_t = torch.from_numpy(ids).cuda()
+    grads_t = torch.from_numpy(grads).cuda()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = var.sparse_read(ids_t)
+    var.push_gradients(ids_t, grads_t)
+    var.update_weights()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    with ops.plain_versions():
+        prows = plain.sparse_read(ids_t)
+        plain.push_gradients(ids_t, grads_t)
+        plain.update_weights()
+    check(launches["gather_rows"] == 1 and launches["fused_sparse_apply"] == 1,
+          f"(q5) one gather and one apply ({launches})")
+    equal = {"rows": torch.equal(mb.bits(rows), mb.bits(prows)),
+             "weights": torch.equal(mb.bits(var.state.weights),
+                                    mb.bits(plain.state.weights)),
+             "accum": torch.equal(mb.bits(var.state.slots["accum"]),
+                                  mb.bits(plain.state.slots["accum"]))}
+    check(all(equal.values()), f"(q5) bit-equal to the plain versions "
+          f"({equal})")
+    read_ms = mb.device_ms(lambda: var.read_only_pull(ids_t))
+    rec = {"table": [VAR_ROWS, VAR_DIM], "ids": VAR_IDS,
+           "bit_equal": equal, "read_push_update_ms": ms,
+           "read_only_pull_device_ms": read_ms,
+           "launches": {k: launches[k] for k in KERNELS}}
+    del var, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_seq(torch, mb, ops, optimizers, smi: str) -> dict:
+    """The retrieval and sequence families: (q1) SASRec, (q2) BERT4Rec,
+    (q3) SeqMeshTrainer on four staged ranks, (q4) the two-tower, (q5)
+    EmbeddingVariable -> {kernel: launches of the phase}."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-seq-")
+    total = {k: 0 for k in KERNELS}
+    try:
+        for key, fn in (("q1", lambda: seq_sasrec(torch, mb, ops, optimizers,
+                                                  tmp)),
+                        ("q2", lambda: seq_bert4rec(torch, mb, ops,
+                                                    optimizers)),
+                        ("q3", lambda: seq_mesh(torch, optimizers)),
+                        ("q4", lambda: seq_two_tower(torch, mb, ops,
+                                                     optimizers, tmp)),
+                        ("q5", lambda: seq_variable(torch, mb, ops,
+                                                    optimizers))):
+            t1 = time.perf_counter()
+            rec = fn()
+            _add(total, rec["launches"])
+            emit({"phase": "seq", key: rec,
+                  "seconds": time.perf_counter() - t1, "card": smi})
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(total[k] > 0, f"the seq path launched {k}")
+        emit({"phase": "seq", "launches": total, "card": smi,
+              "wall_seconds": time.perf_counter() - t0})
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -4927,6 +5523,8 @@ def main() -> int:
         offload_launches = phase_offload(torch, mb, ops, data, optimizers,
                                          tsv, smi)
         torch.cuda.empty_cache()
+        seq_launches = phase_seq(torch, mb, ops, optimizers, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -4940,8 +5538,10 @@ def main() -> int:
                    "mesh": mesh_launches[k],
                    "persist": persist_launches[k],
                    "offload": offload_launches[k],
+                   "seq": seq_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
-    for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload"):
+    for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
+                 "seq"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

@@ -4,8 +4,10 @@ the port's.
 Dense params travel as flat flax-named arrays (`Dense_0/kernel`,
 `MLP_0/Dense_2/bias`, ...), the content of an export's `dense_params.npz`.
 flax kernels are (in, out); the port's `Dense.weight` is (out, in). A raw
-flax param (`self.param`: LR's `bias`, xDeepFM's `cin_<i>`) is a
-`layers.Param` under the same flat name, in the same layout. Dense
+flax param (`self.param`: LR's `bias`, xDeepFM's `cin_<i>`, the two-tower's
+`log_inv_temperature`, SASRec's `pos_emb`) is a `layers.Param` under the
+same flat name, in the same layout. A flax `LayerNorm`'s `scale` and
+`bias` are a `layers.LayerNorm`'s `weight` and `bias`. Dense
 optimizer slots travel as flat names `<param>/<slot>` (`Dense_0/kernel/accum`,
 the content of a checkpoint's `dense_slots.npz`) of (1, size) rows: a
 kernel's slot row is laid out like the flax kernel flattened, so it is
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Param, unmaterialized_copy
+from .layers import LayerNorm, Param, unmaterialized_copy
 from .model import SAD_SCOPE
 
 _SAD_PREFIX = SAD_SCOPE + "/"
@@ -81,7 +83,9 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
             by_layer[key] = {"value": np.asarray(value)}
             continue
         path, _, leaf = key.rpartition("/")
-        if path not in layers or leaf not in ("kernel", "bias"):
+        leaves = (("scale", "bias") if isinstance(layers.get(path), LayerNorm)
+                  else ("kernel", "bias"))
+        if path not in layers or leaf not in leaves:
             raise KeyError(f"flax param {key!r} has no counterpart in "
                            f"{type(module).__name__} (layers: "
                            f"{sorted(layers)})")
@@ -91,6 +95,13 @@ def dense_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
     for path, leaves in by_layer.items():
         if isinstance(layers[path], Param):
             layers[path].set_value(torch.tensor(leaves["value"]).to(device))
+            continue
+        if isinstance(layers[path], LayerNorm):
+            if set(leaves) != {"scale", "bias"}:
+                raise KeyError(f"flax layer {path!r} needs scale and bias")
+            layers[path].set_parameters(
+                torch.tensor(leaves["scale"], dtype=torch.float32).to(device),
+                torch.tensor(leaves["bias"], dtype=torch.float32).to(device))
             continue
         if set(leaves) != {"kernel", "bias"}:
             raise KeyError(f"flax layer {path!r} needs both kernel and bias")
@@ -113,6 +124,10 @@ def dense_to_flax(module: nn.Module,
             continue
         if isinstance(layer, Param):
             out[path] = layer.value.detach().cpu().numpy()
+            continue
+        if isinstance(layer, LayerNorm):
+            out[f"{path}/scale"] = layer.weight.detach().cpu().numpy()
+            out[f"{path}/bias"] = layer.bias.detach().cpu().numpy()
             continue
         out[f"{path}/kernel"] = layer.weight.detach().t().contiguous().cpu(
         ).numpy()
@@ -151,6 +166,10 @@ def flax_leaves(module: nn.Module) -> Dict[str, Tuple[str, bool]]:
         prefix = f"{mod_name}." if mod_name else ""
         if isinstance(mod, Param):
             out[f"{prefix}value"] = (path, False)
+            continue
+        if isinstance(mod, LayerNorm):
+            out[f"{prefix}weight"] = (f"{path}/scale", False)
+            out[f"{prefix}bias"] = (f"{path}/bias", False)
             continue
         out[f"{prefix}weight"] = (f"{path}/kernel", True)
         out[f"{prefix}bias"] = (f"{path}/bias", False)

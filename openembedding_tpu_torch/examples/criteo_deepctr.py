@@ -11,7 +11,8 @@ device or, with `--mesh`, over the ranks of a `torch.distributed` group.
         --data day_0.tsv --vocabulary 16777216 --steps 1000
 
 A CTR model of the zoo (`--model`: lr, wdl, deepfm, xdeepfm, dcn or dlrm;
-two_tower, sasrec and bert4rec are not ported yet and raise) at the JAX
+two_tower, sasrec and bert4rec have batches of their own and are refused,
+as the JAX entry point refuses two_tower) at the JAX
 entry point's defaults, with one folded table of `--vocabulary` rows
 (`--dim` + 1 wide; LR's is 1 wide and takes no `--dim`), trained by
 `Trainer` with `--optimizer` on Criteo TSV files (`--data`, parsed by the
@@ -85,8 +86,10 @@ OPTIMIZERS = {
     "rmsprop": lambda lr: optimizers.RMSprop(learning_rate=lr),
 }
 
-# the JAX zoo's families; two_tower, sasrec and bert4rec raise in
-# `models.from_config`
+# the JAX zoo's families; the retrieval and sequence ones have batch
+# schemas of their own (`examples/two_tower_retrieval.py`, the sequence
+# generators of `models/sequential.py`), not Criteo's
+NOT_CTR = ("two_tower", "sasrec", "bert4rec")
 FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
             "wdl", "xdeepfm")
 
@@ -214,6 +217,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.model in NOT_CTR:
+        parser.error(f"{args.model} has its own batch schema; use the zoo "
+                     "API directly")
     if args.mesh and args.export and not args.save:
         parser.error("--export under --mesh exports from the sharded "
                      "checkpoint: give --save too")

@@ -81,16 +81,19 @@ def pad_serving_batch(batch, n: int, bucket: int):
     return out
 
 
-def load_model_config(path: str) -> Optional[EmbeddingModel]:
+def load_model_config(path: str, **overrides) -> Optional[EmbeddingModel]:
     """Rebuild the EmbeddingModel from a directory's model_config.json
-    (None when absent)."""
+    (None when absent). The recipe's `serving_overrides` apply first (a
+    sequence model trained with attention="ring" serves with local
+    attention), the caller's `overrides` over them."""
     cfg_path = os.path.join(path, MODEL_CONFIG_FILE)
     if not os.path.exists(cfg_path):
         return None
     from . import models as zoo
     with open(cfg_path) as f:
         cfg = json.load(f)
-    return zoo.from_config(cfg, **cfg.get("serving_overrides", {}))
+    return zoo.from_config(cfg, **{**cfg.get("serving_overrides", {}),
+                                   **overrides})
 
 
 def export_standalone(state: Union[WeightsState, TrainState],
@@ -258,8 +261,12 @@ class StandaloneModel:
 
     @torch.inference_mode()
     def predict(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """Full forward pass -> (n,) float32 logits on `self.device`. The
-        request pads to a power-of-two bucket; outputs are sliced back."""
+        """Full forward pass -> the first n rows of the module's output on
+        `self.device`: (n,) float32 logits for the CTR families, (n, S, 2)
+        for the sequential ones. The request pads to a power-of-two bucket
+        and the output is sliced back; the two-tower's (bucket, bucket)
+        score matrix comes back (n, bucket), as the JAX package's
+        `out[:n]` gives it (its padded items' columns included)."""
         if self.model is None:
             raise ValueError(
                 "standalone export has no model_config recipe; pass the "

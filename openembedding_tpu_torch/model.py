@@ -211,11 +211,12 @@ def _materialize_dense(model: EmbeddingModel, tables: Dict[str, torch.Tensor],
     for name, spec in model.specs.items():
         ids = _to_device(sample_batch["sparse"][spec.feature_name], device)
         if spec.use_hash_table:
-            embedded[name] = torch.zeros(
-                tuple(ids.shape) + (spec.output_dim,), dtype=spec.dtype,
-                device=device)
+            rows = torch.zeros(tuple(ids.shape) + (spec.output_dim,),
+                               dtype=spec.dtype, device=device)
         else:
-            embedded[name] = lookup_rows(tables[name], ids)
+            rows = lookup_rows(tables[name], ids)
+        # a combiner's pooling collapses the field axis, as in every step
+        embedded[name] = combine(spec, ids, rows)
     attach_ids(embedded, model, sample_batch, device)
     dense = sample_batch.get("dense")
     if dense is not None:
@@ -434,11 +435,12 @@ class Trainer:
         return spec.optimizer or self.optimizer
 
     def _loss(self, logits, batch):
-        """The weighted mean when the batch carries a per-sample weight."""
+        """The weighted mean when the batch carries a per-sample weight. A
+        batch may carry no label (the two-tower's in-batch negatives)."""
         w = batch.get("weight")
         if w is None:
-            return self.model.loss_fn(logits, batch["label"])
-        return self.model.loss_fn(logits, batch["label"], w)
+            return self.model.loss_fn(logits, batch.get("label"))
+        return self.model.loss_fn(logits, batch.get("label"), w)
 
     def _device_batch(self, batch) -> Dict[str, Any]:
         return _batch_to_device(batch, self.device)

@@ -12,7 +12,16 @@ the JAX package).
 - `pmean`: `dense_sum` / S; `broadcast`, `barrier`;
 - the ZeRO dense update's two (`parallel/zero.py`): `reduce_scatter`,
   this rank's chunk of the sum added in rank order as `dense_sum` adds
-  it, and `all_gather_tiled`, the ranks' chunks laid end to end.
+  it, and `all_gather_tiled`, the ranks' chunks laid end to end;
+- context parallelism's three (`parallel/sequence.py`), on a seq group
+  and differentiable (`torch.autograd.Function`s): `ppermute`, each rank's
+  tensor to the next rank of the ring, whose backward rotates the other
+  way; `all_to_all_grad`, `all_to_all` whose backward is the same
+  all_to_all of the gradient (it is its own inverse); and
+  `all_gather_cat`, the ranks' tensors concatenated along a dim (no
+  gradient: the key-padding mask). `ppermute` is an `all_to_all_single`
+  with one non-empty slice each way, the collective the mesh's graphs
+  already capture over NCCL (no point-to-point call).
 
 At S = 1 every collective is the identity and launches nothing, as in the
 JAX package. Under NCCL the tensors stay on the card. Under gloo, which
@@ -21,7 +30,7 @@ the caller chose `backend="gloo"`; the bytes copied each way are counted
 in `mesh.staged_bytes`. Gloo and NCCL both refuse int16 and uint16
 ("Invalid scalar type", "Unconvertible NCCL type Short"), so a tensor of
 such a dtype (the bf16 wire's carrier) travels as an int8 view of the same
-bytes.
+bytes; a bool tensor travels as uint8.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 
-_BYTE_VIEW = (torch.int16, torch.uint16)
+_BYTE_VIEW = {torch.int16: torch.int8, torch.uint16: torch.int8,
+              torch.bool: torch.uint8}
 
 
 def _to_wire(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +52,7 @@ def _to_wire(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
         mesh.staged_bytes += x.numel() * x.element_size()
         x = x.cpu()
     if x.dtype in _BYTE_VIEW:
-        x = x.view(torch.int8)
+        x = x.view(_BYTE_VIEW[x.dtype])
     return x
 
 
@@ -159,3 +169,71 @@ def broadcast_(mesh: Mesh, x: torch.Tensor, src: int = 0) -> None:
 def barrier(mesh: Mesh) -> None:
     if mesh.size > 1:
         dist.barrier(group=mesh.group)
+
+
+# -- context parallelism (`parallel/sequence.py`) -------------------------------
+
+
+def _shift(mesh: Mesh, x: torch.Tensor, shift: int) -> torch.Tensor:
+    """This rank's `x` to rank (r + shift) % S, rank (r - shift) % S's
+    received: one `all_to_all_single` whose only non-empty slices are
+    those two."""
+    S = mesh.size
+    dst, src = (mesh.rank + shift) % S, (mesh.rank - shift) % S
+    send = _to_wire(mesh, x).reshape(-1)
+    out = torch.empty_like(send)
+    n = send.numel()
+    dist.all_to_all_single(out, send, [n if j == src else 0 for j in range(S)],
+                           [n if j == dst else 0 for j in range(S)],
+                           group=mesh.group)
+    return _from_wire(mesh, out, x).reshape(x.shape)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _shift(mesh, x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(ctx.mesh, g, -1), None
+
+
+def ppermute(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Rotate around the ring: rank r's `x` to rank (r + 1) % S, so this
+    rank gets rank r - 1's (`jax.lax.ppermute` with the perm
+    [(j, (j + 1) % S)]); the backward rotates the gradient the other way.
+    Every rank of the group calls it, in the same order."""
+    if mesh.size == 1:
+        return x
+    if x.requires_grad:
+        return _PPermute.apply(x, mesh)
+    return _shift(mesh, x, 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_to_all(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(ctx.mesh, g.contiguous()), None
+
+
+def all_to_all_grad(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """`all_to_all` of an (S, ...) tensor with a gradient: slice s of the
+    gradient goes back to rank s (the all_to_all is its own inverse)."""
+    if mesh.size == 1:
+        return x
+    return _AllToAll.apply(x, mesh)
+
+
+def all_gather_cat(mesh: Mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim` in rank order
+    (`jax.lax.all_gather(x, axis, axis=dim, tiled=True)`), no gradient."""
+    if mesh.size == 1:
+        return x
+    return torch.cat(all_gather(mesh, x.detach()), dim=dim)

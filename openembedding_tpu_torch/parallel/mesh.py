@@ -1,4 +1,4 @@
-"""The 1-D mesh of the port: one process per rank over `torch.distributed`.
+"""The meshes of the port: one process per rank over `torch.distributed`.
 
 Port of `openembedding_tpu/parallel/mesh.py`. The JAX package runs one SPMD
 program over a `jax.sharding.Mesh` with one axis, "data"; the port runs one
@@ -15,13 +15,23 @@ How the JAX package's sharding specs read here:
   them (broadcast from rank 0 at init, then kept equal by the dense sum);
 - the batch, `P("data")` on its leading dim: rank r takes rows
   `[r*B/S, (r+1)*B/S)` of the global batch (`multihost.local_batch`).
+
+The 2-D mesh of context parallelism (`make_seq_mesh`, the JAX package's
+`Mesh(devices.reshape(D, P), ("data", "seq"))` under `SeqMeshTrainer`):
+D x P ranks, data-major, rank = d * P + s, the order in which JAX flattens
+the axis tuple ("data", "seq"), so the tables row-sharded over the whole
+mesh (`id % (D*P)`) are JAX's shard for shard. The mesh object is the
+world's (the sparse exchange, the dense sum and the metrics run over all
+D*P ranks) and carries two more: `seq`, this rank's group along the
+sequence axis (ring and Ulysses attention), and `data`, its group along
+the data axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -45,6 +55,18 @@ class Mesh:
     backend: str
     axis_name: str = DATA_AXIS
     staged_bytes: int = 0
+    # a 2-D mesh (`make_seq_mesh`): its axis names and shape (D, P), and
+    # this rank's sub-meshes along each axis
+    axis_names: Tuple[str, ...] = (DATA_AXIS,)
+    shape: Tuple[int, ...] = ()
+    seq: Optional["Mesh"] = None
+    data: Optional["Mesh"] = None
+
+    def total_staged_bytes(self) -> int:
+        """The bytes staged through the host by this mesh's collectives and
+        its sub-meshes'."""
+        return self.staged_bytes + sum(
+            m.staged_bytes for m in (self.seq, self.data) if m is not None)
 
     @property
     def staged(self) -> bool:
@@ -78,3 +100,37 @@ def make_mesh(group: Optional[dist.ProcessGroup] = None,
               else torch.device(device))
     return Mesh(group=group, rank=rank, size=size, device=device,
                 backend=str(dist.get_backend(group)))
+
+
+SEQ_AXIS = "seq"
+
+
+def make_seq_mesh(data: int, seq: int, *, device=None,
+                  axis_names: Tuple[str, str] = (DATA_AXIS, SEQ_AXIS)
+                  ) -> Mesh:
+    """This rank's view of the 2-D (data, seq) mesh over the world group
+    of `data * seq` ranks (initialized: `multihost.initialize`): the world
+    mesh, with `seq` (the P ranks d*P .. d*P + P-1 of its data row) and
+    `data` (the D ranks s, P + s, ... of its seq column) as sub-meshes. A
+    collective: every rank calls it, and makes every group in the same
+    order (the seq groups by d, then the data groups by s); an axis of
+    size 1 has no group (its collectives are the identity)."""
+    world = make_mesh(device=device)
+    if world.size != data * seq:
+        raise ValueError(f"a ({data}, {seq}) mesh needs {data * seq} ranks, "
+                         f"the world has {world.size}")
+    d, s = divmod(world.rank, seq)
+
+    def sub(members, rank, name):
+        group = dist.new_group(members) if len(members) > 1 else None
+        return Mesh(group=group, rank=rank, size=len(members),
+                    device=world.device, backend=world.backend,
+                    axis_name=name, axis_names=(name,))
+
+    seq_meshes = [sub([row * seq + j for j in range(seq)], s, axis_names[1])
+                  for row in range(data)]
+    data_meshes = [sub([i * seq + col for i in range(data)], d,
+                       axis_names[0]) for col in range(seq)]
+    return dataclasses.replace(world, axis_names=tuple(axis_names),
+                               shape=(data, seq), seq=seq_meshes[d],
+                               data=data_meshes[s])

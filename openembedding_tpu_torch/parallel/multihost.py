@@ -84,9 +84,28 @@ def num_hosts() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def _block(x, size: int, index: int, dim: int, what: str):
+    n = x.shape[dim]
+    if n % size:
+        raise ValueError(f"global {what} {n} does not divide by the mesh's "
+                         f"{size} ranks")
+    m = n // size
+    sl = [slice(None)] * x.ndim
+    sl[dim] = slice(index * m, (index + 1) * m)
+    return x[tuple(sl)]
+
+
 def local_batch(batch, mesh: Mesh):
     """Rank r's rows `[r*B/S, (r+1)*B/S)` of every leaf of a global batch
-    (numpy arrays or tensors; None stays None). B must divide by S."""
+    (numpy arrays or tensors; None stays None). B must divide by S.
+
+    On a 2-D (data, seq) mesh (`make_seq_mesh`), rank d*P + s's block as
+    the JAX SeqMeshTrainer shards the batch: sparse ids (B, ..., S) take
+    the d-th B/D rows and the s-th S/P chunk of their last (sequence) dim;
+    a label of two dims or more is sharded (data, seq); everything else
+    (dense features, weight, a 1-D label) over data only."""
+    if len(mesh.axis_names) == 2:
+        return _local_batch_2d(batch, mesh)
     S, r = mesh.size, mesh.rank
 
     def take(x):
@@ -102,6 +121,25 @@ def local_batch(batch, mesh: Mesh):
         return x[r * m:(r + 1) * m]
 
     return take(batch)
+
+
+def _local_batch_2d(batch, mesh: Mesh):
+    D, P = mesh.shape
+    d, s = divmod(mesh.rank, P)
+
+    def rows(x):
+        return None if x is None else _block(x, D, d, 0, "batch")
+
+    out = {}
+    for key, value in batch.items():
+        if key == "sparse":
+            out[key] = {k: _block(rows(v), P, s, v.ndim - 1, "sequence")
+                        for k, v in value.items()}
+        elif key == "label" and value is not None and value.ndim >= 2:
+            out[key] = _block(rows(value), P, s, 1, "sequence")
+        else:
+            out[key] = rows(value)
+    return out
 
 
 def allgather_host_ids(ids, mesh: Optional[Mesh] = None) -> np.ndarray:

@@ -52,8 +52,12 @@ The JAX MeshTrainer's numerics sentinel, `halt_on_nonfinite` and
 `measure_every` are not ported: setting one away from its default raises
 NotImplementedError naming its ROADMAP.md item.
 So does `refresh_hot_rows` without explicit ids, which reads the
-heavy-hitter sketches (item 6). `SeqMeshTrainer` waits for the sequence
-models (item 5).
+heavy-hitter sketches (item 6).
+
+`SeqMeshTrainer`: the same over a 2-D (data, seq) mesh
+(`mesh.make_seq_mesh`), context parallel: the sequence dim of the batch
+sharded over the seq axis, ring or Ulysses attention in the module
+(`parallel/sequence.py`).
 """
 
 from __future__ import annotations
@@ -931,8 +935,12 @@ class MeshTrainer(Trainer):
             if buf.is_floating_point():
                 buf.copy_(coll.pmean(self.mesh, buf))
 
+    def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss to report from this rank's: the mean over the ranks."""
+        return coll.pmean(self.mesh, loss)
+
     def reduce_metrics(self, loss, stats):
-        return (coll.pmean(self.mesh, loss),
+        return (self._reduce_loss(loss),
                 coll.psum_stats(self.mesh, stats))
 
     @torch.no_grad()
@@ -953,7 +961,7 @@ class MeshTrainer(Trainer):
         attach_ids(embedded, self.model, b, self.device)
         logits = state.dense(embedded, b.get("dense"))
         return {"logits": logits,
-                "loss": coll.pmean(self.mesh, self._loss(logits, b))}
+                "loss": self._reduce_loss(self._loss(logits, b))}
 
     # -- the pipelined window ---------------------------------------------------
 
@@ -1149,3 +1157,83 @@ class MeshTrainer(Trainer):
             return self.train_many
         return super()._many_driver()
 
+
+
+class SeqMeshTrainer(MeshTrainer):
+    """Context-parallel trainer over a 2-D (data, seq) mesh
+    (`mesh.make_seq_mesh(D, P)`; port of the JAX package's
+    `SeqMeshTrainer`):
+
+    - batch rows over "data", the sequence dim over "seq": each rank steps
+      on its (B/D, ..., S/P) block (`multihost.local_batch` cuts it), and
+      the module's ring or Ulysses attention runs over the rank's seq group
+      (the trainer binds the module's `seq_axis` around every forward
+      pass);
+    - the tables row-sharded over all D*P ranks (`id % (D*P)`): the
+      pull/push all_to_all, the dense sum and the metrics run over the
+      whole mesh;
+    - the dense gradients summed over all ranks (the sum of the
+      reference, not a mean: the seq shards of one sample also sum);
+    - a loss function that takes `norm_axis` (`sasrec_bce_loss`) is
+      normalized by the mask count of the whole mesh, and the reported
+      loss is the sum over the ranks, the global mean.
+
+    Logits come out (B/D, S/P, 2) on each rank. The module must use
+    attention "ring" or "ulysses" with `seq_axis` the mesh's second axis
+    name (e.g. `make_sasrec(..., attention="ring")`). Graph drivers
+    capture where the backend allows it (NCCL on cards); a staged mesh
+    (gloo with tensors on a card) runs eagerly. The JAX trainer's numerics
+    sentinel, `halt_on_nonfinite` and `measure_every` are refused
+    (ROADMAP.md item 6)."""
+
+    def __init__(self, model: EmbeddingModel,
+                 optimizer: Optional[SparseOptimizer] = None, *, mesh: Mesh,
+                 seed: int = 0, capacity_factor: float = 0.0, wire=None,
+                 group_exchange: bool = True, shard_stats: bool = True,
+                 hot_rows=0, mig_rows=0, hot_wire: Optional[str] = None,
+                 error_feedback: Optional[bool] = None, **unported):
+        if len(mesh.axis_names) != 2 or mesh.seq is None:
+            raise ValueError(
+                f"SeqMeshTrainer needs a 2-D (data, seq) mesh "
+                f"(make_seq_mesh), got axes {mesh.axis_names}")
+        super().__init__(model, optimizer, mesh=mesh, seed=seed,
+                         capacity_factor=capacity_factor, wire=wire,
+                         group_exchange=group_exchange,
+                         shard_stats=shard_stats, hot_rows=hot_rows,
+                         mig_rows=mig_rows, hot_wire=hot_wire,
+                         error_feedback=error_feedback, **unported)
+        self.data_axis, self.seq_axis = mesh.axis_names
+        from ..models.sequential import takes_norm_axis
+        self._norm = takes_norm_axis(model.loss_fn)
+
+    def _bound(self):
+        """The module's seq axis bound to this rank's seq group."""
+        from .sequence import bind_axis
+        return bind_axis(self.seq_axis, self.mesh.seq)
+
+    def _loss(self, logits, batch):
+        """Normalized by the mask count of the whole mesh where the loss
+        function takes `norm_axis`: with the sequence dim sharded, a
+        per-shard mean would upweight positions on padding-heavy shards
+        against the same batch trained without context parallelism."""
+        if not self._norm:
+            return super()._loss(logits, batch)
+        w = batch.get("weight")
+        args = (logits, batch["label"]) if w is None else (
+            logits, batch["label"], w)
+        return self.model.loss_fn(*args, norm_axis=self.mesh)
+
+    def _reduce_loss(self, loss):
+        """Each rank's loss is its sum over the global count, so the global
+        mean is the sum over the ranks (not the mean of the ranks')."""
+        if self._norm:
+            return coll.dense_sum(self.mesh, loss)
+        return super()._reduce_loss(loss)
+
+    def _step_tail(self, *args, **kwargs):
+        with self._bound():
+            return super()._step_tail(*args, **kwargs)
+
+    def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        with self._bound():
+            return super().eval_step(state, batch)

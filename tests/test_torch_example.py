@@ -278,9 +278,13 @@ def test_unported_flags_raise(flag):
         criteo_deepctr.main(BASE + ["--steps", "1"] + flag)
 
 
-def test_other_families_and_no_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        criteo_deepctr.main(BASE + ["--model", "two_tower", "--steps", "1"])
+def test_other_families_and_no_card_raise(monkeypatch, capsys):
+    # the retrieval and sequence families have batches of their own: the
+    # entry point refuses them, as the JAX one refuses two_tower
+    for family in ("two_tower", "sasrec", "bert4rec"):
+        with pytest.raises(SystemExit):
+            criteo_deepctr.main(BASE + ["--model", family, "--steps", "1"])
+        assert "its own batch schema" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         criteo_deepctr.main(["--data", TRAIN100, "--steps", "1"])

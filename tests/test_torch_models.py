@@ -158,8 +158,10 @@ def test_from_config_ports_deepfm_only():
     assert isinstance(m.module, ctr.DeepFM)
     assert m.module.compute_dtype == torch.float32
     assert m.module.hidden == (8,)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.from_config({"family": "sasrec", "vocabulary": 10})
+    # every family of the JAX zoo builds (the sequential and two-tower
+    # ones since they were ported)
+    seq = models.from_config({"family": "sasrec", "vocabulary": 10})
+    assert seq.specs["item"].input_dim == 10
     with pytest.raises(ValueError, match="unknown model family"):
         models.from_config({"family": "nope"})
 
