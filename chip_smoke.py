@@ -298,7 +298,37 @@ final line:
    predict. (q5) `EmbeddingVariable` on a 2^24 x 10 table: sparse_read,
    push_gradients and update_weights of 106,496 Zipfian ids, bit-equal to
    the plain versions. Step times, device busy time and idle share;
-16. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+16. obs     — observability on the main path, on the array flagship
+   (`make_deepfm(1<<24, 9)`, Adagrad(0.05), `synthetic_criteo(4096,
+   id_space=2^24, seed=7)`). (o1) 40 `jit_train_step` calls from one
+   state with the sentinel off, on with `record_step_stats` every step,
+   and on through the plain versions (eager): losses and the whole state
+   bit-equal, the health gauges of the kernel run equal to the plain
+   run's, the same kernel launches a step on and off, `health.grad_norm`
+   within 1e-5 of a float64 sum of one step's gradients; wall ms a step
+   off, on with the read, on without, the read alone, device ms off and
+   on. (o2) `halt_on_nonfinite=True`: a NaN planted after step 4 in a row
+   step 5 pulls, in the first dense weight, or in one label raises
+   `NonFiniteError` at step 5 naming the table, `dense` and `loss`; a
+   capsule written and loaded; the flight recorder's `health/nonfinite`;
+   with the halt off the same runs record and do not raise. (o3)
+   `measure_every=8` over 40 graph steps: 5 `trainer.step_ms` samples.
+   (o4) the entry point on the TSV with `--report-interval 1
+   --metrics-log --flight-recorder 4096 --trace-dump --skew-report
+   --profile`, and with `--skew-report` alone, against the plain run:
+   losses bit-equal, the JSONL, the Chrome trace (its `trainer` spans) and
+   the profiler's trace parse, each listed hot id within `est - err <=
+   true <= est` of the kept batches' exact counts; steady ex/s each way
+   and the sketch's drops. (o5) four staged gloo ranks, int8 wire with
+   error feedback and `halt_on_nonfinite`: equal health on every rank, a
+   NaN label in rank 0's rows raises on every rank at step 3; staged
+   bytes a step with the sentinel on and off against `exchange_cost`.
+   (o6) the flagship exported and served: 32 REST predicts of 4096 rows
+   with request ids, `/metrics` counting them, `/tracez` holding their
+   `serving/predict` spans, `/statusz`, `/sloz`, `/historz`,
+   `/timelinez`, `/fleetz` over two servers, the sketch's ids; REST p50
+   with and without a `/metrics` scrape between predicts;
+17. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -5350,6 +5380,568 @@ def phase_seq(torch, mb, ops, optimizers, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- obs: observability on the main path ---------------------------------------
+
+OBS_STEPS = 40            # (o1) graph steps of each run; (o3) the watch's
+OBS_TIMED_FROM = 5        # (o1) steps timed from here on
+OBS_HALT_K = 5            # (o2) the NaN is planted after step k - 1
+OBS_MEASURE_EVERY = 8     # (o3) one graph step in 8 measured
+OBS_ENTRY_STEPS = 20      # (o4) one pass of the TSV a run
+OBS_MESH = 4              # (o5) staged gloo ranks on the one card
+OBS_MESH_K = 3            # (o5) the NaN label rides step k
+OBS_PREDICTS = 32         # (o6) REST predicts of BATCH rows, each way
+OBS_NORM_RTOL = 1e-5      # (o1) health.grad_norm vs the float64 norm
+
+
+def _health(m_module) -> dict:
+    return {k: v for k, v in m_module.report().items()
+            if k.startswith("health.")}
+
+
+def _obs_graph_run(torch, trainer, state, batches, record: bool) -> tuple:
+    """`jit_train_step` over `batches` from `state`; with `record`, each
+    step's stats folded through `record_step_stats` -> (state, losses, the
+    health gauges after each step, wall ms a step from OBS_TIMED_FROM on,
+    the driver)."""
+    from openembedding_tpu_torch.utils import metrics as M
+    step = trainer.jit_train_step()
+    losses, health = [], []
+    for i, b in enumerate(batches):
+        if i == OBS_TIMED_FROM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+        if record:
+            trainer.record_step_stats(m)
+            health.append(_health(M))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - OBS_TIMED_FROM)
+    return state, torch.stack(losses).cpu().numpy(), health, ms, step
+
+
+def _float64_norms(torch, trainer, state, batch) -> tuple:
+    """One eager sentinel step from `state` whose gradients are also summed
+    in float64 -> (the recorded health summary, {source: float64 norm})."""
+    seen = {}
+    real = trainer._sentinel_stats
+
+    def spy(loss, dense_grads, row_grads):
+        seen["dense"] = float(torch.cat(
+            [g.reshape(-1).double() for g in dense_grads.values()])
+            .square().sum().sqrt())
+        for name, g in row_grads.items():
+            seen[name] = float(g.double().square().sum().sqrt())
+        return real(loss, dense_grads, row_grads)
+    trainer._sentinel_stats = spy
+    try:
+        state, m = trainer.train_step(state, batch)
+        health = trainer.record_step_stats(m)
+    finally:
+        del trainer._sentinel_stats
+    return health, seen
+
+
+def obs_sentinel(torch, mb, ops, optimizers, model, start, batches) -> dict:
+    """(o1) the sentinel changes nothing in the state; (o3) measure_every."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.utils import metrics as M
+    opt = lambda: optimizers.Adagrad(learning_rate=0.05)  # noqa: E731
+    total = {k: 0 for k in KERNELS}
+    rec = {}
+    runs = {}
+    for key, kw, record in (("off", {}, False),
+                            ("on_read", {"sentinel": True}, True)):
+        M.reset_all()
+        trainer = Trainer(model, opt(), **kw)
+        ops.reset_launch_counts()
+        state, losses, health, ms, step = _obs_graph_run(
+            torch, trainer, start.clone(), batches, record)
+        ran = ran_launches(ops.launch_counts(), [graph_record(step)])
+        _add(total, ran)
+        runs[key] = (trainer, state, losses, health, step)
+        rec[key] = {"wall_ms_per_step": ms, "launches": ran,
+                    "graph_launches": step.graph_launches}
+    # the plain twin: eager steps through the plain versions, sentinel on
+    M.reset_all()
+    plain = Trainer(model, opt(), sentinel=True)
+    pstate, plosses, phealth = start.clone(), [], []
+    with ops.plain_versions():
+        for b in batches:
+            pstate, m = plain.train_step(pstate, b)
+            plosses.append(m["loss"].clone())
+            plain.record_step_stats(m)
+            phealth.append(_health(M))
+    plosses = torch.stack(plosses).cpu().numpy()
+    off, on = runs["off"], runs["on_read"]
+    cmp_on = _compare(torch, mb, on[1], on[2], off[1], off[2],
+                      "o1_sentinel_on_vs_off")
+    cmp_plain = _compare(torch, mb, pstate, plosses, off[1], off[2],
+                         "o1_plain_sentinel_vs_off")
+    check(on[3] == phealth and len(on[3]) == len(batches)
+          and all(h for h in on[3]),
+          "(o1) the health gauges of the kernel run equal the plain run's")
+    check(on[4].graph_launches == off[4].graph_launches,
+          f"(o1) the same launches a step with the sentinel on and off "
+          f"({on[4].graph_launches} vs {off[4].graph_launches})")
+    # float64 norms of one more step's gradients
+    health, f64 = _float64_norms(torch, on[0], on[1].clone(), batches[0])
+    errs = {k: abs(health["grad_norm"][k] - v) / v for k, v in f64.items()}
+    check(set(errs) == set(health["grad_norm"])
+          and max(errs.values()) <= OBS_NORM_RTOL,
+          f"(o1) health.grad_norm within {OBS_NORM_RTOL} of float64 "
+          f"({errs})")
+    # costs: the read alone, the sentinel on without the read, device time
+    tr, state, step = on[0], on[1], on[4]
+    reads, walls = [], []
+    for b in batches[:10]:
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.record_step_stats(m)
+        reads.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[OBS_TIMED_FROM:]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    on_noread = ((time.perf_counter() - t0) * 1e3
+                 / (len(batches) - OBS_TIMED_FROM))
+    # (these measuring replays are left out of the phase's launches)
+    prof_off = profile_device(
+        torch, lambda: off[4](off[1], batches[-1]), calls=10, unit="step")
+    prof_on = profile_device(
+        torch, lambda: step(state, batches[-1]), calls=10, unit="step")
+    rec.update({
+        "losses_bit_equal_three_ways": True, **cmp_on, **cmp_plain,
+        "health_bit_equal_kernel_vs_plain": True,
+        "health_last": on[3][-1],
+        "grad_norm_vs_float64_rel_err": errs,
+        "read_ms_median": float(np.median(reads)), "read_ms": reads,
+        "wall_ms_per_step_sentinel_on_no_read": on_noread,
+        "device_ms_per_step_off":
+            prof_off["profile_device_ms_per_step"],
+        "device_ms_per_step_on":
+            prof_on["profile_device_ms_per_step"],
+        "profile_off": prof_off, "profile_on": prof_on})
+    del runs, off, on, tr, state, step, pstate, plain
+    torch.cuda.empty_cache()
+    # (o3) measure_every over OBS_STEPS graph steps
+    M.reset_all()
+    trainer = Trainer(model, opt(), measure_every=OBS_MEASURE_EVERY)
+    ops.reset_launch_counts()
+    _, _, _, ms, step = _obs_graph_run(torch, trainer, start.clone(),
+                                       batches, False)
+    _add(total, ran_launches(ops.launch_counts(), [graph_record(step)]))
+    watch = trainer._ensure_stepwatch()
+    acc = M.Accumulator.get("trainer.step_ms", "hist")
+    dev = M.Accumulator.get("trainer.step_device_ms", "hist")
+    check(watch.samples == acc.count == OBS_STEPS // OBS_MEASURE_EVERY,
+          f"(o3) {OBS_STEPS // OBS_MEASURE_EVERY} trainer.step_ms samples "
+          f"({watch.samples}, {acc.count})")
+    rec["o3"] = {"samples": acc.count,
+                 "step_ms_p50": acc.quantile(0.5),
+                 "step_device_ms_p50": dev.quantile(0.5),
+                 "unsampled_wall_ms_per_step": ms,
+                 "cuda_event_device_ms_per_step_o1":
+                     rec["device_ms_per_step_off"]}
+    rec["launches"] = total
+    return rec
+
+
+def _plant(torch, state, where: str, batch) -> dict:
+    """A NaN in the state (a table row the batch pulls, the first dense
+    weight) or in a copy of the batch's labels -> the batch to step on."""
+    if where == "table":
+        row = int(batch["sparse"]["categorical"].reshape(-1)[0])
+        state.tables["categorical"].weights[row, 0] = float("nan")
+    elif where == "dense":
+        with torch.no_grad():
+            next(state.dense.parameters()).view(-1)[0] = float("nan")
+    else:
+        batch = dict(batch, label=batch["label"].copy())
+        batch["label"][7] = np.nan
+    return batch
+
+
+def obs_halt(torch, ops, optimizers, model, start, batches, tmp) -> dict:
+    """(o2) halt_on_nonfinite stops at the planted step."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.utils import capsule, metrics as M
+    from openembedding_tpu_torch.utils import trace as T
+    total = {k: 0 for k in KERNELS}
+    rec = {}
+    want = {"table": "categorical", "dense": "dense", "loss": "loss"}
+    for halt in (True, False):
+        for where, source in want.items():
+            M.reset_all()
+            T.RECORDER.clear()
+            caps = os.path.join(tmp, f"caps-{where}-{halt}")
+            capsule.configure(caps, min_interval_s=0.0)
+            trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05),
+                              **({"halt_on_nonfinite": True} if halt
+                                 else {"sentinel": True}))
+            step = trainer.jit_train_step()
+            state = start.clone()
+            ops.reset_launch_counts()
+            raised_at, sources, health = None, None, None
+            try:
+                for k in range(OBS_HALT_K + 1):
+                    b = batches[k]
+                    if k == OBS_HALT_K:
+                        b = _plant(torch, state, where, b)
+                    state, m = step(state, b)
+                    health = trainer.record_step_stats(m)
+                    check(k == OBS_HALT_K or not health["nonfinite"],
+                          f"(o2) step {k} is clean")
+            except M.NonFiniteError as e:
+                raised_at, sources = k, dict(e.sources)
+            _add(total, ran_launches(ops.launch_counts(),
+                                     [graph_record(step)]))
+            key = f"{where}_{'halt' if halt else 'record'}"
+            events = [(e.group, e.name) for e in T.RECORDER.events()]
+            if halt:
+                check(raised_at == OBS_HALT_K and source in sources
+                      and set(sources) == {"categorical", "dense", "loss"},
+                      f"(o2 {where}) NonFiniteError at step {OBS_HALT_K} "
+                      f"naming {source} ({raised_at}, {sources})")
+                files = sorted(os.listdir(caps))
+                check(len(files) == 1, f"(o2 {where}) one capsule {files}")
+                cap = capsule.load(os.path.join(caps, files[0]))
+                check(cap["reason"] == "nonfinite"
+                      and cap["attrs"]["offenders"],
+                      f"(o2 {where}) the capsule loads")
+                rec[key] = {"raised_at": raised_at, "sources": sources,
+                            "capsule_flight_items": len(cap["flight"])}
+            else:
+                check(raised_at is None and health["nonfinite"]
+                      and source in health["nonfinite"],
+                      f"(o2 {where}) halt off: recorded, not raised "
+                      f"({health})")
+                rec[key] = {"nonfinite": health["nonfinite"],
+                            "nonfinite_total":
+                                M.report()["health.nonfinite_total"]}
+            check(("health", "nonfinite") in events,
+                  f"(o2 {key}) the flight recorder holds health/nonfinite")
+            del trainer, step, state
+    capsule.configure(None)
+    torch.cuda.empty_cache()
+    rec["launches"] = total
+    return rec
+
+
+def obs_entry(torch, ops, tsv: str, tmp: str) -> dict:
+    """(o4) the entry point's six flags against the same run without."""
+    from openembedding_tpu_torch.examples import criteo_deepctr as ex
+    from openembedding_tpu_torch.utils import metrics as M, sketch
+    from openembedding_tpu_torch.utils import trace as T
+    base = ["--data", tsv, "--vocabulary", str(VOCAB), "--batch-size",
+            str(BATCH), "--steps", str(OBS_ENTRY_STEPS)]
+    log = os.path.join(tmp, "m.jsonl")
+    dump = os.path.join(tmp, "t.json")
+    prof = os.path.join(tmp, "prof")
+    flags = ["--report-interval", "1", "--metrics-log", log,
+             "--flight-recorder", "4096", "--trace-dump", dump,
+             "--skew-report", "--profile", prof]
+    total = {k: 0 for k in KERNELS}
+    kept = []
+    observe = sketch.MONITOR.observe
+
+    def counting(table, ids):
+        ok = observe(table, ids)
+        if ok:
+            kept.append(np.asarray(ids).reshape(-1))
+        return ok
+    rec = {}
+    for key, argv in (("plain", base), ("skew_only", base + ["--skew-report"]),
+                      ("flags", base + flags)):
+        M.reset_all()
+        T.RECORDER.clear()
+        sketch.MONITOR.reset()
+        kept.clear()
+        with mock.patch.object(sketch.MONITOR, "observe", counting):
+            out, ran = _run_main(ops, ex, argv)
+        _add(total, ran)
+        rec[key] = {"steady_examples_per_s": out["steady_examples_per_s"],
+                    "losses": out["losses"],
+                    "dropped_batches": M.report().get(
+                        "skew.dropped_batches", 0.0),
+                    "kept_batches": len(kept)}
+        if key != "plain":
+            sketch.MONITOR.drain()
+            ids = np.concatenate(kept) if kept else np.zeros(0, np.int64)
+            true = dict(zip(*np.unique(ids[ids >= 0], return_counts=True)))
+            top = sketch.MONITOR.sketch("categorical").topk() if kept else []
+            bad = [(h, e, r, int(true.get(h, 0))) for h, e, r in top
+                   if not e - r <= true.get(h, 0) <= e]
+            check(not bad, f"(o4 {key}) every listed id within its bound "
+                  f"({bad[:4]})")
+            rec[key]["listed_ids"] = len(top)
+            sketch.MONITOR.close()
+    for key in ("skew_only", "flags"):
+        check(np.array_equal(rec[key]["losses"].view(np.int32),
+                             rec["plain"]["losses"].view(np.int32)),
+              f"(o4 {key}) losses bit-equal to the run without the flags")
+    records = [json.loads(x) for x in open(log)]
+    check(records and records[-1]["metrics"].get("train.step.ms", 0) > 0,
+          "(o4) the JSONL parses and holds the loop's spans")
+    events = json.load(open(dump))["traceEvents"]
+    names = {e["name"] for e in events}
+    check({"trainer.pull", "trainer.compute", "trainer.apply",
+           "trainer.capture", "trainer.replay", "train.step"} <= names,
+          f"(o4) the Chrome trace holds the trainer spans ({sorted(names)})")
+    ptrace = json.load(open(os.path.join(prof, "trace.json")))
+    kernels = sum(1 for e in ptrace["traceEvents"]
+                  if e.get("cat") == "kernel")
+    check(kernels > 0, "(o4) the profiler's trace loads and holds kernels")
+    for r in rec.values():
+        r["losses"] = r["losses"].tolist()
+    rec.update({"jsonl_records": len(records), "trace_events": len(events),
+                "profiler_kernel_events": kernels,
+                "profiler_trace_bytes": os.path.getsize(
+                    os.path.join(prof, "trace.json")),
+                "launches": total})
+    return rec
+
+
+def obs_mesh_rank(mesh):
+    """(o5) one staged rank: the int8 wire with error feedback and
+    halt_on_nonfinite; the health gauges after each clean step; the step
+    that raised; the staged bytes a step with the sentinel on and off."""
+    import torch
+    from openembedding_tpu_torch import data, ops, optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.utils import metrics as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(mesh.staged and mesh.size == OBS_MESH, f"a staged mesh {mesh}")
+    globals_ = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                          seed=TRAIN_SEED,
+                                          steps=OBS_MESH_K + 1))
+    nan_batch = dict(globals_[OBS_MESH_K],
+                     label=globals_[OBS_MESH_K]["label"].copy())
+    nan_batch["label"][3] = np.nan   # rank 0's rows only
+    globals_[OBS_MESH_K] = nan_batch
+    batches = [local_batch(b, mesh) for b in globals_]
+    out = {"rank": mesh.rank, "health": [], "halt": None}
+    ops.reset_launch_counts()
+    for sentinel in (False, True):
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                              mesh=mesh, wire="int8", error_feedback=True,
+                              halt_on_nonfinite=sentinel)
+        state = trainer.init(batches[0])
+        staged = []
+        for k, b in enumerate(batches if sentinel else batches[:2]):
+            M.reset_all()
+            before = mesh.staged_bytes
+            state, m = trainer.train_step(state, b)
+            torch.cuda.synchronize()
+            staged.append(mesh.staged_bytes - before)
+            try:
+                h = trainer.record_step_stats(m)
+            except M.NonFiniteError as e:
+                out["halt"] = [k, dict(e.sources)]
+                break
+            if sentinel:
+                out["health"].append({key: v for key, v in
+                                      M.report().items()
+                                      if key.startswith("health.")})
+                check(h["sentinel"], "(o5) the sentinel's stats arrived")
+        out["staged_bytes_per_step_" + ("on" if sentinel else "off")] = \
+            staged[1]
+        out["exchange_cost_bytes_per_step"] = \
+            trainer.last_wire_cost["bytes_per_step"]
+        del trainer, state
+        torch.cuda.empty_cache()
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def obs_mesh(torch) -> dict:
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(obs_mesh_rank, OBS_MESH, backend="gloo",
+                      device="cuda", timeout_s=600, threads=0)
+    wall = time.perf_counter() - t0
+    total = {k: 0 for k in KERNELS}
+    for r in ranks:
+        check(r["health"] == ranks[0]["health"]
+              and len(r["health"]) == OBS_MESH_K,
+              f"(o5) rank {r['rank']}'s health equals rank 0's")
+        check(r["halt"] is not None and r["halt"][0] == OBS_MESH_K
+              and r["halt"][1] == ranks[0]["halt"][1]
+              and {"loss", "dense", "categorical"} <= set(r["halt"][1]),
+              f"(o5) rank {r['rank']} raised at step {OBS_MESH_K} "
+              f"({r['halt']})")
+        _add(total, r["launches"])
+    h = ranks[0]["health"]
+    for key in ('health.grad_norm{table="categorical"}',
+                'health.quant_err_rel{table="categorical"}',
+                'health.ef_abs_mean{table="categorical"}'):
+        check(all(key in x for x in h[1:]), f"(o5) {key} published")
+    return {"wall_seconds": wall, "health": h, "halt": ranks[0]["halt"],
+            "staged_bytes_per_step_on": [r["staged_bytes_per_step_on"]
+                                         for r in ranks],
+            "staged_bytes_per_step_off": [r["staged_bytes_per_step_off"]
+                                          for r in ranks],
+            "exchange_cost_bytes_per_step":
+                ranks[0]["exchange_cost_bytes_per_step"],
+            "launches": total}
+
+
+def _http(url, body=None):
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 method="POST" if body else "GET")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.read().decode()
+
+
+def obs_serving(torch, ops, model, state, tmp) -> dict:
+    """(o6) the REST telemetry over the exported flagship."""
+    from openembedding_tpu_torch import data
+    from openembedding_tpu_torch.export import export_standalone
+    from openembedding_tpu_torch.serving import ServingClient, make_server
+    from openembedding_tpu_torch.utils import metrics as M, sketch
+    from openembedding_tpu_torch.utils import trace as T
+    M.reset_all()
+    T.RECORDER.clear()
+    sketch.MONITOR.reset()
+    export = os.path.join(tmp, "export")
+    export_standalone(state, model, export)
+    servers = []
+    for name, peers in (("b", None), ("a", "b")):
+        httpd = make_server(os.path.join(tmp, f"reg-{name}"), port=0,
+                            peers=[servers[0][1]] if peers else None)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        servers.append((httpd, f"http://127.0.0.1:{httpd.server_address[1]}",
+                        th))
+    url = servers[1][1]
+    total = {k: 0 for k in KERNELS}
+    rec = {}
+    try:
+        client = ServingClient(url, timeout=300)
+        client.create_model(SIGN, export)
+        batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                             seed=TRAIN_SEED + 11,
+                                             steps=OBS_PREDICTS))
+        sent = 0
+        for scrape in (False, True):
+            ms, rids = [], []
+            ops.reset_launch_counts()
+            for i, b in enumerate(batches):
+                rid = f"obs-{int(scrape)}-{i}"
+                rids.append(rid)
+                t0 = time.perf_counter()
+                with T.request(rid):
+                    got = client.predict(SIGN, b["sparse"], b["dense"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(got.shape == (BATCH,) and np.isfinite(got).all(),
+                      "(o6) finite logits")
+                sent += int((b["sparse"]["categorical"] >= 0).sum())
+                if scrape:
+                    code, _ = _http(f"{url}/metrics")
+                    check(code == 200, "(o6) /metrics between predicts")
+            launched = ops.launch_counts()
+            _add(total, launched)
+            rec["p50_ms_" + ("with_scrape" if scrape else "plain")] = \
+                float(np.median(ms))
+            if not scrape:
+                code, text = _http(f"{url}/metrics")
+                parsed = M.parse_prometheus(text)
+                n = [v for name, lab, v in parsed["samples"]
+                     if name == "oetpu_serving_predict_ms_count"
+                     and lab.get("model") == SIGN]
+                check(n == [float(OBS_PREDICTS)],
+                      f"(o6) /metrics counts {OBS_PREDICTS} predicts ({n})")
+                code, body = _http(f"{url}/tracez?n=100000")
+                spans = json.loads(body)["spans"]
+                seen = sorted(s["request_id"] for s in spans
+                              if (s["group"], s["name"])
+                              == ("serving", "predict"))
+                check(seen == sorted(rids),
+                      f"(o6) /tracez holds {OBS_PREDICTS} serving/predict "
+                      "spans with the client's request ids")
+                rec["gathers_per_predict"] = launched["gather_rows"] \
+                    / OBS_PREDICTS
+        for route in ("statusz", "sloz", "historz", "timelinez"):
+            code, _ = _http(f"{url}/{route}")
+            check(code == 200, f"(o6) /{route} answers 200")
+        code, text = _http(f"{url}/fleetz")
+        fleet = M.parse_prometheus(text)
+        node = M.parse_prometheus(_http(f"{servers[0][1]}/metrics")[1])
+        http_fleet = [v for name, lab, v in fleet["samples"]
+                      if name == "oetpu_serving_predict_ms_count"
+                      and lab.get("model") == SIGN]
+        http_node = [v for name, lab, v in node["samples"]
+                     if name == "oetpu_serving_predict_ms_count"
+                     and lab.get("model") == SIGN]
+        # one process holds both nodes' registry: each counter twice
+        check(text.startswith("# fleet: 2 node(s)")
+              and http_fleet == [2 * http_node[0]],
+              f"(o6) /fleetz sums both nodes ({http_fleet}, {http_node})")
+        sketch.MONITOR.drain()
+        dropped = M.report().get("skew.dropped_batches", 0.0)
+        seen_ids = sketch.MONITOR.sketch("categorical").total
+        check(seen_ids == sent if not dropped else 0 < seen_ids < sent,
+              f"(o6) the sketch saw the predicted ids ({seen_ids} of "
+              f"{sent}, {dropped} batches dropped)")
+        rec.update({"sketch_ids": seen_ids, "sent_ids": sent,
+                    "skew_dropped_batches": dropped,
+                    "fleet_predict_count": http_fleet[0]})
+    finally:
+        for httpd, _u, th in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+        sketch.MONITOR.close()
+    rec["launches"] = total
+    return rec
+
+
+def phase_obs(torch, mb, ops, data, optimizers, tsv: str, smi: str) -> dict:
+    """Observability on the main path: (o1)+(o3) the sentinel and the step
+    watch, (o2) the halt, (o4) the entry point's flags, (o5) four staged
+    ranks, (o6) the REST telemetry -> {kernel: launches of the phase}."""
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-obs-")
+    total = {k: 0 for k in KERNELS}
+    try:
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                             seed=TRAIN_SEED,
+                                             steps=OBS_STEPS))
+        start = Trainer(model, optimizers.Adagrad(
+            learning_rate=0.05)).init(batches[0])
+        parts = (
+            ("o1", lambda: obs_sentinel(torch, mb, ops, optimizers, model,
+                                        start, batches)),
+            ("o2", lambda: obs_halt(torch, ops, optimizers, model, start,
+                                    batches, tmp)),
+            ("o4", lambda: obs_entry(torch, ops, tsv, tmp)),
+            ("o5", lambda: obs_mesh(torch)),
+            ("o6", lambda: obs_serving(torch, ops, model, start, tmp)))
+        for key, fn in parts:
+            t1 = time.perf_counter()
+            rec = fn()
+            _add(total, rec["launches"])
+            emit({"phase": "obs", key: rec,
+                  "seconds": time.perf_counter() - t1, "card": smi})
+            torch.cuda.empty_cache()
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(total[k] > 0, f"the obs path launched {k}")
+        emit({"phase": "obs", "launches": total, "card": smi,
+              "wall_seconds": time.perf_counter() - t0})
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -5525,6 +6117,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         seq_launches = phase_seq(torch, mb, ops, optimizers, smi)
         torch.cuda.empty_cache()
+        obs_launches = phase_obs(torch, mb, ops, data, optimizers, tsv, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -5539,9 +6133,10 @@ def main() -> int:
                    "persist": persist_launches[k],
                    "offload": offload_launches[k],
                    "seq": seq_launches[k],
+                   "obs": obs_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
-                 "seq"):
+                 "seq", "obs"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

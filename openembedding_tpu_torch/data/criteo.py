@@ -30,6 +30,7 @@ import gzip
 import itertools
 import queue as queue_mod
 import threading
+import time
 from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
@@ -510,8 +511,14 @@ def prefetch_to_device(it: Iterator, size: int = 2,
 
     As in the JAX package: an error in the producer is raised in the
     consumer, a consumer that leaves early reaps the thread, and a full
-    queue never strands the producer. (The JAX version's `ingest.*`
-    telemetry waits for `utils/metrics`, ROADMAP.md item 6.)"""
+    queue never strands the producer. Telemetry, under the JAX package's
+    names (label `ring="prefetch"`): the time the producer blocked on a full
+    queue (`ingest.producer_stall_ms`), the queue's depth after each put
+    (`ingest.queue_depth`) and the items an early consumer exit discarded
+    (`ingest.dropped`)."""
+    from ..utils import metrics
+
+    _labels = {"ring": "prefetch"}
     device = resolve_device(device)
     stager = (_PinnedStager(device, size + 1) if device.type == "cuda"
               else None)
@@ -522,14 +529,26 @@ def prefetch_to_device(it: Iterator, size: int = 2,
     def _put(item) -> bool:
         """Bounded put: gives up once the consumer has left, so a consumer
         that abandons the generator never strands the producer on a full
-        queue."""
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.05)
-                return True
-            except queue_mod.Full:
-                continue
-        return False
+        queue. A put that could not land at once counts its whole wait as
+        a stall."""
+        try:
+            q.put_nowait(item)
+            return True
+        except queue_mod.Full:
+            pass
+        t0 = time.perf_counter()
+        try:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+        finally:
+            metrics.observe("ingest.producer_stall_ms",
+                            (time.perf_counter() - t0) * 1e3, "sum",
+                            labels=_labels)
 
     def producer():
         try:
@@ -538,6 +557,8 @@ def prefetch_to_device(it: Iterator, size: int = 2,
                     item = stager.stage(item)
                 if not _put(item):
                     return
+                metrics.observe("ingest.queue_depth", float(q.qsize()),
+                                "gauge", labels=_labels)
             _put(_END)
         except BaseException as e:  # noqa: BLE001 — raised in the consumer
             _put(e)
@@ -554,9 +575,15 @@ def prefetch_to_device(it: Iterator, size: int = 2,
             yield stager.hand_over(item) if stager is not None else item
     finally:
         stop.set()
+        dropped = 0
         while True:  # unblock a producer mid-put, then reap it
             try:
-                q.get_nowait()
+                item = q.get_nowait()
             except queue_mod.Empty:
                 break
+            if item is not _END and not isinstance(item, BaseException):
+                dropped += 1
+        if dropped:
+            metrics.observe("ingest.dropped", float(dropped), "sum",
+                            labels=_labels)
         t.join(timeout=5)

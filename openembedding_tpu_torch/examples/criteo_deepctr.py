@@ -53,17 +53,39 @@ Flag map to the reference benchmark, as in the JAX script:
                 --save/--load write and read the sharded checkpoint; --export
                 writes it too, and rank 0 exports from it.
 
+Telemetry, as in the JAX script (`utils/`):
+  --report-interval S  print the metrics registry every S seconds
+                (`metrics.PeriodicReporter`); --metrics-log PATH also
+                appends each report (and a final one at exit) as JSONL
+  --flight-recorder N  resize the span/event flight recorder
+  --trace-dump PATH  at exit, the flight recorder as Chrome-trace JSON
+  --skew-report  feed each host batch's ids into the heavy-hitter
+                sketches (off the hot path: a full queue drops the batch
+                and counts it in `skew.dropped_batches`) and print the
+                hot-id and shard-balance tables at the end
+  --profile DIR  a `torch.profiler` trace (CPU and CUDA activities) of the
+                train loop, written into DIR as Chrome-trace JSON when the
+                loop ends or the process exits (the JAX flag writes a
+                `jax.profiler` directory)
+With any of them on, every step's stats (every window's on a mesh) are
+folded into the registry (`Trainer.record_step_stats`, one read of the
+step's stats) and the registry's table prints at the end. Under --mesh
+every rank runs the reporter; rank 0 alone writes --metrics-log,
+--trace-dump and --profile's trace and prints the skew report.
+
 It prints the loss every 20 steps, then examples/s, the train AUC and the
-paths it wrote. The JAX script's flags whose modules the port lacks raise
-NotImplementedError naming their ROADMAP.md item. `main(argv)` returns what
-the run made (state, losses, rates), for callers that check it.
+paths it wrote. `main(argv)` returns what the run made (state, losses,
+rates), for callers that check it.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -76,6 +98,8 @@ from ..data import (CriteoBatcher, prefetch_to_device, read_criteo_tsv,
                     synthetic_criteo)
 from ..device import resolve_device
 from ..model import Trainer
+from ..utils import metrics as M
+from ..utils import trace as T
 from ..utils.metrics import auc
 
 OPTIMIZERS = {
@@ -93,15 +117,10 @@ NOT_CTR = ("two_tower", "sasrec", "bert4rec")
 FAMILIES = ("bert4rec", "dcn", "deepfm", "dlrm", "lr", "sasrec", "two_tower",
             "wdl", "xdeepfm")
 
-# flag -> (its default, what is missing, the ROADMAP.md item)
-NOT_PORTED = {
-    "report_interval": (0.0, "metrics reporting (utils/metrics)", "6"),
-    "metrics_log": ("", "metrics reporting (utils/metrics)", "6"),
-    "profile": ("", "the profiler trace of the train loop", "6"),
-    "flight_recorder": (0, "the flight recorder (utils/trace)", "6"),
-    "trace_dump": ("", "the flight recorder (utils/trace)", "6"),
-    "skew_report": (False, "the skew sketches (utils/sketch)", "1.5 and 6"),
-}
+# the telemetry flags: with any of them away from its default, the loop
+# folds every step's stats into the registry
+TELEMETRY = {"report_interval": 0.0, "metrics_log": "", "profile": "",
+             "flight_recorder": 0, "trace_dump": "", "skew_report": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,13 +175,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dirty-window persistence: deltas proportional to "
                          "the rows touched since the last persist "
                          "(persist.IncrementalPersister)")
-    g = ap.add_argument_group("not ported (raise NotImplementedError)")
-    g.add_argument("--report-interval", type=float, default=0.0)
-    g.add_argument("--metrics-log", default="", metavar="PATH")
-    g.add_argument("--profile", default="", metavar="DIR")
-    g.add_argument("--flight-recorder", type=int, default=0, metavar="N")
-    g.add_argument("--trace-dump", default="", metavar="PATH")
-    g.add_argument("--skew-report", action="store_true")
+    ap.add_argument("--report-interval", type=float, default=0.0,
+                    help="print the metrics registry every S seconds")
+    ap.add_argument("--metrics-log", default="", metavar="PATH",
+                    help="append each periodic report (and a final snapshot "
+                         "at exit) as a timestamped JSONL record to PATH")
+    ap.add_argument("--profile", default="", metavar="DIR",
+                    help="a torch.profiler trace (CPU and CUDA) of the "
+                         "train loop, written into DIR as Chrome-trace JSON")
+    ap.add_argument("--flight-recorder", type=int, default=0, metavar="N",
+                    help="resize the span/event flight recorder "
+                         "(utils/trace; 0 keeps the default)")
+    ap.add_argument("--trace-dump", default="", metavar="PATH",
+                    help="at exit, dump the flight recorder (train-loop "
+                         "spans, persist commits) as Chrome-trace JSON")
+    ap.add_argument("--skew-report", action="store_true",
+                    help="feed per-table id batches into the heavy-hitter "
+                         "sketches (utils/sketch, off the hot path) and "
+                         "print the end-of-run hot-id and shard-balance "
+                         "tables")
     return ap
 
 
@@ -182,12 +213,8 @@ def build_model(args, recipe):
     return model
 
 
-def _refuse_unported(args) -> None:
-    for dest, (default, what, item) in NOT_PORTED.items():
-        if getattr(args, dest) != default:
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported yet (ROADMAP.md item {item})")
+def telemetry_on(args) -> bool:
+    return any(getattr(args, k) != v for k, v in TELEMETRY.items())
 
 
 def stack_batches(window: List[Dict]) -> Dict:
@@ -216,7 +243,8 @@ def _sync(device: torch.device) -> None:
 def main(argv: Optional[List[str]] = None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    if args.flight_recorder > 0:
+        T.configure(args.flight_recorder)
     if args.model in NOT_CTR:
         parser.error(f"{args.model} has its own batch schema; use the zoo "
                      "API directly")
@@ -251,6 +279,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
               f"{mesh.device}), tables row-sharded, batch data-parallel")
     else:
         trainer = Trainer(model, opt, device=device)
+    if args.skew_report:
+        trainer.enable_skew_monitor()
 
     if args.data:
         # native="on": a reader that does not build fails the run
@@ -261,6 +291,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
     else:
         batches = synthetic_criteo(args.batch_size, id_space=args.vocabulary,
                                    ids_dtype=np.int32)
+    if args.skew_report and not args.offload:
+        # the host batches feed the sketches before any upload (every rank
+        # reads the whole stream); with --offload, offload_prepare feeds them
+        batches = _skew_tap(batches, trainer)
     if mesh is not None:
         batches = _local_batches(batches, mesh)
         device = mesh.device
@@ -274,6 +308,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return _train(args, model, trainer, batches, device, recipe, host)
     finally:
         batches.close()
+
+
+def _skew_tap(batches, trainer):
+    for b in batches:
+        trainer.record_batch_skew(b)
+        yield b
 
 
 def _tap(batches, host):
@@ -325,9 +365,40 @@ def _check_drops(trainer, pending) -> None:
               "(the graphs capture anew)")
 
 
+def _profiler(args, device, writer: bool) -> contextlib.ExitStack:
+    """`--profile DIR`: a torch.profiler run over the train loop, closed
+    (and its Chrome trace written into DIR) by the returned stack's close,
+    or at exit if the loop dies first."""
+    stack = contextlib.ExitStack()
+    if not args.profile:
+        return stack
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    if writer:
+        # the stack unwinds last-in first-out: the trace is written after
+        # the profiler stops
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "trace.json")
+        stack.callback(lambda: print(f"profile -> {path}"))
+        stack.callback(prof.export_chrome_trace, path)
+    stack.enter_context(prof)
+    atexit.register(stack.close)  # close() is idempotent
+    print(f"profiling -> {args.profile}")
+    return stack
+
+
 def _train(args, model, trainer, batches, device, recipe, host) -> dict:
     mesh = getattr(trainer, "mesh", None) is not None
     offload = args.offload > 0
+    writer = not mesh or trainer.mesh.rank == 0
+    telemetry = telemetry_on(args)
+    reporter = M.PeriodicReporter(
+        args.report_interval,
+        jsonl_path=(args.metrics_log or None) if writer else None).start()
+    profile_stack = _profiler(args, device, writer)
     first = next(batches)
     state = trainer.init(first)
     if args.load:
@@ -352,13 +423,16 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
             while len(window) < min(args.scan, args.steps - done):
                 window.append(next(batches))
             read = _take(host, len(window))
-            if offload:
-                # one admission of the window's union, then the window
-                state, m = trainer.offload_train_many(
-                    state, stack_batches(window), driver=many)
-            else:
-                state, m = many(state, stack_batches(window))
+            with M.vtimer("train", "window"):
+                if offload:
+                    # one admission of the window's union, then the window
+                    state, m = trainer.offload_train_many(
+                        state, stack_batches(window), driver=many)
+                else:
+                    state, m = many(state, stack_batches(window))
             losses.append(m["loss"].clone())
+            if telemetry and mesh:
+                trainer.record_window_stats(m)
             if persister is not None:
                 _persisted(persister, read, state)
             if mesh:
@@ -388,12 +462,15 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
         for i in range(1, args.steps):
             batch = next(batches)
             read = _take(host, 1)
-            if offload:
-                state = trainer.offload_prepare(state, read[0])
-            state, m = step(state, batch)
+            with M.vtimer("train", "step"):
+                if offload:
+                    state = trainer.offload_prepare(state, read[0])
+                state, m = step(state, batch)
             losses.append(m["loss"].clone().reshape(1))
             labels.append(batch["label"])
             scores.append(m["logits"].reshape(-1).clone())
+            if telemetry:
+                trainer.record_step_stats(m)
             if persister is not None:
                 _persisted(persister, read, state)
             if mesh:
@@ -408,6 +485,8 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
             _check_drops(trainer, pending)
         mode = ""
     t2 = time.perf_counter()
+    profile_stack.close()
+    reporter.stop()
     if persister is not None:
         persister.close()
         print(f"persisted {len(persister.history)} times -> {args.persist}")
@@ -424,6 +503,17 @@ def _train(args, model, trainer, batches, device, recipe, host) -> dict:
         train_auc = auc(np.concatenate([_host(x) for x in labels]),
                         np.concatenate([_host(x) for x in scores]))
         print(f"train AUC {train_auc:.4f}")
+    if telemetry:
+        print(M.report_table())
+    if args.skew_report and writer:
+        from ..utils import sketch
+        sketch.MONITOR.drain()  # every enqueued batch folded in first
+        print("== workload skew: hot ids (Space-Saving top-K) ==")
+        print(sketch.MONITOR.render_text())
+        print("== workload skew: shard balance (exchange load) ==")
+        print(sketch.shard_balance_text())
+    if args.trace_dump and writer:
+        print(f"trace dump -> {T.dump_chrome(args.trace_dump)}")
 
     if args.save:
         trainer.save(state, args.save)

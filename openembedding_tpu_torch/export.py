@@ -278,6 +278,11 @@ class StandaloneModel:
 
         first = feat(next(iter(self._tables)))
         n = np.asarray(batch["sparse"][first]).shape[0]
+        # heavy-hitter telemetry (`utils/sketch`): the raw request ids per
+        # feature, off the hot path (a bounded-queue put; -1 pads dropped)
+        from .utils import sketch
+        for fname, fids in batch["sparse"].items():
+            sketch.record_ids(fname, fids)
         padded = pad_serving_batch(batch, n, bucket_size(n))
         embedded = {}
         for name in self._tables:

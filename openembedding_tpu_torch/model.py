@@ -6,8 +6,10 @@ tables and dense module an export is written from), `TrainState`, the
 dense-path optimizer reuse (`init_dense_slots`, `dense_apply`), `Trainer`
 with its host-cached tables' drivers (`offload_prepare`, `offload_stage`,
 `offload_train_many`, `offload_flush`, `offload_store_snapshots`;
-`tables/host_offload.py`) and its compiled steps (`CompiledStep`: a step, a
-`train_many` window or `eval_step` as a CUDA graph).
+`tables/host_offload.py`), its compiled steps (`CompiledStep`: a step, a
+`train_many` window or `eval_step` as a CUDA graph) and its observability
+hooks (the numerics sentinel, `halt_on_nonfinite`, `measure_every`, the
+skew monitor; `utils/`).
 
 The dense module is a `torch.nn.Module` called as `module(embedded, dense)`
 where `embedded` maps variable name -> (B, ..., dim) pulled rows.
@@ -45,6 +47,7 @@ from .ops.sparse import (lookup_rows, lookup_rows_trainable, pack_table,
                          unpack_table)
 from .tables.hash_table import hash_apply_gradients_packed
 from .optimizers import Adagrad, SparseOptimizer
+from .utils import trace as _trace
 from .utils.fs import local_path
 
 
@@ -409,11 +412,27 @@ class Trainer:
     def __init__(self, model: EmbeddingModel,
                  optimizer: Optional[SparseOptimizer] = None, seed: int = 0,
                  *, device=None, offload_pipeline: bool = False,
-                 offload_densify: int = 1, offload_stage_depth: int = 1):
+                 offload_densify: int = 1, offload_stage_depth: int = 1,
+                 sentinel: bool = False, halt_on_nonfinite: bool = False,
+                 measure_every: int = 0):
         self.model = model
         self.optimizer = optimizer or Adagrad()
         self.seed = seed
         self.device = resolve_device(device)
+        # the numerics sentinel (`_sentinel_stats`): additive health stats
+        # in the step's stats, folded into `health.*` gauges by
+        # `record_step_stats`; off, the step and its graph are unchanged.
+        # `halt_on_nonfinite` implies it and makes `record_step_stats`
+        # raise `NonFiniteError` naming the offending table or phase
+        self.halt_on_nonfinite = bool(halt_on_nonfinite)
+        self.sentinel = bool(sentinel) or self.halt_on_nonfinite
+        # sampled step timing (`utils/stepwatch.StepWatch`): one
+        # `jit_train_step` call in N bracketed by synchronizes into
+        # `trainer.step_ms`; 0 = off
+        self.measure_every = int(measure_every)
+        self._stepwatch = None
+        # the heavy-hitter sketches' feed (`enable_skew_monitor`)
+        self._skew = None
         # the host-cached tables' knobs (`tables/host_offload.py`): staging
         # a batch's store lookup and upload ahead on a worker
         # (`offload_stage`), up to `offload_stage_depth` batches ahead, and
@@ -426,6 +445,8 @@ class Trainer:
         self.offload: Dict[str, Any] = {}
         self._offload_prepared = False
         self._offload_many = None
+
+    num_shards = 1  # MeshTrainer: the mesh's size
 
     # bumped when what a captured step holds stops being valid (the mesh's
     # bucket capacity grew): every `CompiledStep` then captures anew
@@ -538,7 +559,9 @@ class Trainer:
         """Admit the batch's ids (numpy or tensors; a stacked window's too)
         into each host-cached table's cache, evicting or flushing first
         where a cache would pass its high-water mark; returns `state`, its
-        caches updated in place. No-op without host-cached tables."""
+        caches updated in place. No-op without host-cached tables. Also
+        the per-batch hook the skew monitor rides (`record_batch_skew`)."""
+        self.record_batch_skew(batch)
         if not self.offload:
             return state
         batch = self._host_transformed(batch)
@@ -603,6 +626,131 @@ class Trainer:
         it (`parallel.MeshTrainer.load_into` does)."""
         fill(state)
         return state
+
+    # -- observability (`utils/`) -------------------------------------------
+
+    def enable_skew_monitor(self, monitor=None):
+        """Feed every batch's ids, per table, into the heavy-hitter
+        sketches (`utils/sketch.MONITOR` unless one is given) through
+        `record_batch_skew`: a bounded-queue put per table per batch,
+        dropped and counted in `skew.dropped_batches` when the sketch's
+        worker falls behind."""
+        from .utils import sketch
+        self._skew = monitor if monitor is not None else sketch.MONITOR
+        return self._skew
+
+    def record_batch_skew(self, batch) -> None:
+        """Enqueue one batch's per-table ids into the skew monitor (no-op
+        until `enable_skew_monitor()`). Give it the HOST batch: a tensor on
+        the card is read back, which waits for the card."""
+        if self._skew is None:
+            return
+        batch = self._host_transformed(batch)
+        sparse = batch.get("sparse") or {}
+        for name, spec in self.model.ps_specs().items():
+            ids = sparse.get(spec.feature_name)
+            if ids is not None:
+                if isinstance(ids, torch.Tensor):
+                    ids = ids.detach().cpu().numpy()
+                self._skew.observe(name, ids)
+
+    def _sentinel_stats(self, loss: torch.Tensor,
+                        dense_grads: Dict[str, torch.Tensor],
+                        row_grads: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """The numerics sentinel's stats of this rank, every value additive
+        so `reduce_metrics`'s sum over the ranks gives the global figure
+        (the JAX package's `_sentinel_stats`): the loss's non-finite count,
+        the sum of squares and non-finite count of the dense gradients
+        before their reduce and of each table's row gradients, and at a
+        narrow wire the sum of squares of each table's row gradients less
+        their round trip through the wire codec. The dense leaves are laid
+        end to end first, so the sentinel is a handful of launches whatever
+        the number of leaves. Float32 sums, as in JAX (in another order:
+        a few ulps apart); the counts are exact."""
+        f32 = torch.float32
+        out = {"health/loss_nonfinite":
+               (~torch.isfinite(loss.to(f32))).sum().to(f32)}
+        leaves = [g.reshape(-1).to(f32) for g in dense_grads.values()]
+        if leaves:
+            flat = torch.cat(leaves) if len(leaves) > 1 else leaves[0]
+            out["health/dense_grad_sumsq"] = flat.square().sum()
+            out["health/dense_grad_nonfinite"] = \
+                (~torch.isfinite(flat)).sum().to(f32)
+        else:
+            zero = torch.zeros((), dtype=f32, device=self.device)
+            out["health/dense_grad_sumsq"] = zero
+            out["health/dense_grad_nonfinite"] = zero
+        for name, g in row_grads.items():
+            g = g.to(f32)
+            out[f"{name}/grad_sumsq"] = g.square().sum()
+            out[f"{name}/grad_nonfinite"] = (~torch.isfinite(g)).sum().to(f32)
+            tf = self.wire_for(name) if self.num_shards > 1 else "fp32"
+            if tf != "fp32" and g.dim() >= 2 and g.shape[-1] > 0:
+                from .ops.wire import pack_inband, unpack_inband
+                rows = g.reshape(-1, g.shape[-1])
+                back = unpack_inband(pack_inband(rows, tf), rows.shape[-1],
+                                     tf)
+                out[f"{name}/quant_err_sumsq"] = (back - rows).square().sum()
+        return out
+
+    def _sentinel_ef_stats(self, state: TrainState
+                           ) -> Dict[str, torch.Tensor]:
+        """The sentinel's residual stats, read after the apply: each
+        table's |ef| sum and its element count (a fill, never a host copy,
+        so a graph captures it)."""
+        out = {}
+        for name in self.model.ps_specs():
+            ef = state.tables[name].ef
+            if ef is None:
+                continue
+            out[f"{name}/ef_abs_sum"] = ef.to(torch.float32).abs().sum()
+            out[f"{name}/ef_elems"] = torch.full(
+                (), float(ef.numel()), dtype=torch.float32, device=ef.device)
+        return out
+
+    def record_step_stats(self, step_metrics):
+        """Fold one step's metrics through the registry
+        (`utils/metrics.record_step_stats`: one device-to-host copy) and,
+        with `halt_on_nonfinite=True`, raise `NonFiniteError` naming the
+        offending tables or phases when the sentinel saw a non-finite loss
+        or gradient (after a capsule is triggered). Returns the health
+        summary. It waits for the step: call it after each step whose
+        health is to be judged. A graph step's metrics are its static
+        outputs, read here before the next replay overwrites them."""
+        from .utils import metrics as _metrics
+        stats = step_metrics
+        if isinstance(step_metrics, dict) and "stats" in step_metrics:
+            stats = step_metrics["stats"]
+        health = _metrics.record_step_stats(stats)
+        if self.halt_on_nonfinite and health.get("nonfinite"):
+            from .utils import capsule as _capsule
+            _capsule.trigger("nonfinite", offenders=health["nonfinite"])
+            raise _metrics.NonFiniteError(health["nonfinite"])
+        return health
+
+    def _ensure_stepwatch(self):
+        """This trainer's StepWatch (made once; None when `measure_every`
+        <= 0), shared by the measured step and the input-wait lane."""
+        if self.measure_every <= 0:
+            return None
+        if self._stepwatch is None:
+            from .utils.stepwatch import StepWatch
+            self._stepwatch = StepWatch(
+                every=self.measure_every, device=self.device,
+                wire_cost=lambda: getattr(self, "last_wire_cost", None))
+        return self._stepwatch
+
+    def _wrap_measured(self, fn):
+        watch = self._ensure_stepwatch()
+        return fn if watch is None else watch.wrap(fn)
+
+    def input_timed(self, batches):
+        """Wrap a batch iterator so the time the loop blocks on each
+        `next()` lands in `trainer.input_wait_ms` (through this trainer's
+        StepWatch when measurement is on)."""
+        from .utils.stepwatch import timed_batches
+        return timed_batches(batches, self._ensure_stepwatch())
 
     # -- overflow governance (the JAX package's hooks) ----------------------
 
@@ -754,7 +902,7 @@ class Trainer:
         are `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
         `trainer.dense_apply`, `trainer.sparse_apply`)."""
         b = _transformed(self.model, b)
-        with record_function("trainer.pull"):
+        with record_function("trainer.pull"), _trace.span("trainer", "pull"):
             ids = self._batch_ids(b)
             pulled, plans, stats = self.tables_pull(state, ids, packed)
         return self._step_tail(state, b, ids, pulled, plans, stats, packed)
@@ -777,7 +925,10 @@ class Trainer:
         rows `pulled` and `plans` already hold; the pipelined
         `MeshTrainer.train_many` feeds it rows prefetched a step ahead.
         `before_apply` runs just before the sparse apply (the pipelined
-        loop's wait on its prefetch's serve)."""
+        loop's wait on its prefetch's serve). With the sentinel, its stats
+        join `stats` before `reduce_metrics`. Each phase is also a trace
+        span (`trainer.compute`, `trainer.apply`): host time of an eager
+        step or of a capture, never of a replay."""
         sad_specs = self.model.sad_specs()
         with record_function("trainer.pull"):
             for rows in pulled.values():
@@ -789,7 +940,8 @@ class Trainer:
                           .requires_grad_() for name in sad_specs}
             for name in sad_specs:
                 pulled[name] = sad_rows(sad_leaves[name], ids[name])
-        with record_function("trainer.compute"):
+        with record_function("trainer.compute"), \
+                _trace.span("trainer", "compute"):
             embedded = {name: combine(spec, ids[name], pulled[name])
                         for name, spec in self.model.specs.items()}
             attach_ids(embedded, self.model, b, self.device)
@@ -799,17 +951,26 @@ class Trainer:
             loss.backward()
             grads = dense_grads(state.dense, state.embeddings, sad_leaves)
             stats.update(self.dense_grad_stats(grads))
+            if self.sentinel:
+                with torch.no_grad():
+                    stats.update(self._sentinel_stats(
+                        loss.detach(), grads,
+                        {name: pulled[name].grad
+                         for name in self.model.ps_specs()}))
             grads = self.reduce_dense_grads(grads)
-        with record_function("trainer.dense_apply"):
-            self.dense_update(state, grads)
-            self.reduce_module_state(state.dense)
-        with record_function("trainer.sparse_apply"), torch.no_grad():
-            if before_apply is not None:
-                before_apply()
-            stats.update(self.tables_apply(
-                state, ids, {name: pulled[name].grad
-                             for name in self.model.ps_specs()},
-                plans, packed))
+        with _trace.span("trainer", "apply"):
+            with record_function("trainer.dense_apply"):
+                self.dense_update(state, grads)
+                self.reduce_module_state(state.dense)
+            with record_function("trainer.sparse_apply"), torch.no_grad():
+                if before_apply is not None:
+                    before_apply()
+                stats.update(self.tables_apply(
+                    state, ids, {name: pulled[name].grad
+                                 for name in self.model.ps_specs()},
+                    plans, packed))
+                if self.sentinel:
+                    stats.update(self._sentinel_ef_stats(state))
         loss, stats = self.reduce_metrics(loss.detach(), stats)
         return loss, logits.detach(), stats
 
@@ -817,10 +978,10 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One synchronous step: the batch to the device (`trainer.h2d`),
         then `_step`, in place. Returns (state, {"loss": (), "logits":
-        (B,), "stats": {"<table>_overflow": () int32 per hash table}});
-        nothing is read back to the host. The JAX package's single-device
-        step has no overflow stats (ROADMAP.md §C); the numerics sentinel's
-        stats are not ported (ROADMAP.md item 6)."""
+        (B,), "stats": {"<table>_overflow": () int32 per hash table, and
+        with the sentinel its health stats}}); nothing is read back to the
+        host (`record_step_stats` reads them). The JAX package's
+        single-device step has no overflow stats (ROADMAP.md §C)."""
         with record_function("trainer.h2d"):
             b = self._device_batch(batch)
         loss, logits, stats = self._step(state, b, {})
@@ -941,8 +1102,11 @@ class Trainer:
 
     def jit_train_step(self) -> "CompiledStep":
         """`train_step` as a CUDA graph: `step(state, batch) -> (state,
-        metrics)`, the state updated in place (see `CompiledStep`)."""
-        return CompiledStep(self, kind="step")
+        metrics)`, the state updated in place (see `CompiledStep`). With
+        `measure_every=N` the driver is wrapped in the trainer's StepWatch
+        (one call in N measured); `jit_train_many` and `jit_eval_step` stay
+        unwrapped, as in the JAX package."""
+        return self._wrap_measured(CompiledStep(self, kind="step"))
 
     def jit_train_many(self) -> "CompiledStep":
         """A whole `train_many` window (its K steps, and the pack and unpack
@@ -1000,6 +1164,11 @@ class CompiledStep:
       `graph_launches` lists what one replay of each kept graph launches.
       The launches that ran are the wrappers' counts less
       `launches_captured` plus `launches_replayed`.
+    - `collective_bytes`: the bytes of each collective kind that the last
+      capture holds (`parallel/collectives.record_bytes`), what the
+      trainer's StepWatch attributes a sampled step's time over. A replay
+      runs no host code, so each call is one trace span: `trainer.capture`
+      or `trainer.replay`.
 
     On a Trainer made with device="cpu" a call runs the eager function."""
 
@@ -1017,6 +1186,7 @@ class CompiledStep:
         self.replays = 0
         self.launches_captured: Dict[str, int] = {}
         self.launches_replayed: Dict[str, int] = {}
+        self.collective_bytes: Optional[Dict[str, int]] = None
         self._stream = None
         self._release()
 
@@ -1067,12 +1237,14 @@ class CompiledStep:
         if key not in self._graphs:
             if len(self._graphs) == self.MAX_GRAPHS:
                 del self._graphs[next(iter(self._graphs))]
-            return self._capture(state, batch, key)
+            with _trace.span("trainer", "capture"):
+                return self._capture(state, batch, key)
         graph, static_in, static_out, launches = self._graphs[key]
-        with record_function("trainer.h2d"):
-            _copy_batch(static_in, batch)
-        with record_function("trainer.replay"):
-            graph.replay()
+        with _trace.span("trainer", "replay"):
+            with record_function("trainer.h2d"):
+                _copy_batch(static_in, batch)
+            with record_function("trainer.replay"):
+                graph.replay()
         self.replays += 1
         for k, n in launches.items():
             self.launches_replayed[k] = self.launches_replayed.get(k, 0) + n
@@ -1081,6 +1253,7 @@ class CompiledStep:
 
     def _capture(self, state: TrainState, batch, key):
         from .ops import launch_counts
+        from .parallel.collectives import record_bytes
         tr = self.trainer
         if self._stream is None:
             self._stream = torch.cuda.Stream(tr.device)
@@ -1097,8 +1270,10 @@ class CompiledStep:
         # thread_local: other threads (a prefetch producer staging the
         # next batches) may allocate and copy while this thread captures
         with torch.cuda.graph(graph, stream=stream,
-                              capture_error_mode="thread_local"):
+                              capture_error_mode="thread_local"), \
+                record_bytes() as seen:
             static_out = self._run(state, static_in)
+        self.collective_bytes = dict(seen)
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         for k, n in launches.items():

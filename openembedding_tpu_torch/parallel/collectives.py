@@ -24,7 +24,13 @@ the JAX package).
   already capture over NCCL (no point-to-point call).
 
 At S = 1 every collective is the identity and launches nothing, as in the
-JAX package. Under NCCL the tensors stay on the card. Under gloo, which
+JAX package.
+
+`record_bytes()` counts, while it is open, the result bytes of each
+collective per kind, under the names of XLA's HLO ops that the JAX package
+counts (`all_to_all`, `all_reduce` for `dense_sum` / `psum` / `pmean` /
+`psum_stats`, `all_gather`, `reduce_scatter`, `collective_permute`); a
+collective built on another counts once, under its own kind. Under NCCL the tensors stay on the card. Under gloo, which
 moves host tensors only, a CUDA tensor goes through host buffers because
 the caller chose `backend="gloo"`; the bytes copied each way are counted
 in `mesh.staged_bytes`. Gloo and NCCL both refuse int16 and uint16
@@ -35,6 +41,8 @@ bytes; a bool tensor travels as uint8.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, List
 
 import torch
@@ -44,6 +52,49 @@ from .mesh import Mesh
 
 _BYTE_VIEW = {torch.int16: torch.int8, torch.uint16: torch.int8,
               torch.bool: torch.uint8}
+
+
+# the open `record_bytes` dicts, and how deep the current collective nests
+# in another (only the outermost one counts)
+_RECORDS: List[Dict[str, int]] = []
+_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def record_bytes():
+    """Count the result bytes of every collective run inside the block,
+    per kind -> the dict, filled as they run."""
+    seen: Dict[str, int] = {}
+    _RECORDS.append(seen)
+    try:
+        yield seen
+    finally:
+        _RECORDS.remove(seen)
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, dict):
+        return sum(v.numel() * 8 for v in x.values())
+    return x.numel() * x.element_size()
+
+
+def _counted(kind: str, scale=lambda mesh: 1):
+    """Count a collective's result bytes (`_nbytes` of its input times
+    `scale(mesh)`) under `kind` in every open `record_bytes`."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(mesh, x, *args, **kwargs):
+            if _RECORDS and _DEPTH[0] == 0 and mesh.size > 1:
+                n = int(_nbytes(x) * scale(mesh))
+                for seen in _RECORDS:
+                    seen[kind] = seen.get(kind, 0) + n
+            _DEPTH[0] += 1
+            try:
+                return fn(mesh, x, *args, **kwargs)
+            finally:
+                _DEPTH[0] -= 1
+        return wrapped
+    return deco
 
 
 def _to_wire(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +117,7 @@ def _from_wire(mesh: Mesh, x: torch.Tensor, like: torch.Tensor
     return x
 
 
+@_counted("all_to_all")
 def all_to_all(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """(S, cap, ...) -> (S, cap, ...): row s of the result is what rank s
     sent this rank."""
@@ -80,6 +132,7 @@ def all_to_all(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return _from_wire(mesh, out, x)
 
 
+@_counted("all_gather", lambda mesh: mesh.size)
 def all_gather(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
     """Every rank's `x`, in rank order."""
     if mesh.size == 1:
@@ -98,6 +151,7 @@ def rank_sum(parts: List[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+@_counted("all_reduce")
 def dense_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The sum over the ranks, added in rank order: bit for bit the same
     on every rank and from run to run."""
@@ -106,6 +160,7 @@ def dense_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return rank_sum(all_gather(mesh, x))
 
 
+@_counted("reduce_scatter", lambda mesh: 1 / mesh.size)
 def reduce_scatter(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """(S * C,) -> (C,): chunk r of the sum over the ranks on rank r, the
     all_to_all of the (S, C) view and the S chunks received added in rank
@@ -132,6 +187,7 @@ def psum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return dense_sum(mesh, x)
 
 
+@_counted("all_reduce")
 def pmean(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """`dense_sum` / S (`jax.lax.pmean`)."""
     if mesh.size == 1:
@@ -139,6 +195,7 @@ def pmean(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     return dense_sum(mesh, x) / mesh.size
 
 
+@_counted("all_reduce")
 def psum_stats(mesh: Mesh, stats: Dict[str, torch.Tensor]
                ) -> Dict[str, torch.Tensor]:
     """Every stat summed over the ranks in one collective: the stats travel
@@ -157,6 +214,7 @@ def psum_stats(mesh: Mesh, stats: Dict[str, torch.Tensor]
     return out
 
 
+@_counted("broadcast")
 def broadcast_(mesh: Mesh, x: torch.Tensor, src: int = 0) -> None:
     """Rank `src`'s `x` into every rank's `x`, in place."""
     if mesh.size == 1:
@@ -174,6 +232,7 @@ def barrier(mesh: Mesh) -> None:
 # -- context parallelism (`parallel/sequence.py`) -------------------------------
 
 
+@_counted("collective_permute")
 def _shift(mesh: Mesh, x: torch.Tensor, shift: int) -> torch.Tensor:
     """This rank's `x` to rank (r + shift) % S, rank (r - shift) % S's
     received: one `all_to_all_single` whose only non-empty slices are

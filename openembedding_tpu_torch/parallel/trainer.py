@@ -48,11 +48,15 @@ rows it owns; `offload_prepare` admits the union of every rank's batch
 ids, each rank the ids it owns. They carry no hot rows, migration or
 residuals (inert, as in the JAX MeshTrainer).
 
-The JAX MeshTrainer's numerics sentinel, `halt_on_nonfinite` and
-`measure_every` are not ported: setting one away from its default raises
-NotImplementedError naming its ROADMAP.md item.
-So does `refresh_hot_rows` without explicit ids, which reads the
-heavy-hitter sketches (item 6).
+Observability, as in the JAX MeshTrainer: the numerics sentinel's stats
+(`sentinel`, `halt_on_nonfinite`) ride the step's one `psum_stats`
+collective, so every rank sees the same health and takes the same halt
+decision; `measure_every` samples `jit_train_step`; the static wire-cost
+model of the step is published as `exchange.*` / `hot.*` / `dense.*`
+gauges (`_observe_wire_cost`, `last_wire_cost`) and a window's conflict
+counters by `record_window_stats`. `refresh_hot_rows` without explicit
+ids, which reads the heavy-hitter sketches, is not ported (ROADMAP.md
+item 6).
 
 `SeqMeshTrainer`: the same over a 2-D (data, seq) mesh
 (`mesh.make_seq_mesh`), context parallel: the sequence dim of the batch
@@ -78,6 +82,7 @@ from ..model import (EmbeddingModel, TrainState, Trainer, _batch_slice,
                      attach_ids, dense_leaves, init_dense_slots, sad_rows)
 from ..ops import wire as wire_mod
 from ..optimizers import SparseOptimizer
+from ..utils import metrics as _metrics
 from ..utils.fs import local_path
 from . import collectives as coll
 from . import zero
@@ -89,14 +94,6 @@ from .sharded import (build_hot_identity, build_mig_identity,
                       identity_tensors, mig_gather, mig_writeback,
                       sharded_apply_gradients, sharded_lookup,
                       sharded_lookup_train, split_wire_groups)
-
-# constructor arguments of the JAX MeshTrainer the port does not have:
-# name -> (default, ROADMAP.md item)
-NOT_PORTED = {
-    "sentinel": (False, "6"), "halt_on_nonfinite": (False, "6"),
-    "measure_every": (0, "6"),
-}
-
 
 class MeshTrainer(Trainer):
     """Trains an EmbeddingModel over the ranks of `mesh` (default: the
@@ -153,21 +150,16 @@ class MeshTrainer(Trainer):
                  dense_shard: bool = False, dense_wire: Optional[str] = None,
                  dense_topk: Optional[int] = None, dense_stats: bool = False,
                  offload_pipeline: bool = False, offload_densify: int = 1,
-                 offload_stage_depth: int = 1, **unported):
-        for key, value in unported.items():
-            if key not in NOT_PORTED:
-                raise TypeError(f"MeshTrainer got an unexpected argument "
-                                f"{key!r}")
-            default, item = NOT_PORTED[key]
-            if value != default:
-                raise NotImplementedError(
-                    f"MeshTrainer({key}=...) is not ported yet (ROADMAP.md "
-                    f"item {item})")
+                 offload_stage_depth: int = 1, sentinel: bool = False,
+                 halt_on_nonfinite: bool = False, measure_every: int = 0):
         self.mesh = mesh if mesh is not None else make_mesh()
         super().__init__(model, optimizer, seed, device=self.mesh.device,
                          offload_pipeline=offload_pipeline,
                          offload_densify=offload_densify,
-                         offload_stage_depth=offload_stage_depth)
+                         offload_stage_depth=offload_stage_depth,
+                         sentinel=sentinel,
+                         halt_on_nonfinite=halt_on_nonfinite,
+                         measure_every=measure_every)
         self.num_shards = self.mesh.size
         self.capacity_factor = capacity_factor
         if on_overflow not in ("count", "grow", "raise"):
@@ -225,6 +217,10 @@ class MeshTrainer(Trainer):
         self.dense_topk = dense_topk
         self.dense_stats = bool(dense_stats)
         self._zero_plan = None
+        # the static wire-cost model of the last step's shapes (the JAX
+        # package sets it at trace time; `_observe_wire_cost`)
+        self.last_wire_cost = None
+        self._wire_cost_key = None
 
     # -- wire formats ---------------------------------------------------------
 
@@ -450,6 +446,7 @@ class MeshTrainer(Trainer):
         self.dense_topk = dense_topk
         self._zero_plan = None
         self.graph_epoch += 1
+        _metrics.observe("dense.wire_rejits", 1)
         return self._adopt(state, rep)
 
     # -- init -----------------------------------------------------------------
@@ -568,9 +565,15 @@ class MeshTrainer(Trainer):
                 ids, owners = ids[keep], owners[keep]
             ident = build_mig_identity(spec, self.mig_rows_for(name), ids,
                                        owners, num_shards=self.num_shards)
+            _metrics.observe(
+                "placement.migrated_rows",
+                float(int((np.asarray(ident["rank"])
+                           < self.mig_rows_for(name)).sum())),
+                "gauge", labels={"table": name})
             if ts.mig is not None:
                 mig_writeback(spec, ts, mesh=self.mesh)
             mig_gather(spec, ts, ident, mesh=self.mesh)
+        _metrics.observe("placement.migrations", 1)
         return state
 
     def refresh_hot_rows(self, state: TrainState, hot_ids=None,
@@ -605,6 +608,12 @@ class MeshTrainer(Trainer):
                                    if i not in migrated], np.int64)
             idents[name] = build_hot_identity(spec, self.hot_rows_for(name),
                                               cand)
+            _metrics.observe(
+                "hot.set_size",
+                float(int((np.asarray(idents[name]["rank"])
+                           < self.hot_rows_for(name)).sum())),
+                "gauge", labels={"table": name})
+        _metrics.observe("hot.refreshes", 1)
         missing = [n for n in specs if state.tables[n].hot is None]
         if missing and len(missing) != len(specs):
             self._hot_tables(state)  # raises: some tables lost their cache
@@ -648,6 +657,7 @@ class MeshTrainer(Trainer):
         new = min(self.capacity_factor * growth, float(self.num_shards))
         if new == self.capacity_factor:
             return False
+        _metrics.observe("exchange.capacity_grown", 1)
         self.capacity_factor = new
         self.graph_epoch += 1
         return True
@@ -750,6 +760,7 @@ class MeshTrainer(Trainer):
         return split_wire_groups(self.model.dim_groups(), self.wire_for)
 
     def tables_pull(self, state, ids, packed):
+        self._observe_wire_cost(ids)
         pulled, plans, stats = {}, {}, {}
         ps = self.model.ps_specs()
         if self.group_exchange:
@@ -866,6 +877,7 @@ class MeshTrainer(Trainer):
             return super().dense_update(state, grads)
         mesh, fmt = self.mesh, self.dense_wire
         S, C = plan.num_shards, plan.chunk
+        self._observe_dense_cost(plan)
         flat_slots = state.dense_slots[zero.ZERO_KEY]
         params = self._dense_trainable(state)
         new_ef = None
@@ -926,6 +938,152 @@ class MeshTrainer(Trainer):
             flat_slots[zero.DENSE_MASTER_KEY].copy_(new_w)
         if new_ef is not None:
             flat_slots[zero.DENSE_EF_KEY].copy_(new_ef)
+
+    def _observe_dense_cost(self, plan: zero.DenseShardPlan) -> None:
+        """The ZeRO update's static costs as `dense.*` gauges, and its
+        collectives' bytes in `last_wire_cost` (the JAX package publishes
+        them at trace time; host code, so a replay runs none of it)."""
+        fmt = self.dense_wire
+        k = self.dense_topk_for(plan) if fmt == "sparse_topk" else None
+        dcost = zero.dense_wire_cost(plan, fmt, topk=k)
+        if self.last_wire_cost is not None:
+            cost = dict(self.last_wire_cost)
+            cost["dense_wire_format"] = dcost["format"]
+            cost["dense_a2a_bytes"] = dcost["a2a_bytes"]
+            cost["dense_reduce_scatter_bytes"] = dcost["rs_bytes"]
+            cost["dense_all_gather_bytes"] = dcost["ag_bytes"]
+            cost["dense_bytes_per_step"] = dcost["bytes_per_step"]
+            if k is not None:
+                cost["dense_wire_k"] = int(k)
+            self.last_wire_cost = cost
+        obs = _metrics.observe
+        obs("dense.params_total", float(plan.total), "gauge")
+        obs("dense.zero_shards", float(plan.num_shards), "gauge")
+        obs("dense.shard_elems", float(plan.chunk), "gauge")
+        obs("dense.opt_state_bytes_per_replica",
+            float(len(plan.vector_slots) * plan.chunk * 4
+                  + len(plan.scalar_slots) * 4), "gauge")
+        obs("dense.reduce_scatter_bytes", float(dcost["rs_bytes"]), "gauge")
+        obs("dense.a2a_bytes", float(dcost["a2a_bytes"]), "gauge")
+        obs("dense.all_gather_bytes", float(dcost["ag_bytes"]), "gauge")
+        obs("dense.wire_bytes_per_step", float(dcost["bytes_per_step"]),
+            "gauge")
+        obs("dense.wire_dtype",
+            {None: 4.0, "bf16": 2.0, "int8": 1.0, "sparse_topk": 1.0}[fmt],
+            "gauge")
+        fp32_cost = zero.dense_wire_cost(plan, None)
+        obs("dense.wire_bytes_saved",
+            float(fp32_cost["bytes_per_step"] - dcost["bytes_per_step"]),
+            "gauge")
+        if k is not None:
+            obs("dense.grad_topk", float(k), "gauge")
+
+    def _observe_wire_cost(self, ids: Dict[str, torch.Tensor], *,
+                           pipelined: bool = False) -> None:
+        """Publish the static wire-cost model of a step over these ids'
+        shapes (the JAX package's `_observe_wire_cost`, run there once per
+        trace; here once per shape, format and capacity) and keep it in
+        `last_wire_cost`, which the StepWatch prices bytes with."""
+        ps_specs = self.model.ps_specs()
+        key = (pipelined, self.capacity_factor,
+               tuple((n, tuple(ids[n].shape), ids[n].element_size())
+                     for n in ps_specs))
+        if key == self._wire_cost_key:
+            return
+        self._wire_cost_key = key
+        from .sharded import _bucket_capacity, conflict_patch_cap
+        obs = _metrics.observe
+        tables = []
+        for name, spec in ps_specs.items():
+            n = ids[name].numel()
+            cap = _bucket_capacity(max(n, 1), self.num_shards,
+                                   self.capacity_factor)
+            tables.append({"dim": spec.output_dim, "cap": cap,
+                           "pair": spec.use_hash_table,
+                           "id_itemsize": ids[name].element_size(),
+                           "fmt": self.wire_for(name)})
+            labels = {"table": name}
+            obs("exchange.pull_positions", float(n), "gauge", labels=labels)
+            obs("exchange.bucket_capacity", float(cap), "gauge",
+                labels=labels)
+            obs("exchange.row_dim", float(spec.output_dim), "gauge",
+                labels=labels)
+            M = self.mig_rows_for(name)
+            if M:
+                obs("placement.mig_rows", float(M), "gauge", labels=labels)
+        fmt = self.wire_default()
+        cost = wire_mod.exchange_cost(tables, self.num_shards, fmt,
+                                      fused=self.group_exchange)
+        _metrics.observe_exchange_cost(cost)
+        for name in ps_specs:
+            obs("exchange.wire_dtype",
+                float(torch.empty((), dtype=wire_mod.wire_dtype(
+                    self.wire_for(name))).element_size()),
+                "gauge", labels={"table": name})
+        if pipelined:
+            ptables = [dict(t, pcap=conflict_patch_cap(
+                t["cap"], self.conflict_factor)) for t in tables]
+            pcost = wire_mod.conflict_patch_cost(ptables, self.num_shards,
+                                                 fmt)
+            cost = dict(cost)
+            cost["overlapped_bytes"] = int(cost["bytes_per_step"])
+            cost["conflict_patch_bytes"] = int(pcost["bytes_patch"])
+            cost["bytes_per_step"] = (int(cost["bytes_per_step"])
+                                      + int(pcost["bytes_patch"]))
+            cost["collectives_per_step"] = (int(cost["collectives_per_step"])
+                                            + int(pcost["collectives"]))
+            obs("exchange.conflict_patch_bytes", float(pcost["bytes_patch"]),
+                "gauge")
+            obs("exchange.overlapped_bytes", float(cost["overlapped_bytes"]),
+                "gauge")
+        hot_by_fmt: Dict[str, list] = {}
+        for name, spec in ps_specs.items():
+            H = self.hot_rows_for(name)
+            if not H:
+                continue
+            obs("hot.rows", float(H), "gauge", labels={"table": name})
+            hfmt = (wire_mod.wire_format(self.hot_wire)
+                    if self.hot_wire is not None else self.wire_for(name))
+            hot_by_fmt.setdefault(hfmt, []).append(
+                {"dim": spec.output_dim, "hot": H})
+        if hot_by_fmt:
+            tot = a2a = ag = 0
+            for hfmt, hot_tables in hot_by_fmt.items():
+                hcost = wire_mod.hot_reduce_cost(hot_tables, self.num_shards,
+                                                 hfmt)
+                tot += int(hcost["bytes"])
+                a2a += int(hcost["a2a_bytes"])
+                ag += int(hcost["all_gather_bytes"])
+            obs("hot.replicate_bytes_per_step", float(tot), "gauge")
+            cost = dict(cost)
+            cost["hot_replicate_bytes"] = tot
+            cost["hot_a2a_bytes"] = a2a
+            cost["hot_all_gather_bytes"] = ag
+            cost["hot_wire_format"] = ",".join(sorted(hot_by_fmt))
+        self.last_wire_cost = cost
+
+    def record_window_stats(self, metrics) -> None:
+        """Fold a `train_many` window's host-visible counters into gauges:
+        a pipelined window's `exchange.conflict_rows{table=}` and
+        `exchange.conflict_overflow`, in one device-to-host copy; nothing
+        for a serial window."""
+        conflict = (metrics.get("conflict")
+                    if isinstance(metrics, dict) else None)
+        if not conflict:
+            return
+        names = sorted(conflict)
+        vals = [conflict[n] for n in names]
+        co = metrics.get("conflict_overflow")
+        if co is not None:
+            vals.append(co)
+        host = torch.stack([torch.as_tensor(v).reshape(()).to(torch.float64)
+                            for v in vals]).cpu().tolist()
+        for name, v in zip(names, host):
+            _metrics.observe("exchange.conflict_rows", float(v), "gauge",
+                             labels={"table": name})
+        if co is not None:
+            _metrics.observe("exchange.conflict_overflow", float(host[-1]),
+                             "gauge")
 
     def reduce_module_state(self, module: nn.Module) -> None:
         """Float buffers a forward pass updates (none in the port's
@@ -1085,6 +1243,7 @@ class MeshTrainer(Trainer):
                     total = total + v
             return total
 
+        self._observe_wire_cost(ids[0], pipelined=True)
         plans, rows, pf_stats = self._pipeline_prefetch(state, ids[0])
         # the prologue's pull overflow and the patch counters are this
         # rank's; one sum over the ranks at the end of the window
@@ -1182,16 +1341,17 @@ class SeqMeshTrainer(MeshTrainer):
     attention "ring" or "ulysses" with `seq_axis` the mesh's second axis
     name (e.g. `make_sasrec(..., attention="ring")`). Graph drivers
     capture where the backend allows it (NCCL on cards); a staged mesh
-    (gloo with tensors on a card) runs eagerly. The JAX trainer's numerics
-    sentinel, `halt_on_nonfinite` and `measure_every` are refused
-    (ROADMAP.md item 6)."""
+    (gloo with tensors on a card) runs eagerly. The numerics sentinel,
+    `halt_on_nonfinite` and `measure_every` work as on `MeshTrainer`."""
 
     def __init__(self, model: EmbeddingModel,
                  optimizer: Optional[SparseOptimizer] = None, *, mesh: Mesh,
                  seed: int = 0, capacity_factor: float = 0.0, wire=None,
                  group_exchange: bool = True, shard_stats: bool = True,
                  hot_rows=0, mig_rows=0, hot_wire: Optional[str] = None,
-                 error_feedback: Optional[bool] = None, **unported):
+                 error_feedback: Optional[bool] = None,
+                 sentinel: bool = False, halt_on_nonfinite: bool = False,
+                 measure_every: int = 0):
         if len(mesh.axis_names) != 2 or mesh.seq is None:
             raise ValueError(
                 f"SeqMeshTrainer needs a 2-D (data, seq) mesh "
@@ -1201,7 +1361,9 @@ class SeqMeshTrainer(MeshTrainer):
                          group_exchange=group_exchange,
                          shard_stats=shard_stats, hot_rows=hot_rows,
                          mig_rows=mig_rows, hot_wire=hot_wire,
-                         error_feedback=error_feedback, **unported)
+                         error_feedback=error_feedback, sentinel=sentinel,
+                         halt_on_nonfinite=halt_on_nonfinite,
+                         measure_every=measure_every)
         self.data_axis, self.seq_axis = mesh.axis_names
         from ..models.sequential import takes_norm_axis
         self._norm = takes_norm_axis(model.loss_fn)

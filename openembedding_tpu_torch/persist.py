@@ -59,6 +59,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils import metrics, trace
+
 COMMIT_FILE = "COMMIT"
 _PERSIST_RE = re.compile(r"persist_(\d+)$")
 
@@ -233,8 +235,10 @@ class AsyncPersister:
             # first, so at most one copy waits (the device window stays)
             self._q.join()
             self._raise_pending_error()
-            stores = self.trainer.offload_store_snapshots(state)
-        snapshot = snapshot_addressable(state)
+        with metrics.vtimer("persist", "snapshot"):
+            if getattr(self.trainer, "offload", None):
+                stores = self.trainer.offload_store_snapshots(state)
+            snapshot = snapshot_addressable(state)
         path = os.path.join(self.root, f"persist_{step:012d}")
         record = {"kind": "full", "step": step}
         self._submit(lambda tmp: self._write_full_payload(snapshot, stores,
@@ -248,6 +252,8 @@ class AsyncPersister:
         self.history.append(record)
         self._q.put((write_cb, step, path, record))  # waits when full
         self.policy.mark(step)
+        metrics.observe("persist.submitted_delta" if record["kind"] == "delta"
+                        else "persist.submitted", 1)
 
     # -- writer thread --------------------------------------------------------
 
@@ -262,10 +268,13 @@ class AsyncPersister:
             write_cb, step, path, record = item
             try:
                 t0 = time.perf_counter()
-                record["bytes"] = self._write_one(write_cb, step, path)
+                with metrics.vtimer("persist", "write"):
+                    record["bytes"] = self._write_one(write_cb, step, path)
                 record["write_ms"] = (time.perf_counter() - t0) * 1e3
+                metrics.observe("persist.committed", 1)
                 if self.rank == 0:
-                    self._gc()
+                    with trace.span("persist", "gc"):
+                        self._gc()
             except BaseException as e:  # noqa: BLE001 — raised to the producer
                 self._error = e
             finally:
@@ -316,6 +325,8 @@ class AsyncPersister:
         os.replace(tmp, path)
         with open(os.path.join(path, COMMIT_FILE), "w") as f:
             f.write(str(step))
+        trace.event("persist", "commit", step=int(step),
+                    what=os.path.basename(path))
         return _dir_bytes(path)
 
     def _gc(self) -> None:

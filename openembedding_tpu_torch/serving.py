@@ -12,11 +12,26 @@ and the REST routes
     POST   /models/<sign>/predict  {sparse: {feature: ids}, dense}
     DELETE /models/<sign>
 
+and the telemetry family, as the JAX package serves it:
+
+    GET    /metrics                Prometheus text of the registry
+    GET    /statusz                operator one-pager (text)
+    GET    /tracez[?n=]            the flight recorder's spans and events
+    GET    /sloz[?format=text]     SLO verdicts
+    GET    /historz[?metric=&window=]  metric history rings
+    GET    /timelinez[?n=]         events and spans with wall/monotonic time
+    GET    /fleetz[?peers=]        this node's /metrics merged with peers'
+    POST   /capsule                {reason, ...}: a postmortem capsule
+
 with the JAX package's status codes: 400 for a malformed or ragged request,
-404 for an unknown model or variable, 500 for a server fault. Every loaded
-model lives on the server's one device (the CUDA card unless the caller asks
-for the CPU). Spans, metrics, sketches, SLOs, online sync and the
-micro-batcher are not ported yet (ROADMAP.md).
+404 for an unknown model or variable, 500 for a server fault. Every request
+binds a request id (`X-OETPU-Request-Id` / `X-OETPU-Trace`, made when
+absent) and runs in a `serving.http` span; predicts in `serving.predict`
+and `serving.model_call`; every answer carries `X-OETPU-Server-Time`.
+Pulled and predicted ids feed the heavy-hitter sketches. Every loaded
+model lives on the server's one device (the CUDA card unless the caller
+asks for the CPU). Online sync, the micro-batcher, `/nodes` and the memory
+panel of `/statusz` are not ported yet (ROADMAP.md item 6).
 
 Run a node with `python -m openembedding_tpu_torch.serving --registry DIR`.
 """
@@ -38,6 +53,9 @@ import torch
 from .data import is_ragged, pad_ragged
 from .device import resolve_device
 from .export import RaggedBatchError, StandaloneModel, bucket_size
+from .utils import trace
+
+REQUEST_ID_HEADER = trace.REQUEST_ID_HEADER
 
 
 class _BadRequest(Exception):
@@ -246,11 +264,40 @@ def _to_list(t: torch.Tensor) -> list:
 
 class ServingHandler(BaseHTTPRequestHandler):
     manager: ModelManager = None  # set by make_server
+    peers: tuple = ()             # the default /fleetz scrape set
+    node_info: dict = {}          # make_server assigns one per server
     quiet = True
 
     def log_message(self, fmt, *args):
         if not self.quiet:
             super().log_message(fmt, *args)
+
+    def send_response(self, code, message=None):
+        """Every answer echoes the request id, stamps this node's wall clock
+        (`X-OETPU-Server-Time`) and records its status on the http span."""
+        super().send_response(code, message)
+        rid = getattr(self, "_request_id", None)
+        if rid:
+            self.send_header(REQUEST_ID_HEADER, rid)
+        self.send_header(trace.SERVER_TIME_HEADER, repr(time.time()))
+        sp = getattr(self, "_http_span", None)
+        if sp is not None:
+            sp.attrs["status"] = int(code)
+
+    def _traced(self, method: str, handler):
+        """Adopt the caller's trace context (`X-OETPU-Trace`, else
+        `X-OETPU-Request-Id`, else a new id), bind it for the request and
+        run the handler in the root `serving.http` span."""
+        ctx = trace.extract_context(self.headers)
+        rid = (ctx.trace_id if ctx is not None else None) \
+            or trace.new_request_id()
+        self._request_id = rid
+        with trace.request(rid, remote_parent=ctx.parent_span
+                           if ctx is not None else None):
+            with trace.span("serving", "http", method=method,
+                            path=self.path) as sp:
+                self._http_span = sp
+                return handler()
 
     def _json(self, code: int, payload) -> None:
         body = json.dumps(payload).encode()
@@ -259,6 +306,102 @@ class ServingHandler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _text(self, body: str, code: int = 200,
+              content_type: str = "text/plain; charset=utf-8") -> None:
+        raw = body.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(raw)))
+        self.end_headers()
+        self.wfile.write(raw)
+
+    def _statusz_text(self) -> str:
+        """Operator one-pager: build, node, loaded servables, the hot ids,
+        SLOs, ingest, metric history and the flight recorder's tail."""
+        import platform
+
+        from .utils import history, metrics, sketch, slo
+        lines = ["== openembedding_tpu_torch serving /statusz =="]
+        lines.append(f"build: python={platform.python_version()} "
+                     f"torch={torch.__version__}")
+        lines.append("node: " + json.dumps(self.node_info, sort_keys=True))
+        lines.append("")
+        lines.append("-- servables (loaded) --")
+        with self.manager._lock:
+            loaded = dict(self.manager._cache)
+        if not loaded:
+            lines.append("(none loaded)")
+        for sign in sorted(loaded):
+            entry = self.manager.registry.get(sign) or {}
+            lines.append(f"{sign}: status={entry.get('status', '?')}")
+        lines.append("")
+        def panel(title, render):
+            # every panel renders whatever the others do
+            lines.append(title)
+            try:
+                lines.append(render())
+            except Exception as e:  # noqa: BLE001
+                lines.append(f"(unavailable: {e})")
+            lines.append("")
+
+        def slo_text():
+            slo.EVALUATOR.evaluate_now()
+            return slo.EVALUATOR.render_text()
+
+        def ingest_text():
+            ingest = {k: v for k, v in metrics.report(reset=False).items()
+                      if k.startswith("ingest.")
+                      and not k.endswith((".p50", ".p95", ".p99"))}
+            return (metrics._format_table(ingest) if ingest
+                    else "(no ingest activity)")
+
+        panel("-- workload skew (hot ids) --", lambda: sketch.MONITOR
+              .render_text(top=int(self.query.get("top", 8))))
+        panel("-- SLOs (GET /sloz for JSON) --", slo_text)
+        panel("-- ingest (line-rate) --", ingest_text)
+        panel("-- metric history (GET /historz for JSON) --",
+              history.render_sparklines)
+        panel("-- device memory --",
+              lambda: "(the memory ledger is not ported yet)")
+        n = int(self.query.get("n", 40))
+        lines.append(f"-- flight recorder (last {n}) --")
+        lines.append(trace.RECORDER.render_text(n))
+        return "\n".join(lines) + "\n"
+
+    def _fleetz_text(self) -> str:
+        """This node's /metrics merged with every peer's
+        (`utils/metrics.merge_prometheus`: counters and histogram buckets
+        sum, gauges keep an `instance` label). Peers from `?peers=` (comma
+        separated base URLs) or the server's `peers`; a peer that does not
+        answer becomes a comment line, never a 500."""
+        import urllib.request
+
+        from .utils import metrics, sketch
+        sketch.MONITOR.publish()
+        q = self.query.get("peers")
+        peers = ([p for p in q.split(",") if p] if q is not None
+                 else list(self.peers))
+        scrapes = [(self.node_info.get("node_id", "self"),
+                    metrics.prometheus_text())]
+        comments = [f"# fleet: {1 + len(peers)} node(s): self + "
+                    + (", ".join(peers) if peers else "(no peers)")]
+        for peer in peers:
+            url = peer.rstrip("/")
+            if not url.startswith("http"):
+                url = f"http://{url}"
+            try:
+                req = urllib.request.Request(
+                    f"{url}/metrics", headers=trace.inject_headers())
+                with urllib.request.urlopen(req, timeout=5.0) as r:
+                    scrapes.append((peer, r.read().decode()))
+            except Exception as e:  # noqa: BLE001 — degrade, don't 500
+                comments.append(f"# fleet: peer {peer} unreachable: {e}")
+                metrics.observe("fleet.scrape_errors", 1)
+        metrics.observe("fleet.peers", float(len(peers)), "gauge")
+        metrics.observe("fleet.nodes_answering", float(len(scrapes)),
+                        "gauge")
+        return "\n".join(comments) + "\n" + metrics.merge_prometheus(scrapes)
 
     def _body(self) -> dict:
         length = int(self.headers.get("Content-Length", 0))
@@ -269,16 +412,22 @@ class ServingHandler(BaseHTTPRequestHandler):
             raise _BadRequest("request body must be a JSON object")
         return data
 
+    _TELEMETRY = ("healthz", "metrics", "fleetz", "statusz", "tracez", "sloz",
+                  "historz", "timelinez", "capsule")
+
     def _route(self):
-        path = self.path.split("?", 1)[0].rstrip("/")
+        from urllib.parse import parse_qs, urlsplit
+        parts = urlsplit(self.path)
+        self.query = {k: v[-1] for k, v in parse_qs(parts.query).items()}
+        path = parts.path.rstrip("/")
         m = re.fullmatch(r"/models/([A-Za-z0-9._-]+)(?:/(pull|predict))?",
                          path)
         if m:
             return "model", m.group(1), m.group(2)
         if path == "/models":
             return "models", None, None
-        if path == "/healthz":
-            return "healthz", None, None
+        if path[1:] in self._TELEMETRY:
+            return path[1:], None, None
         return None, None, None
 
     @staticmethod
@@ -300,6 +449,9 @@ class ServingHandler(BaseHTTPRequestHandler):
             raise _BadRequest(f"bad {what!r}: {e}") from e
 
     def do_GET(self):  # noqa: N802 (http.server API)
+        return self._traced("GET", self._handle_get)
+
+    def _handle_get(self):
         kind, sign, action = self._route()
         try:
             if kind == "models":
@@ -311,16 +463,83 @@ class ServingHandler(BaseHTTPRequestHandler):
                 return self._json(200, entry)
             if kind == "healthz":
                 return self._json(200, {"status": "ok"})
+            if kind is not None:
+                return self._get_telemetry(kind)
             return self._json(404, {"error": "not found"})
+        except _BadRequest as e:
+            return self._json(400, {"error": str(e)})
         except KeyError as e:
             return self._json(404, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 - every handler error is a 500
             return self._json(500, {"error": str(e)})
 
+    def _get_telemetry(self, kind: str):
+        from .utils import history, metrics, sketch, slo
+        if kind == "metrics":
+            sketch.MONITOR.publish()  # the top-K into skew.* gauges
+            return self._text(metrics.prometheus_text(),
+                              content_type="text/plain; version=0.0.4")
+        if kind == "fleetz":
+            return self._text(self._fleetz_text())
+        if kind == "statusz":
+            return self._text(self._statusz_text())
+        if kind == "tracez":
+            n = self._coerce(int, self.query.get("n", 256), "n")
+            return self._json(200, {
+                "spans": [s.as_dict() for s in trace.RECORDER.spans(n)],
+                "events": [e.as_dict() for e in trace.RECORDER.events(n)]})
+        if kind == "sloz":
+            verdicts = slo.EVALUATOR.evaluate_now()
+            if self.query.get("format") == "text":
+                return self._text(slo.EVALUATOR.render_text())
+            return self._json(200, {"verdicts": verdicts,
+                                    "exit_code": slo.EVALUATOR.exit_code()})
+        if kind == "historz":
+            metric = self.query.get("metric")
+            if metric is None:
+                return self._json(200, {"metrics": history.HISTORY.names()})
+            window = self.query.get("window")
+            window_s = (self._coerce(float, window, "window")
+                        if window is not None else None)
+            labels = {k: v for k, v in self.query.items()
+                      if k not in ("metric", "window")}
+            return self._json(200, {
+                "metric": metric, "window_s": window_s,
+                "series": history.HISTORY.query(metric, window_s=window_s,
+                                                labels=labels or None)})
+        if kind == "timelinez":
+            n = self._coerce(int, self.query.get("n", 512), "n")
+            return self._json(200, {
+                "node": self.node_info.get("node_id", "self"),
+                "process": trace.PROCESS_ID, "wall_time": time.time(),
+                "events": [e.as_dict() for e in trace.RECORDER.events(n)],
+                "spans": [s.as_dict() for s in trace.RECORDER.spans(n)],
+                "lineage": []})
+        return self._json(404, {"error": "not found"})
+
     def do_POST(self):  # noqa: N802
+        return self._traced("POST", self._handle_post)
+
+    def _handle_post(self):
         kind, sign, action = self._route()
         try:
             body = self._body()
+            if kind == "capsule":
+                # an operator's postmortem dump: 409 when capsules are not
+                # armed, 429 when the per-reason rate limit suppressed it
+                from .utils import capsule
+                if not capsule.enabled():
+                    return self._json(409, {
+                        "error": "capsules not configured "
+                                 "(--capsule-dir / OETPU_CAPSULE_DIR)"})
+                reason = str(body.pop("reason", "operator"))
+                path = capsule.trigger(reason, **{
+                    str(k): v for k, v in body.items()})
+                return self._json(
+                    200 if path else 429,
+                    {"reason": reason, "path": path} if path
+                    else {"error": "capsule suppressed (rate limit or "
+                                   "write error)", "reason": reason})
             if kind == "models" or (kind == "model" and action is None):
                 sign = sign or self._field(body, "model_sign")
                 entry = self.manager.load_model(
@@ -334,30 +553,39 @@ class ServingHandler(BaseHTTPRequestHandler):
                 model, variable = self.manager.find_model_variable(
                     sign, self._field(body, "variable"))
                 ids = self._coerce(_pull_ids, self._field(body, "ids"), "ids")
+                from .utils import sketch
+                sketch.record_ids(variable, ids)
                 return self._json(
                     200, {"weights": _to_list(model.lookup(variable, ids))})
             if kind == "model" and action == "predict":
-                model = self.manager.find_model(sign)
-                pooled = _pooled_features(model)
-                batch = {"sparse": {
-                    k: self._coerce(
-                        lambda v, _p=(k in pooled): _ids_array(v, pooled=_p),
-                        v, f"sparse.{k}")
-                    for k, v in body.get("sparse", {}).items()}}
-                if body.get("dense") is not None:
-                    batch["dense"] = self._coerce(
-                        lambda v: np.asarray(v, dtype=np.float32),
-                        body["dense"], "dense")
-                try:
-                    logits = model.predict(batch)
-                except KeyError as e:
-                    # a feature the model needs is absent from the request
-                    raise _BadRequest(
-                        f"predict request is missing sparse feature {e}"
-                    ) from e
-                except RaggedBatchError as e:
-                    raise _BadRequest(str(e)) from e
-                return self._json(200, {"logits": _to_list(logits)})
+                # one measurement, two views: the span and the labeled
+                # `serving.predict.ms{model=}` histogram
+                with trace.span("serving", "predict",
+                                labels={"model": sign}, model=sign):
+                    model = self.manager.find_model(sign)
+                    pooled = _pooled_features(model)
+                    batch = {"sparse": {
+                        k: self._coerce(
+                            lambda v, _p=(k in pooled): _ids_array(
+                                v, pooled=_p),
+                            v, f"sparse.{k}")
+                        for k, v in body.get("sparse", {}).items()}}
+                    if body.get("dense") is not None:
+                        batch["dense"] = self._coerce(
+                            lambda v: np.asarray(v, dtype=np.float32),
+                            body["dense"], "dense")
+                    try:
+                        with trace.span("serving", "model_call"):
+                            logits = _to_list(model.predict(batch))
+                    except KeyError as e:
+                        # a feature the model needs is absent from the
+                        # request
+                        raise _BadRequest(
+                            f"predict request is missing sparse feature {e}"
+                        ) from e
+                    except RaggedBatchError as e:
+                        raise _BadRequest(str(e)) from e
+                    return self._json(200, {"logits": logits})
             return self._json(404, {"error": "not found"})
         except _BadRequest as e:
             return self._json(400, {"error": str(e)})
@@ -369,6 +597,9 @@ class ServingHandler(BaseHTTPRequestHandler):
             return self._json(500, {"error": str(e)})
 
     def do_DELETE(self):  # noqa: N802
+        return self._traced("DELETE", self._handle_delete)
+
+    def _handle_delete(self):
         kind, sign, action = self._route()
         try:
             if kind == "model" and action is None:
@@ -406,7 +637,8 @@ class ServingClient:
         for i in range(len(self.nodes)):
             node = self.nodes[(start + i) % len(self.nodes)]
             req = urllib.request.Request(f"{node}{path}", data=data,
-                                         method=method)
+                                         method=method,
+                                         headers=trace.inject_headers())
             if data:
                 req.add_header("Content-Type", "application/json")
             try:
@@ -454,15 +686,23 @@ class ServingClient:
 
 
 def make_server(registry_root: str, host: str = "127.0.0.1", port: int = 0,
-                *, device=None) -> ThreadingHTTPServer:
+                *, device=None, peers: Optional[list] = None
+                ) -> ThreadingHTTPServer:
     """Build (not start) the serving HTTP server; port 0 picks a free port.
-    Models load onto `device` (None = the CUDA card; raises without one)."""
+    Models load onto `device` (None = the CUDA card; raises without one).
+    `peers` (base URLs of other nodes) is the default `GET /fleetz` scrape
+    set (`?peers=` overrides it per request)."""
     manager = ModelManager(ModelRegistry(registry_root), device=device)
 
     class Handler(ServingHandler):
         pass
 
     Handler.manager = manager
+    Handler.peers = list(peers or [])
+    Handler.node_info = {"node_id": f"{os.uname().nodename}:{os.getpid()}",
+                         "registry": registry_root,
+                         "device": str(manager.device),
+                         "peers": Handler.peers}
     httpd = ThreadingHTTPServer((host, port), Handler)
     httpd.manager = manager
     return httpd
@@ -478,9 +718,44 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="where models load (default: the CUDA card; "
                          "fails when there is none)")
+    ap.add_argument("--peers", action="append", default=[],
+                    help="base URLs of other nodes (comma-separated, "
+                         "repeatable): GET /fleetz merges their /metrics "
+                         "with this node's")
+    ap.add_argument("--flight-recorder", type=int, default=0, metavar="N",
+                    help="resize the span/event flight recorder (0 keeps "
+                         "the default)")
+    ap.add_argument("--trace-dump", default=None, metavar="PATH",
+                    help="on shutdown, write the flight recorder as "
+                         "Chrome-trace JSON to PATH")
+    ap.add_argument("--slo-specs", default=None, metavar="PATH",
+                    help="JSON list of SLO specs (default: the built-in "
+                         "set); verdicts on GET /sloz")
+    ap.add_argument("--slo-interval", type=float, default=0.0,
+                    help="also evaluate SLOs on a thread every S seconds")
+    ap.add_argument("--capsule-dir", default=None, metavar="DIR",
+                    help="arm postmortem capsules (SLO breaches, POST "
+                         "/capsule) into DIR")
     args = ap.parse_args(argv)
+    from .utils import capsule, slo
+    if args.flight_recorder > 0:
+        trace.configure(args.flight_recorder)
+    if args.capsule_dir:
+        capsule.configure(args.capsule_dir)
+        capsule.register_context(
+            "serving", lambda: {"argv": list(argv) if argv else None,
+                                "registry": args.registry,
+                                "host": args.host, "port": args.port})
+    if args.slo_specs:
+        slo.configure(slo.load_specs(args.slo_specs))
+    slo_eval = None
+    if args.slo_interval > 0:
+        slo.EVALUATOR.interval_s = args.slo_interval
+        slo_eval = slo.EVALUATOR.start()
     httpd = make_server(args.registry, args.host, args.port,
-                        device=args.device)
+                        device=args.device,
+                        peers=[p for arg in args.peers
+                               for p in arg.split(",") if p])
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(registry: {args.registry}, device: {httpd.manager.device})")
     try:
@@ -489,6 +764,10 @@ def main(argv=None) -> int:
         pass
     finally:
         httpd.server_close()
+        if slo_eval is not None:
+            slo_eval.stop()
+        if args.trace_dump:
+            print(f"trace dump: {trace.dump_chrome(args.trace_dump)}")
     return 0
 
 

@@ -63,8 +63,14 @@ every rank takes the same evict or flush decision. The JAX package drives the
 whole mesh from one process with one store; here `offload_store_snapshots`,
 checkpoints and `lookup_anywhere` read each rank's own store.
 
-The JAX package's `offload.*` gauges (`utils/metrics`, ROADMAP.md item 6) are
-attributes here: `pipe_hits`, `pipe_misses`, `slot_hits`, `slot_misses`,
+The JAX package's `offload.*` series are published through the registry
+(`utils/metrics`) under its names: `offload.staged_bytes`, `admitted`,
+`overlap_ratio`, `pipeline_hits` / `misses` / `occupancy{slot=}`,
+`densified_merges`, `drained_rows`, `evicted_cold`, `kept_hot`, `flushes`,
+and the spans `offload.admit` / `stage` / `drain` / `evict` / `sync` /
+`flush`. `offload.staged_bytes` counts the bytes this rank uploads (JAX
+pads its payload to a power of two first). The same counts stay
+attributes: `pipe_hits`, `pipe_misses`, `slot_hits`, `slot_misses`,
 `counters` (admitted and readmitted rows, evictions, evicted and kept
 rows, flushes, resident reads, densified merges, drained rows, staged bytes) and `timings` (ms of prepare's split, store lookup, upload and
 admission, of staging, eviction and flush; the last `TIMING_SAMPLES` each).
@@ -82,6 +88,7 @@ import numpy as np
 import torch
 
 from ..ops import gather
+from ..utils import metrics
 from .hash_table import (EMPTY, hash_find, hash_find_or_insert,
                          np_ids_as_int64, shard_probe)
 
@@ -528,9 +535,10 @@ class HostOffloadTable:
         t0 = self._time("stage_lookup" if staged else "lookup", t0)
         host = {"ids": mine, "w": w, "known": known,
                 **{f"s/{k}": v for k, v in s.items()}}
+        nbytes = sum(a.nbytes for a in host.values())
         with self._counters_lock:  # the staging worker adds here too
-            self.counters["staged_bytes"] += sum(a.nbytes
-                                                 for a in host.values())
+            self.counters["staged_bytes"] += nbytes
+        metrics.observe("offload.staged_bytes", float(nbytes))
         event = None
         if staged and self.device.type == "cuda":
             if self._stage_stream is None:
@@ -562,9 +570,10 @@ class HostOffloadTable:
             current.wait_event(event)
             for t in (ids, w, known, *s.values()):
                 t.record_stream(current)
-        adm_local, overflow = admit_rows(self.state, ids, w, s, known,
-                                         rank=self.rank,
-                                         num_shards=self.num_shards)
+        with metrics.vtimer("offload", "admit"):
+            adm_local, overflow = admit_rows(self.state, ids, w, s, known,
+                                             rank=self.rank,
+                                             num_shards=self.num_shards)
         # rows this rank took back from its store
         self.counters["readmitted"] += int((adm_local & known).sum())
         if self.num_shards > 1:
@@ -591,12 +600,15 @@ class HostOffloadTable:
                                           minlength=self.num_shards)
         self._epoch += 1  # residency changed: staged lookups are stale
         self.counters["admitted"] += int(admitted.sum())
+        metrics.observe("offload.admitted", int(admitted.sum()))
         self._time("admit", t0)
         if stage_s:
             # the share of the staging work that ran in the step's shadow
             admit_s = time.perf_counter() - t0
             self.counters["overlap_ratio"] = stage_s / (stage_s + admit_s
                                                         + 1e-12)
+            metrics.observe("offload.overlap_ratio",
+                            self.counters["overlap_ratio"], "gauge")
 
     def stage(self, ids) -> None:
         """Stage ahead: a future batch's store lookup and upload on the
@@ -617,10 +629,11 @@ class HostOffloadTable:
 
         def work():
             t0 = time.perf_counter()
-            flat = union if union is not None else self._unique(raw)
-            pos_c, hit, new = self._split_batch(flat, resident)
-            payload = self._staged_payload(new, staged=True) \
-                if new.size else None
+            with metrics.vtimer("offload", "stage"):
+                flat = union if union is not None else self._unique(raw)
+                pos_c, hit, new = self._split_batch(flat, resident)
+                payload = self._staged_payload(new, staged=True) \
+                    if new.size else None
             return {"flat": flat, "pos_c": pos_c, "hit": hit, "new": new,
                     "payload": payload,
                     "stage_s": time.perf_counter() - t0}
@@ -638,10 +651,24 @@ class HostOffloadTable:
     def _pipe_hit(self, slot: int) -> None:
         self.pipe_hits += 1
         self.slot_hits[slot] = self.slot_hits.get(slot, 0) + 1
+        metrics.observe("offload.pipeline_hits", 1)
+        self._observe_occupancy()
 
     def _pipe_miss(self, slot: int) -> None:
         self.pipe_misses += 1
         self.slot_misses[slot] = self.slot_misses.get(slot, 0) + 1
+        metrics.observe("offload.pipeline_misses", 1)
+        self._observe_occupancy()
+
+    def _observe_occupancy(self) -> None:
+        occ = self.pipeline_occupancy
+        if "all" in occ:
+            metrics.observe("offload.pipeline_occupancy", occ["all"],
+                            "gauge")
+        for slot, v in occ.items():
+            if slot != "all":
+                metrics.observe("offload.pipeline_occupancy", v, "gauge",
+                                labels={"slot": slot})
 
     @property
     def pipeline_occupancy(self) -> Dict[str, float]:
@@ -758,9 +785,13 @@ class HostOffloadTable:
         self.store.defer(ids, weights, slots)
         self._defer_count += 1
         if self._defer_count >= self.densify_k:
-            self.counters["drained_rows"] += self.store.drain()
+            with metrics.vtimer("offload", "drain"):
+                merged = self.store.drain()
+            self.counters["drained_rows"] += merged
             self._defer_count = 0
             self.counters["densified_merges"] += 1
+            metrics.observe("offload.densified_merges", 1)
+            metrics.observe("offload.drained_rows", merged)
 
     def evict_cold(self) -> int:
         """Clock eviction: the residents whose bit is clear move to the store,
@@ -772,15 +803,16 @@ class HostOffloadTable:
             return 0
         t0 = time.perf_counter()
         dev = self.device
-        (cfound, cw, cs, kept, lost, hw, hs,
-         overflow) = evict_rows(
-            self.state, torch.from_numpy(cold).to(dev),
-            torch.from_numpy(_pad_none(hot)).to(dev), self._refresh,
-            rank=self.rank, num_shards=self.num_shards)
-        cfound = cfound.cpu().numpy()
-        self._store_write(
-            cold[cfound], _host32(cw)[cfound],
-            {k: _host32(v)[cfound] for k, v in cs.items()})
+        with metrics.vtimer("offload", "evict"):
+            (cfound, cw, cs, kept, lost, hw, hs,
+             overflow) = evict_rows(
+                self.state, torch.from_numpy(cold).to(dev),
+                torch.from_numpy(_pad_none(hot)).to(dev), self._refresh,
+                rank=self.rank, num_shards=self.num_shards)
+            cfound = cfound.cpu().numpy()
+            self._store_write(
+                cold[cfound], _host32(cw)[cfound],
+                {k: _host32(v)[cfound] for k, v in cs.items()})
         nh = hot.size
         lost = lost.cpu().numpy()[:nh]
         if lost.any():
@@ -808,6 +840,8 @@ class HostOffloadTable:
         self.counters["evictions"] += 1
         self.counters["evicted_cold"] += int(cfound.sum())
         self.counters["kept_hot"] += int(survivors.size)
+        metrics.observe("offload.evicted_cold", int(cfound.sum()))
+        metrics.observe("offload.kept_hot", int(survivors.size))
         self._time("evict", t0)
         return int(cfound.sum())
 
@@ -817,19 +851,22 @@ class HostOffloadTable:
         training goes on."""
         # drain first: pending chunks hold older values than the device rows
         # merged next
-        self.counters["drained_rows"] += self.store.drain()
-        self._defer_count = 0
-        ids, w, s = read_resident(self.state)
-        if ids.size:
-            self.counters["resident_reads"] += 1
-        self.store.merge(ids, w, s)
+        with metrics.vtimer("offload", "sync"):
+            self.counters["drained_rows"] += self.store.drain()
+            self._defer_count = 0
+            ids, w, s = read_resident(self.state)
+            if ids.size:
+                self.counters["resident_reads"] += 1
+            self.store.merge(ids, w, s)
 
     def flush(self) -> None:
         """The whole cache to the store, and the cache reset."""
         t0 = time.perf_counter()
-        self.sync_to_store()
-        self.reset_cache()
+        with metrics.vtimer("offload", "flush"):
+            self.sync_to_store()
+            self.reset_cache()
         self.counters["flushes"] += 1
+        metrics.observe("offload.flushes", 1)
         self._time("flush", t0)
 
     def reset_cache(self) -> None:

@@ -268,16 +268,6 @@ def test_offload_refused_with_cache():
                                     str(VOCAB), "--steps", "1"])
 
 
-@pytest.mark.parametrize("flag", [
-    ["--report-interval", "1"],
-    ["--metrics-log", "m.jsonl"], ["--profile", "trace"],
-    ["--flight-recorder", "8"], ["--trace-dump", "t.json"],
-    ["--skew-report"]], ids=lambda f: f[0])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        criteo_deepctr.main(BASE + ["--steps", "1"] + flag)
-
-
 def test_other_families_and_no_card_raise(monkeypatch, capsys):
     # the retrieval and sequence families have batches of their own: the
     # entry point refuses them, as the JAX one refuses two_tower

@@ -6,8 +6,6 @@ runs, as torchrun does), `main([... "--mesh"])` gives, on every rank, the
 losses of the same run through `parallel.MeshTrainer` directly on the
 rank's rows of the same TSV batches, bit for bit (the same computation),
 with a host-cached table (`--offload`) too.
-The flags still refused raise with their ROADMAP.md items under `--mesh`
-too.
 """
 
 import os
@@ -74,13 +72,6 @@ def test_mesh_entry_point_offload(tmp_path):
     stored = np.unique(np.concatenate([r["store_ids"] for r in out]))
     exported = np.load(os.path.join(export, "variable_0", "ids.npy"))
     assert exported.tobytes() == stored.tobytes()
-
-
-@pytest.mark.parametrize("flag", [["--report-interval", "1"]],
-                         ids=lambda f: f[0])
-def test_refused_flags_still_raise_under_mesh(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        criteo_deepctr.main(ARGV + flag)
 
 
 def test_mesh_export_needs_the_sharded_checkpoint():
