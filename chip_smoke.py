@@ -328,7 +328,27 @@ final line:
    `serving/predict` spans, `/statusz`, `/sloz`, `/historz`,
    `/timelinez`, `/fleetz` over two servers, the sketch's ids; REST p50
    with and without a `/metrics` scrape between predicts;
-17. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+17. placement — self-driving placement (`placement/controller.py`,
+   `utils/memwatch.py`): `bench.py`'s placement case on four staged gloo
+   ranks on the one card, the flagship at full width (2^22 x 10 rows and
+   the Adagrad accumulator a rank), batches of 4096 x 26 of a drifting
+   Zipf stream (a heavy pool of 64 ids drawn with weights 1/(r+1) at 0.6
+   of the positions, homed on shard 3 for 30 steps, on shard 1 for 30
+   more; the tail uniform over 2^24). `PlacementPolicy(32 rows' bytes,
+   mig_rows=64, refresh_cooldown_steps=3, imbalance_target=1.05)`, a
+   `SkewMonitor(k=256, decay=0.9)` fed the global ids, a decision every
+   3 steps. A prime under a 1-byte budget keeps the sizes and records
+   `placement/prime_rejected`; `publish_memory` after init and after
+   prime, `analytic == measured` on every component, with
+   `memory.hbm_used`, the card's memory and `memory.model_drift`. The
+   controller-on run through the kernels and through the plain versions
+   from the same state: losses and the whole state bit-equal, every rank
+   the same losses, hot sets, moves and `status()`. The controller-off
+   run on the same batches: its post-drift imbalance above the on run's.
+   Imbalance before and after the drift, hit ratio, refreshes and
+   migrations, ms a step on and off, the sketch feed's and `on_step`'s ms,
+   the launches of each kernel;
+18. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -3528,8 +3548,71 @@ def nccl_placement(torch, mb, ops, mesh, batches) -> dict:
     ran = ran_launches(_mesh_launches(ops.launch_counts()), [graph])
     cmp = _compare(torch, mb, graph_state, graph_losses, state, losses,
                    "placement_graph_vs_eager")
+    auto = nccl_controller(torch, mb, ops, mesh)
+    for k in KERNELS:
+        launches[k] += auto["launches"][k]
+        ran[k] += auto["graph_launches"][k]
     return {"steps": len(batches), "launches": launches,
-            "graph_launches": ran, "graph": graph, **cmp}
+            "graph_launches": ran, "graph": graph, "controller": auto,
+            **cmp}
+
+
+NCCL_AUTO_STEPS = 6       # steps a phase of the controller's drift over NCCL
+
+
+def nccl_controller(torch, mb, ops, mesh) -> dict:
+    """The placement controller over NCCL across cards: the drift stream
+    (`drift_stream`, 6 steps a phase), `prime`, then the steps through
+    `jit_train_step` with `on_step` after each (rank 0's decisions sent to
+    every rank): one capture, every refresh and migration written into the
+    captured tensors; bit-equal to the same steps eager."""
+    from openembedding_tpu_torch import optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.utils import metrics as M
+    from openembedding_tpu_torch.utils.sketch import SkewMonitor
+    globals_ = drift_stream(mesh.size, NCCL_AUTO_STEPS)
+    ids = [b["sparse"]["categorical"] for b in globals_]
+    batches = [local_batch(b, mesh) for b in globals_]
+
+    def trainer_of():
+        return MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                           optimizers.Adagrad(learning_rate=0.05),
+                           mesh=mesh)
+    trainer = trainer_of()
+    start = trainer.init(batches[0])
+
+    def run(tr, st, graph: bool):
+        with M._LOCK:   # each run reads its own shard loads
+            M._REGISTRY.clear()
+        mon = SkewMonitor(k=256, sync=True, decay=0.9)
+        ctrl = _auto_controller(tr, mon, ids)
+        st = ctrl.prime(st)
+        step = tr.jit_train_step() if graph else tr.train_step
+        losses = []
+        for i, b in enumerate(batches):
+            mon.observe("categorical", ids[i])
+            st, m = step(st, b)
+            losses.append(m["loss"].clone())
+            tr.record_step_stats(m)
+            st = ctrl.on_step(st, step=i + 1)
+        return st, torch.stack(losses).cpu().numpy(), ctrl.status(), step
+
+    eager_state, eager_losses, eager_status, _ = run(
+        trainer_of(), start.clone(), False)
+    ops.reset_launch_counts()
+    state, losses, status, step = run(trainer, start, True)
+    graph = graph_record(step)
+    ran = ran_launches(_mesh_launches(ops.launch_counts()), [graph])
+    check(status == eager_status and status["migrations_applied"] >= 1,
+          f"(nccl controller) the graph run made the eager run's decisions "
+          f"({status})")
+    cmp = _compare(torch, mb, state, losses, eager_state, eager_losses,
+                   "controller_graph_vs_eager")
+    return {"steps": len(batches), "status": status, "graph": graph,
+            "launches": {k: 0 for k in KERNELS}, "graph_launches": ran,
+            **cmp}
 
 
 NCCL_PIPE_WINDOWS = 6     # windows per jit_train_many; the first captures
@@ -5942,6 +6025,286 @@ def phase_obs(torch, mb, ops, data, optimizers, tsv: str, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+AUTO_RANKS = 4            # staged gloo ranks on the one card
+AUTO_STEPS = 30           # steps a phase of the drift (bench.py: 30)
+AUTO_POOL = 64            # the heavy pool's ids
+AUTO_SHARE = 0.6          # the pool's share of the positions
+AUTO_HOT = 32             # the hot budget, in rows of the 10-wide table
+AUTO_MIG = 64             # the policy's annex rows
+AUTO_SEED = 13            # bench.py's stream seed
+
+
+def drift_stream(S: int, steps: int = AUTO_STEPS, seed: int = AUTO_SEED):
+    """`bench.py`'s `case_placement` stream at full width: global batches
+    of BATCH x 26 ids uniform over VOCAB, AUTO_SHARE of the positions
+    from a 1/(r+1)-weighted pool homed on shard S-1, then on shard 1."""
+    rng = np.random.default_rng(seed)
+    pre = (np.arange(AUTO_POOL) * S + S - 1).astype(np.int64)
+    post = (np.arange(AUTO_POOL) * S + 1).astype(np.int64)
+    w = 1.0 / (np.arange(AUTO_POOL) + 1.0)
+    w /= w.sum()
+    out = []
+    for i in range(2 * steps):
+        pool = pre if i < steps else post
+        ids = rng.integers(0, VOCAB, (BATCH, 26))
+        mask = rng.random((BATCH, 26)) < AUTO_SHARE
+        ids[mask] = pool[rng.choice(AUTO_POOL, size=int(mask.sum()), p=w)]
+        out.append({
+            "sparse": {"categorical": ids.astype(np.int32)},
+            "dense": rng.normal(size=(BATCH, 13)).astype(np.float32),
+            "label": rng.integers(0, 2, (BATCH,)).astype(np.float32)})
+    return out
+
+
+def _auto_controller(trainer, mon, ids):
+    from openembedding_tpu_torch.placement import (PlacementController,
+                                                   PlacementPolicy)
+    from openembedding_tpu_torch.placement.policy import row_bytes
+    policy = PlacementPolicy(AUTO_HOT * row_bytes(DIM + 1), mig_rows=AUTO_MIG,
+                             refresh_cooldown_steps=3, imbalance_target=1.05)
+    ctrl = PlacementController(trainer, policy, monitor=mon,
+                               interval_steps=3)
+    for x in ids[:3]:
+        mon.observe("categorical", x)
+    return ctrl
+
+
+def _auto_run(torch, trainer, state, batches, ids, controlled: bool):
+    """The drift stream's eager steps on this rank, the controller on or
+    off; every step's stats read (`record_step_stats`: the controller's
+    shard loads). -> (state, record)."""
+    from openembedding_tpu_torch.utils import metrics as M
+    from openembedding_tpu_torch.utils.sketch import SkewMonitor
+    with M._LOCK:   # each run reads its own shard loads (bench.py's too)
+        M._REGISTRY.clear()
+    mon = SkewMonitor(k=256, sync=True, decay=0.9)
+    ctrl = _auto_controller(trainer, mon, ids) if controlled else None
+    rec = {"losses": [], "imbalance": [], "hit": [], "installed": [],
+           "status": [], "step_ms": [], "feed_ms": [], "train_ms": [],
+           "on_step_ms": []}
+    if ctrl is not None:
+        epoch = trainer.graph_epoch
+        state = ctrl.prime(state)
+        rec["prime_epoch_moves"] = trainer.graph_epoch - epoch
+        rec["prime_hot_rows"] = dict(trainer.hot_rows)
+        rec["prime_mig_rows"] = dict(trainer.mig_rows)
+        ptrs = [t.data_ptr() for t in state.tables["categorical"].tensors()]
+        epoch = trainer.graph_epoch
+    torch.cuda.synchronize()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        if ctrl is not None:
+            mon.observe("categorical", ids[i])
+        t1 = time.perf_counter()
+        state, m = trainer.train_step(state, b)
+        trainer.record_step_stats(m)    # one copy: the step is done
+        t2 = time.perf_counter()
+        if ctrl is not None:
+            state = ctrl.on_step(state, step=i + 1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        st = m["stats"]
+        pos = st["categorical/shard_positions"].double().cpu().numpy()
+        rec["losses"].append(float(m["loss"]))
+        rec["imbalance"].append(float(pos.max() / pos.mean()))
+        if "categorical/hot_hits" in st:
+            rec["hit"].append(float(st["categorical/hot_hits"])
+                              / float(st["categorical/pull_indices"]))
+        rec["step_ms"].append((t3 - t0) * 1e3)
+        rec["feed_ms"].append((t1 - t0) * 1e3)
+        rec["train_ms"].append((t2 - t1) * 1e3)
+        rec["on_step_ms"].append((t3 - t2) * 1e3)
+        if ctrl is not None:
+            ts = state.tables["categorical"]
+            rec["installed"].append([
+                trainer._np_id_list(ts.hot.ids).tolist(),
+                trainer._np_id_list(ts.mig.ids).tolist(),
+                ts.mig.owners.cpu().numpy().tolist()])
+            rec["status"].append(ctrl.status())
+    if ctrl is not None:
+        rec["graph_epoch_moved"] = trainer.graph_epoch != epoch
+        rec["tensors_rebound"] = ptrs != [
+            t.data_ptr() for t in state.tables["categorical"].tensors()]
+        rec["render"] = ctrl.render_text()
+    return state, rec
+
+
+def _memory_check(trainer, state, what: str) -> dict:
+    """`publish_memory`: analytic == measured on every component both
+    price -> the ledger's numbers and the allocator's."""
+    from openembedding_tpu_torch.utils import metrics as M
+    model = trainer.publish_memory(state)
+    a, m = model["analytic"], model["measured"]
+    unequal = {k: (a[k], m[k]) for k in set(a) & set(m) if a[k] != m[k]}
+    check(set(a) == set(m) and not unequal,
+          f"(placement) {what}: analytic == measured ({unequal}, "
+          f"{set(a) ^ set(m)})")
+    rep = M.report()
+    return {"components": m, "device_total_bytes": model[
+        "device_total_bytes"], "hbm_used": rep.get("memory.hbm_used"),
+        "hbm_limit": rep.get("memory.hbm_limit"),
+        "model_drift": rep.get("memory.model_drift"),
+        "headroom_ratio": rep.get("memory.headroom_ratio")}
+
+
+def placement_auto_rank(mesh):
+    """One staged rank of the placement phase (see the module docstring)."""
+    import torch
+    from openembedding_tpu_torch import ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.utils import memwatch, trace
+    from openembedding_tpu_torch.utils.sketch import SkewMonitor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    S = mesh.size
+    check(mesh.staged and S == AUTO_RANKS, f"a staged mesh {mesh}")
+    globals_ = drift_stream(S)
+    ids = [b["sparse"]["categorical"] for b in globals_]
+    batches = [local_batch(b, mesh) for b in globals_]
+    del globals_
+
+    def trainer_of():
+        return MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                           optimizers.Adagrad(learning_rate=0.05), mesh=mesh)
+    out = {"rank": mesh.rank}
+    trainer = trainer_of()
+    state = trainer.init(batches[0])
+    start = state.clone()
+    # a prime under a budget too small for the delta keeps the sizes
+    # (before any device sample: a card's measured memory outranks a budget)
+    memwatch.WATCH.configure(budget_bytes=1)
+    tr_rej = trainer_of()
+    ctrl = _auto_controller(tr_rej, SkewMonitor(k=256, sync=True,
+                                                decay=0.9), ids)
+    epoch = tr_rej.graph_epoch
+    same = ctrl.prime(state)
+    rejected = [e for e in trace.RECORDER.tail(100000)
+                if getattr(e, "group", None) == "placement"
+                and e.name == "prime_rejected"]
+    out["prime_rejected"] = {
+        "hot_rows": tr_rej.hot_rows, "mig_rows": tr_rej.mig_rows,
+        "events": len(rejected), "epoch_moved": tr_rej.graph_epoch != epoch,
+        "delta_bytes": rejected[-1].attrs["delta_bytes"] if rejected
+        else None}
+    check(same is state and not tr_rej.hot_rows and not tr_rej.mig_rows
+          and rejected and state.tables["categorical"].hot is None
+          and tr_rej.graph_epoch == epoch,
+          f"(placement) a rejected prime keeps the sizes "
+          f"({out['prime_rejected']})")
+    del tr_rej, ctrl
+    memwatch.WATCH.configure(budget_bytes=None)
+    out["memory_init"] = _memory_check(trainer, state, "after init")
+
+    # the controller on, through the kernels: the counts set to 0 just
+    # before and read just after
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, on = _auto_run(torch, trainer, state, batches, ids, True)
+    torch.cuda.synchronize()
+    on["wall_seconds"] = time.perf_counter() - t0
+    out["launches"] = _mesh_launches(ops.launch_counts())
+    out["memory_primed"] = _memory_check(trainer, state, "after the run")
+    check(on["prime_epoch_moves"] == 1 and not on["graph_epoch_moved"]
+          and not on["tensors_rebound"],
+          "(placement) prime moves graph_epoch once, nothing after it "
+          "rebinds a tensor")
+    # the same steps through the plain versions, from the same state
+    plain_trainer = trainer_of()
+    with ops.plain_versions():
+        ref, plain = _auto_run(torch, plain_trainer, start.clone(), batches,
+                               ids, True)
+    check(plain["installed"] == on["installed"]
+          and plain["status"] == on["status"],
+          "(placement) the plain run made the same decisions")
+    out["vs_plain"] = _compare(
+        torch, mb, state, np.asarray(on["losses"], np.float32), ref,
+        np.asarray(plain["losses"], np.float32), "placement_vs_plain")
+    del ref, plain_trainer, state
+    torch.cuda.empty_cache()
+    # the controller off, on the same batches from the same state
+    off_trainer = trainer_of()
+    ops.reset_launch_counts()
+    _, off = _auto_run(torch, off_trainer, start, batches, ids, False)
+    out["launches_off"] = _mesh_launches(ops.launch_counts())
+    out["on"], out["off"] = on, off
+    return out
+
+
+def _phase_mean(xs, lo, hi):
+    third = max((hi - lo) // 3, 1)
+    return float(np.mean(xs[hi - third:hi]))
+
+
+def phase_placement(torch, smi: str) -> dict:
+    """Self-driving placement on four staged ranks -> {kernel: launches of
+    the controller-on run}."""
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    t0 = time.perf_counter()
+    ranks = run_local(placement_auto_rank, AUTO_RANKS, backend="gloo",
+                      device="cuda", timeout_s=900, threads=0)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for run in ("on", "off"):
+            check(r[run]["losses"] == r0[run]["losses"],
+                  f"(placement) rank {r['rank']}'s {run} losses equal "
+                  "rank 0's")
+        check(r["on"]["installed"] == r0["on"]["installed"]
+              and r["on"]["status"] == r0["on"]["status"]
+              and r["on"]["render"] == r0["on"]["render"],
+              f"(placement) rank {r['rank']} installed rank 0's sets and "
+              "moves and reports its status")
+    total = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+    for k in ("gather_rows", "fused_sparse_apply"):
+        check(total[k] > 0, f"the placement path launched {k}")
+    n = AUTO_STEPS
+    summary = {}
+    for run in ("on", "off"):
+        rec = r0[run]
+        summary[run] = {
+            "imbalance_pre_drift": _phase_mean(rec["imbalance"], 0, n),
+            "imbalance_post_drift": _phase_mean(rec["imbalance"], n, 2 * n),
+            "hit_ratio_final": (_phase_mean(rec["hit"], n, 2 * n)
+                                if rec["hit"] else None),
+            "ms_per_step_median": float(np.median(rec["step_ms"][1:])),
+            "ms_per_step_mean": float(np.mean(rec["step_ms"][1:])),
+            "feed_ms_median": float(np.median(rec["feed_ms"][1:])),
+            "train_ms_median": float(np.median(rec["train_ms"][1:])),
+            "on_step_ms_median": float(np.median(rec["on_step_ms"][1:])),
+            "on_step_ms_max": float(np.max(rec["on_step_ms"][1:]))}
+    for run, key in (("on", "launches"), ("off", "launches_off")):
+        summary[run]["launches"] = {k: sum(r[key][k] for r in ranks)
+                                    for k in KERNELS}
+    st = r0["on"]["status"][-1]
+    summary["on"].update(
+        refreshes=sorted({s["last_refresh_step"]["categorical"]
+                          for s in r0["on"]["status"]}),
+        migrations=st["migrations_applied"], decisions=st["decisions"],
+        hot_rows=r0["on"]["prime_hot_rows"],
+        mig_rows=r0["on"]["prime_mig_rows"])
+    check(summary["on"]["imbalance_post_drift"]
+          < summary["off"]["imbalance_post_drift"],
+          f"(placement) the controller flattens the post-drift load "
+          f"({summary})")
+    rec = {"phase": "placement", "card": smi, "ranks": AUTO_RANKS,
+           "steps": 2 * n, "summary": summary, "launches": total,
+           "launches_by_rank": [r["launches"] for r in ranks],
+           "prime_rejected": r0["prime_rejected"],
+           "memory_init": [r["memory_init"] for r in ranks],
+           "memory_primed": [r["memory_primed"] for r in ranks],
+           "vs_plain": r0["vs_plain"], "render": r0["on"]["render"],
+           "imbalance_on": r0["on"]["imbalance"],
+           "imbalance_off": r0["off"]["imbalance"],
+           "hit_on": r0["on"]["hit"], "losses_on": r0["on"]["losses"],
+           "wall_seconds": wall}
+    emit(rec)
+    return total
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -6119,6 +6482,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         obs_launches = phase_obs(torch, mb, ops, data, optimizers, tsv, smi)
         torch.cuda.empty_cache()
+        placement_launches = phase_placement(torch, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -6134,9 +6499,10 @@ def main() -> int:
                    "offload": offload_launches[k],
                    "seq": seq_launches[k],
                    "obs": obs_launches[k],
+                   "placement": placement_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
-                 "seq", "obs"):
+                 "seq", "obs", "placement"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

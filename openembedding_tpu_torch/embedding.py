@@ -91,6 +91,27 @@ class EmbeddingSpec:
             return -(-self.capacity // num_shards)
         return -(-self.input_dim // num_shards)
 
+    def device_bytes(self, optimizer: SparseOptimizer, num_shards: int, *,
+                     need_ef: bool = False) -> Dict[str, int]:
+        """The bytes one rank holds of this table's base state at S shards,
+        by part, priced from the spec without materializing it (the
+        `utils/memwatch` ledger; `MeshTrainer.memory_model` holds it equal
+        to the live tensors): the weights, the float32 slots, a hash
+        table's int64 keys and its () int32 overflow counter, and the
+        float32 error-feedback residuals."""
+        rows = self.rows_per_shard(num_shards)
+        item = torch.empty((), dtype=self.dtype).element_size()
+        out = {
+            "weights": rows * self.output_dim * item,
+            "slots": rows * 4 * sum(
+                optimizer.slot_shapes(self.output_dim).values()),
+        }
+        if self.use_hash_table:
+            out["keys"] = rows * 8 + 4
+        if need_ef:
+            out["ef"] = rows * self.output_dim * 4
+        return out
+
     def to_config(self) -> dict:
         return {
             "name": self.name, "input_dim": self.input_dim,

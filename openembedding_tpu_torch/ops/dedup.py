@@ -150,7 +150,7 @@ def unique_and_route(ids: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"unique_and_route takes (n,) ids, got shape "
                          f"{tuple(ids.shape)}")
     iota = torch.arange(n, device=dev)
-    owner_in = torch.remainder(ids, S) if owner is None else owner.long()
+    owner_in = (torch.remainder(ids, S) if owner is None else owner).long()
     owner_in = torch.where(valid, owner_in, torch.full_like(owner_in, S))
     by_id = torch.argsort(ids, stable=True)
     order = by_id[torch.argsort(owner_in[by_id], stable=True)]

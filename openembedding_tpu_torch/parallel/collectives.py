@@ -224,6 +224,24 @@ def broadcast_(mesh: Mesh, x: torch.Tensor, src: int = 0) -> None:
     x.copy_(_from_wire(mesh, buf, x))
 
 
+def broadcast_object(mesh: Mesh, obj=None, src: int = 0):
+    """Rank `src`'s picklable `obj`, returned on every rank (the others'
+    `obj` is ignored): its length, then its bytes, by `broadcast_` on the
+    rank's device."""
+    if mesh.size == 1:
+        return obj
+    import pickle
+    payload = pickle.dumps(obj) if mesh.rank == src else b""
+    n = torch.tensor([len(payload)], dtype=torch.int64, device=mesh.device)
+    broadcast_(mesh, n, src=src)
+    buf = torch.zeros((int(n.item()),), dtype=torch.uint8, device=mesh.device)
+    if mesh.rank == src:
+        buf.copy_(torch.frombuffer(bytearray(payload), dtype=torch.uint8))
+    broadcast_(mesh, buf, src=src)
+    return obj if mesh.rank == src else pickle.loads(
+        buf.cpu().numpy().tobytes())
+
+
 def barrier(mesh: Mesh) -> None:
     if mesh.size > 1:
         dist.barrier(group=mesh.group)

@@ -54,9 +54,11 @@ collective, so every rank sees the same health and takes the same halt
 decision; `measure_every` samples `jit_train_step`; the static wire-cost
 model of the step is published as `exchange.*` / `hot.*` / `dense.*`
 gauges (`_observe_wire_cost`, `last_wire_cost`) and a window's conflict
-counters by `record_window_stats`. `refresh_hot_rows` without explicit
-ids, which reads the heavy-hitter sketches, is not ported (ROADMAP.md
-item 6).
+counters by `record_window_stats`; `memory_model` / `publish_memory`
+price what a rank holds for the `utils/memwatch` ledger, and
+`refresh_hot_rows` without explicit ids installs the heavy-hitter
+sketches' top sets (rank 0's, sent to every rank), as the placement
+controller (`placement/controller.py`) drives it.
 
 `SeqMeshTrainer`: the same over a 2-D (data, seq) mesh
 (`mesh.make_seq_mesh`), context parallel: the sequence dim of the batch
@@ -87,7 +89,7 @@ from ..utils.fs import local_path
 from . import collectives as coll
 from . import zero
 from .mesh import Mesh, make_mesh
-from .sharded import (build_hot_identity, build_mig_identity,
+from .sharded import (_probe_keys, build_hot_identity, build_mig_identity,
                       grouped_apply_gradients, grouped_conflict_patch,
                       grouped_finalize_pull, grouped_lookup_train,
                       grouped_prefetch, hot_gather, hot_writeback,
@@ -449,6 +451,161 @@ class MeshTrainer(Trainer):
         _metrics.observe("dense.wire_rejits", 1)
         return self._adopt(state, rep)
 
+    # -- device-memory accounting (utils/memwatch ledger) ---------------------
+
+    def _hot_device_bytes(self, spec: EmbeddingSpec, H: int) -> int:
+        """The bytes one rank holds of a table's hot cache at H rows: the
+        probe keys (C = max(2H, 8) slots, in `build_hot_identity`'s key
+        dtype: int32 for an array table, int64 for a hash table), their
+        int32 ranks, the id list, the weights and the float32 slots."""
+        if H <= 0:
+            return 0
+        C = max(2 * H, 8)
+        kb = _probe_keys(spec, 0).itemsize
+        item = torch.empty((), dtype=spec.dtype).element_size()
+        widths = sum(self.opt_for(spec).slot_shapes(spec.output_dim).values())
+        return (C * kb + C * 4 + H * kb
+                + H * spec.output_dim * item + H * 4 * widths)
+
+    def _mig_device_bytes(self, spec: EmbeddingSpec, M: int) -> int:
+        """The bytes one rank holds of a table's migration set at M rows:
+        the directory (probe keys and ranks, ids, int32 owners) and the
+        rank's annex (M rows of weights and float32 slots)."""
+        if M <= 0:
+            return 0
+        C = max(2 * M, 8)
+        kb = _probe_keys(spec, 0).itemsize
+        item = torch.empty((), dtype=spec.dtype).element_size()
+        widths = sum(self.opt_for(spec).slot_shapes(spec.output_dim).values())
+        return (C * kb + C * 4 + M * kb + M * 4
+                + M * spec.output_dim * item + M * 4 * widths)
+
+    def memory_model(self, state: Optional[TrainState] = None) -> dict:
+        """This rank's byte model of what the trainer keeps on its device.
+
+        -> {"analytic": {"component/table": bytes}, "measured": {...},
+        "host": {...}, "device_total_bytes": int}. The analytic view prices
+        the shapes the trainer would hold (specs, placement sizes and the
+        ZeRO plan: usable before init and before a resize); the measured
+        view walks the live `state` tensors. The two agree exactly on every
+        component both price; the dense components need `state`."""
+        from ..utils import memwatch as _memwatch
+        analytic: Dict[str, int] = {}
+        measured: Dict[str, int] = {}
+        host: Dict[str, int] = {}
+        for name, spec in self.model.ps_specs().items():
+            if spec.storage == "host_cached":
+                ot = self.offload.get(name)
+                if ot is not None:
+                    analytic[f"offload_cache/{name}"] = \
+                        ot.device_cache_bytes()
+                    measured[f"offload_cache/{name}"] = \
+                        _memwatch.tree_device_bytes(ot.state)
+                    host[f"host_store/{name}"] = ot.store.nbytes()
+                continue
+            for sub, b in spec.device_bytes(
+                    self.opt_for(spec), self.num_shards,
+                    need_ef=self.ef_for(name)).items():
+                analytic[f"table_{sub}/{name}"] = b
+            H = self.hot_rows_for(name)
+            if H:
+                analytic[f"hot/{name}"] = self._hot_device_bytes(spec, H)
+            M = self.mig_rows_for(name)
+            if M:
+                analytic[f"mig/{name}"] = self._mig_device_bytes(spec, M)
+            if state is None or name not in state.tables:
+                continue
+            ts = state.tables[name]
+            measured[f"table_weights/{name}"] = \
+                _memwatch.array_device_bytes(ts.weights)
+            measured[f"table_slots/{name}"] = \
+                _memwatch.tree_device_bytes(ts.slots)
+            if ts.keys is not None:
+                measured[f"table_keys/{name}"] = (
+                    _memwatch.array_device_bytes(ts.keys)
+                    + (_memwatch.array_device_bytes(ts.overflow)
+                       if ts.overflow is not None else 0))
+            if ts.ef is not None:
+                measured[f"table_ef/{name}"] = \
+                    _memwatch.array_device_bytes(ts.ef)
+            if ts.hot is not None:
+                measured[f"hot/{name}"] = _memwatch.tree_device_bytes(ts.hot)
+            if ts.mig is not None:
+                measured[f"mig/{name}"] = _memwatch.tree_device_bytes(ts.mig)
+        if state is not None:
+            self._dense_memory(state, analytic, measured)
+        totals = measured or analytic
+        return {"analytic": analytic, "measured": measured, "host": host,
+                "device_total_bytes": sum(totals.values())}
+
+    def _dense_memory(self, state: TrainState, analytic: Dict[str, int],
+                      measured: Dict[str, int]) -> None:
+        """The dense components: the params and sparse_as_dense tables
+        (replicated), their slots (the ZeRO flat chunks, or per leaf)."""
+        from ..utils import memwatch as _memwatch
+        measured["dense_params"] = _memwatch.tree_device_bytes(
+            [t for _, t in dense_leaves(state.dense, state.embeddings)])
+        analytic["dense_params"] = measured["dense_params"]
+        slots = state.dense_slots
+        if zero.is_sharded_slots(slots):
+            flat = slots[zero.ZERO_KEY]
+            has_ef = zero.DENSE_EF_KEY in flat
+            has_master = zero.DENSE_MASTER_KEY in flat
+            analytic.update(zero.plan_device_bytes(
+                self._zero_plan_for(state), ef=has_ef, master=has_master))
+            measured["zero_slots"] = sum(
+                _memwatch.array_device_bytes(v) for k, v in flat.items()
+                if k not in (zero.DENSE_EF_KEY, zero.DENSE_MASTER_KEY))
+            if has_ef:
+                measured["zero_ef"] = \
+                    _memwatch.array_device_bytes(flat[zero.DENSE_EF_KEY])
+            if has_master:
+                measured["zero_master"] = _memwatch.array_device_bytes(
+                    flat[zero.DENSE_MASTER_KEY])
+        elif slots is not None:
+            measured["dense_slots"] = _memwatch.tree_device_bytes(slots)
+            analytic["dense_slots"] = measured["dense_slots"]
+
+    def publish_memory(self, state: Optional[TrainState] = None) -> dict:
+        """The model into the memwatch ledger (`memory.bytes{component=,
+        table=}` gauges, the measured figure where both views have one),
+        reconciled against the device's allocator where the device is a
+        card (`MemWatch.sample_devices`). Returns `memory_model(state)`."""
+        from ..utils import memwatch as _memwatch
+        model = self.memory_model(state)
+        view = dict(model["analytic"])
+        view.update(model["measured"])
+        for key, nbytes in view.items():
+            comp, _, table = key.partition("/")
+            _memwatch.WATCH.set_component(
+                comp, nbytes, labels={"table": table} if table else None)
+        for key, nbytes in model["host"].items():
+            comp, _, table = key.partition("/")
+            _memwatch.WATCH.set_component(
+                comp, nbytes, labels={"table": table} if table else None,
+                host=True)
+        _memwatch.WATCH.publish()
+        _memwatch.WATCH.sample_devices(self.device)
+        return model
+
+    # -- agreement between the ranks ------------------------------------------
+
+    def _rank0(self, fn):
+        """`fn()` evaluated on rank 0, its result on every rank (one object
+        broadcast): what the ranks must install alike."""
+        if self.mesh.size == 1:
+            return fn()
+        return coll.broadcast_object(
+            self.mesh, fn() if self.mesh.rank == 0 else None)
+
+    def _agree(self, ok: bool) -> bool:
+        """True on every rank when `ok` is True on every rank (one psum)."""
+        if self.mesh.size == 1:
+            return bool(ok)
+        bad = torch.full((1,), 0.0 if ok else 1.0, dtype=torch.float32,
+                         device=self.device)
+        return float(coll.psum(self.mesh, bad).item()) == 0.0
+
     # -- init -----------------------------------------------------------------
 
     def init(self, sample_batch) -> TrainState:
@@ -539,9 +696,14 @@ class MeshTrainer(Trainer):
         return state
 
     @staticmethod
-    def _id_list(ids: torch.Tensor) -> set:
+    def _np_id_list(ids: torch.Tensor) -> np.ndarray:
+        """A cache's or directory's ids -> its valid ids, int64, by rank."""
         a = ids.detach().cpu().numpy()
-        return set(a[a >= 0].astype(np.int64).tolist())
+        return a[a >= 0].astype(np.int64)
+
+    @classmethod
+    def _id_list(cls, ids: torch.Tensor) -> set:
+        return set(cls._np_id_list(ids).tolist())
 
     def migrate_rows(self, state: TrainState, moves=None) -> TrainState:
         """Re-home up to `mig_rows` cold rows a table between steps, in
@@ -572,6 +734,8 @@ class MeshTrainer(Trainer):
                 "gauge", labels={"table": name})
             if ts.mig is not None:
                 mig_writeback(spec, ts, mesh=self.mesh)
+                if ts.mig.weights.shape[0] != self.mig_rows_for(name):
+                    ts.mig = None  # re-sized: a new directory and annex
             mig_gather(spec, ts, ident, mesh=self.mesh)
         _metrics.observe("placement.migrations", 1)
         return state
@@ -581,26 +745,37 @@ class MeshTrainer(Trainer):
         """Promote and demote the hot sets between steps, in place: the old
         hot rows written back to their owner shards, the new sets
         installed, their rows gathered into the cache (bit copies).
-        `hot_ids`: {table: ids, hottest first}; every rank calls it with
-        the same ids. Ids in the table's migration directory are skipped.
-        A table without a cache gets one (the only call that allocates).
-        Sets from the heavy-hitter sketches (`hot_ids=None`, `monitor`)
-        are not ported (ROADMAP.md item 6)."""
+
+        New sets come from `hot_ids` ({table: ids, hottest first}; every
+        rank calls it with the same ids) or, for a table it does not name,
+        the heavy-hitter sketches: the top `hot_rows` of `monitor`, the
+        trainer's `enable_skew_monitor()` feed, or the global
+        `utils.sketch.MONITOR`, read on rank 0 and sent to every rank, so
+        the ranks install one set. Ids in the table's migration directory
+        are skipped. A table without a cache gets one: the one refresh
+        that allocates, asked of `utils.memwatch.WATCH.preflight` first
+        (reason "hot_fill"; it goes ahead only where every rank's verdict
+        passes, else the state comes back unchanged). A cache whose size
+        no longer matches `hot_rows` (the placement controller's `prime`
+        re-sized it) is written back and made anew."""
         specs = self._hot_specs()
         if not specs:
             return state
-        if monitor is not None:
-            raise NotImplementedError(
-                "refresh_hot_rows(monitor=...) reads the heavy-hitter "
-                "sketches, not ported yet (ROADMAP.md item 6); pass hot_ids")
+        need = [n for n in specs if hot_ids is None or n not in hot_ids]
+        tops = {}
+        if need:
+            mon = monitor if monitor is not None else self._skew
+            if mon is None:
+                from ..utils import sketch
+                mon = sketch.MONITOR
+            tops = self._rank0(lambda: {
+                n: [h for h, _est, _err in
+                    mon.sketch(n).topk(self.hot_rows_for(n))]
+                for n in need})
         idents = {}
         for name, spec in specs.items():
-            if hot_ids is None or name not in hot_ids:
-                raise NotImplementedError(
-                    f"refresh_hot_rows without hot_ids[{name!r}] reads the "
-                    "heavy-hitter sketches, not ported yet (ROADMAP.md item "
-                    "6); pass hot_ids={table: ids}")
-            cand = np.asarray(hot_ids[name], np.int64).reshape(-1)
+            cand = np.asarray(tops[name] if name in tops else hot_ids[name],
+                              np.int64).reshape(-1)
             ts = state.tables[name]
             if ts.mig is not None and cand.size:
                 migrated = self._id_list(ts.mig.ids)
@@ -617,11 +792,35 @@ class MeshTrainer(Trainer):
         missing = [n for n in specs if state.tables[n].hot is None]
         if missing and len(missing) != len(specs):
             self._hot_tables(state)  # raises: some tables lost their cache
+        if missing:
+            from ..utils import memwatch as _memwatch
+            delta = sum(self._hot_device_bytes(specs[n], self.hot_rows_for(n))
+                        for n in missing)
+            if not self._agree(_memwatch.WATCH.preflight(
+                    delta, reason="hot_fill")):
+                return state
         for name, spec in specs.items():
             ts = state.tables[name]
             if ts.hot is not None:
                 hot_writeback(spec, ts, mesh=self.mesh)
+                if ts.hot.weights.shape[0] != self.hot_rows_for(name):
+                    ts.hot = None
             hot_gather(spec, ts, idents[name], mesh=self.mesh)
+        return state
+
+    def drop_unplaced(self, state: TrainState) -> TrainState:
+        """Write back and drop the caches and directories of tables whose
+        `hot_rows` / `mig_rows` is now 0 (after a re-size), in place."""
+        for name, spec in self.model.ps_specs().items():
+            ts = state.tables.get(name)
+            if ts is None:
+                continue
+            if ts.hot is not None and not self.hot_rows_for(name):
+                hot_writeback(spec, ts, mesh=self.mesh)
+                ts.hot = None
+            if ts.mig is not None and not self.mig_rows_for(name):
+                mig_writeback(spec, ts, mesh=self.mesh)
+                ts.mig = None
         return state
 
     # -- overflow governance --------------------------------------------------

@@ -30,8 +30,8 @@ absent) and runs in a `serving.http` span; predicts in `serving.predict`
 and `serving.model_call`; every answer carries `X-OETPU-Server-Time`.
 Pulled and predicted ids feed the heavy-hitter sketches. Every loaded
 model lives on the server's one device (the CUDA card unless the caller
-asks for the CPU). Online sync, the micro-batcher, `/nodes` and the memory
-panel of `/statusz` are not ported yet (ROADMAP.md item 6).
+asks for the CPU). Online sync, the micro-batcher and `/nodes` are not
+ported yet (ROADMAP.md item 6).
 
 Run a node with `python -m openembedding_tpu_torch.serving --registry DIR`.
 """
@@ -318,10 +318,12 @@ class ServingHandler(BaseHTTPRequestHandler):
 
     def _statusz_text(self) -> str:
         """Operator one-pager: build, node, loaded servables, the hot ids,
-        SLOs, ingest, metric history and the flight recorder's tail."""
+        the placement controllers, SLOs, ingest, metric history, the
+        device-memory ledger and the flight recorder's tail."""
         import platform
 
-        from .utils import history, metrics, sketch, slo
+        from .placement.controller import render_status
+        from .utils import history, memwatch, metrics, sketch, slo
         lines = ["== openembedding_tpu_torch serving /statusz =="]
         lines.append(f"build: python={platform.python_version()} "
                      f"torch={torch.__version__}")
@@ -349,6 +351,23 @@ class ServingHandler(BaseHTTPRequestHandler):
             slo.EVALUATOR.evaluate_now()
             return slo.EVALUATOR.render_text()
 
+        def memory_text():
+            mem = memwatch.WATCH.export()
+            if not mem["components"]:
+                return "(no components registered)"
+            out = []
+            for e in sorted(mem["components"],
+                            key=lambda e: (e["component"],
+                                           sorted(e["labels"].items()))):
+                lbl = ",".join(f"{k}={v}" for k, v in
+                               sorted(e["labels"].items()))
+                tag = e["component"] + (f"{{{lbl}}}" if lbl else "")
+                host = " (host)" if e["host"] else ""
+                out.append(f"{tag}: {e['bytes']:,}B{host}")
+            out.append(f"device total (model): "
+                       f"{mem['device_total_bytes']:,}B")
+            return "\n".join(out)
+
         def ingest_text():
             ingest = {k: v for k, v in metrics.report(reset=False).items()
                       if k.startswith("ingest.")
@@ -358,12 +377,12 @@ class ServingHandler(BaseHTTPRequestHandler):
 
         panel("-- workload skew (hot ids) --", lambda: sketch.MONITOR
               .render_text(top=int(self.query.get("top", 8))))
+        panel("-- placement (self-driving) --", render_status)
         panel("-- SLOs (GET /sloz for JSON) --", slo_text)
         panel("-- ingest (line-rate) --", ingest_text)
         panel("-- metric history (GET /historz for JSON) --",
               history.render_sparklines)
-        panel("-- device memory --",
-              lambda: "(the memory ledger is not ported yet)")
+        panel("-- device memory (memwatch ledger) --", memory_text)
         n = int(self.query.get("n", 40))
         lines.append(f"-- flight recorder (last {n}) --")
         lines.append(trace.RECORDER.render_text(n))

@@ -2,8 +2,8 @@
 the metrics registry (`metrics`), spans and the flight recorder (`trace`),
 metric history rings (`history`), SLOs (`slo`), postmortem capsules
 (`capsule`), heavy-hitter sketches (`sketch`), sampled step timing
-(`stepwatch`) and local paths (`fs`). The memory ledger (`memwatch`) and
-remote filesystems are ROADMAP.md items 6 and 7."""
+(`stepwatch`), the device-memory ledger (`memwatch`) and local paths
+(`fs`). Remote filesystems are ROADMAP.md item 7."""
 
 from . import metrics, trace
 from .metrics import (Accumulator, vtimer, report, report_table,

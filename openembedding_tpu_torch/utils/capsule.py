@@ -1,7 +1,7 @@
 """The port's copy of `openembedding_tpu/utils/capsule.py`. Divergences
 kept on purpose (ROADMAP.md §C): `hlo_budget_digest` is null (no HLO
-budget on the card), `memory` is empty until `utils/memwatch` is ported,
-`fingerprint` is null and `lineage` empty (no online sync yet).
+budget on the card), `fingerprint` is null and `lineage` empty (no online
+sync yet).
 
 Postmortem capsules: one self-contained flight-data dump per failure.
 
@@ -15,7 +15,7 @@ evidence at the moment of failure into one atomic
   and the triggering thread's OPEN span stack;
 - every metric history ring (`utils/history.HISTORY.export()`) plus a
   point-in-time `metrics.report()`;
-- the device-memory ledger (empty in the port until `utils/memwatch`);
+- the device-memory ledger (`utils/memwatch.WATCH.export()`);
 - the last collective fingerprint (null in the port);
 - registered context providers (resolved trainer/serving config —
   `register_context("trainer", lambda: {...})`);
@@ -110,7 +110,7 @@ class CapsuleWriter:
     # -- assembly -------------------------------------------------------------
 
     def _payload(self, reason: str, attrs: Dict[str, Any]) -> Dict[str, Any]:
-        from . import history, trace
+        from . import history, memwatch, trace
         now = time.time()
         context: Dict[str, Any] = {}
         with _LOCK:
@@ -130,7 +130,7 @@ class CapsuleWriter:
             "open_spans": _open_span_stack(),
             "history": history.HISTORY.export(),
             "metrics": metrics.report(reset=False),
-            "memory": {},
+            "memory": memwatch.WATCH.export(),
             "lineage": [],
             "fingerprint": None,
             "context": context,

@@ -3,7 +3,8 @@ and capsules (`utils/capsule.py`) against the JAX package's: the same spec
 file and the same observations at the same clock give the same verdicts,
 breach and recovery edges and `slo.*` series; the same samples give the
 same history rings, `/historz` queries and sparklines; a capsule written by
-either package loads in both (the port's `hlo_budget_digest` is null)."""
+either package loads in both (the port's `hlo_budget_digest` is null, its
+`memory` the ledger's `export()`)."""
 
 import json
 import os
@@ -123,7 +124,9 @@ def test_capsules_load_in_both_packages(writer, tmp_path):
             "memory", "lineage", "fingerprint", "context",
             "hlo_budget_digest"} <= set(a)
     if writer == "port":
-        assert a["hlo_budget_digest"] is None and a["memory"] == {}
+        from openembedding_tpu_torch.utils import memwatch
+        assert a["hlo_budget_digest"] is None
+        assert a["memory"] == json.loads(json.dumps(memwatch.WATCH.export()))
     # rate-limited per reason, and disarmed writes nothing
     c.configure(str(tmp_path), min_interval_s=3600.0)
     assert c.trigger("x") and c.trigger("x") is None
