@@ -348,7 +348,32 @@ final line:
    Imbalance before and after the drift, hit ratio, refreshes and
    migrations, ms a step on and off, the sketch feed's and `on_step`'s ms,
    the launches of each kernel;
-18. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+18. sync    — online model sync and live replicas (`sync/`, `serving.py`),
+   `bench.py`'s `case_sync` at the flagship's full width: the array
+   flagship trained with Adagrad(0.05) through `jit_train_step` on
+   `synthetic_criteo(4096, id_space=2^24, seed=24)`,
+   `IncrementalPersister(window=2, every_steps=1, full_every=100)`
+   writing a base and 6 deltas; a publisher node (`make_server(publish=)`)
+   and a serving node (`batch_window_ms=2.0, max_batch=4096`) loaded with
+   the base's export, in the process, on the card. A subscriber polls
+   after each delta: each swap's servable gives logits on the first
+   training batch bit-equal to a fresh export of the trainer's state and
+   to its plain-version forward, and moved from the last; four client
+   threads post 1024-row REST predicts through the `MicroBatcher` across
+   every swap with no failure, in fewer device batches than requests. A
+   truncated payload (`FaultInjector`) degrades with a rollback and the
+   same servable, and the next poll recovers. Fresh managers follow the
+   whole chain in one poll at fp32, bf16 and int8: rows within 0, 3e-2
+   and 6e-2 of the largest magnitude of the trainer's, and
+   `sync.wire_bytes_per_delta` equal to `sync_delta_cost`. A third node
+   restores from the serving node (`restore_from_peer`, pages of 2^20
+   rows), bit-equal logits. Times: ms a delta by hop (fetch, apply,
+   swap) and a poll, the apply's device ms (clone and row copy) against
+   its byte bound, ms and rows/s and bytes a delta per wire format, REST
+   p50 at 4096 rows with the batcher (subscriber polling and idle) and
+   without, the restore's seconds and MB/s, the card's memory before and
+   after the swaps, the launches (the checks' own taken out);
+19. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -360,6 +385,8 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import gzip
 import json
 import os
@@ -6305,6 +6332,365 @@ def phase_placement(torch, smi: str) -> dict:
     return total
 
 
+SYNC_SIGN = "deepfm-sync-0"
+SYNC_DELTAS = 6           # deltas after the base (bench.py case_sync: 3)
+SYNC_FAULT = 3            # the delta whose payload the fault truncates
+SYNC_HAMMERS = 4          # client threads predicting across the swaps
+SYNC_HAMMER_ROWS = 1024   # rows a hammer request
+SYNC_REST = 10            # REST predicts of 4096 rows a p50
+SYNC_PAGE = 1 << 20       # restore_from_peer's page, rows
+
+
+class _Hammer:
+    """Client threads posting predicts through REST until stopped; `paused`
+    holds them off (no request in flight) while the plain versions are
+    swapped in for a comparison."""
+
+    def __init__(self, url, batch, threads, rows):
+        self.go = threading.Event()
+        self.go.set()
+        self.done = threading.Event()
+        self.cv = threading.Condition()
+        self.inflight = 0
+        self.answered = 0
+        self.failures = []
+        self.threads = [threading.Thread(
+            target=self._run, args=(url, batch, i * rows, rows), daemon=True)
+            for i in range(threads)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, url, batch, lo, rows):
+        from openembedding_tpu_torch.serving import ServingClient
+        client = ServingClient(url, timeout=300)
+        sparse = {k: v[lo:lo + rows] for k, v in batch["sparse"].items()}
+        dense = batch["dense"][lo:lo + rows]
+        while not self.done.is_set():
+            self.go.wait(timeout=0.1)
+            with self.cv:
+                if not self.go.is_set() or self.done.is_set():
+                    continue
+                self.inflight += 1
+            try:
+                got = client.predict(SYNC_SIGN, sparse, dense)
+                if got.shape != (rows,) or not np.isfinite(got).all():
+                    raise ValueError(f"logits of shape {got.shape}")
+                with self.cv:
+                    self.answered += 1
+            except Exception as e:  # noqa: BLE001 - counted as a failure
+                self.failures.append(repr(e))
+            finally:
+                with self.cv:
+                    self.inflight -= 1
+                    self.cv.notify_all()
+
+    def pause(self):
+        self.go.clear()
+        with self.cv:
+            self.cv.wait_for(lambda: self.inflight == 0)
+
+    def stop(self):
+        self.done.set()
+        self.go.set()
+        for t in self.threads:
+            t.join(timeout=300)
+
+
+def _serve(make_server, registry, **kw):
+    httpd = make_server(registry, port=0, **kw)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    return httpd, th, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _rest_p50(client, batch, n=SYNC_REST) -> float:
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        got = client.predict(SYNC_SIGN, batch["sparse"], batch["dense"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(got.shape == (BATCH,) and np.isfinite(got).all(),
+              "sync: finite REST logits")
+    return float(np.median(ms))
+
+
+def phase_sync(torch, mb, ops, data, optimizers, smi: str) -> int:
+    """Online sync and live replicas at full width -> {kernel: launches of
+    the phase}. See the module docstring, item 18."""
+    from openembedding_tpu_torch.export import (StandaloneModel,
+                                                export_standalone)
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.ops import wire
+    from openembedding_tpu_torch.persist import (IncrementalPersister,
+                                                 PersistPolicy,
+                                                 _load_delta_table,
+                                                 list_deltas)
+    from openembedding_tpu_torch.serving import (ModelManager, ModelRegistry,
+                                                 ServingClient, make_server,
+                                                 restore_from_peer)
+    from openembedding_tpu_torch.sync import FaultInjector, SyncSubscriber
+    from openembedding_tpu_torch.utils import metrics as M
+
+    class Truncate(FaultInjector):
+        def payload(self, step, payload):
+            name, (ids, rows) = next(iter(payload["tables"].items()))
+            payload["tables"][name] = (ids, rows[:-1])
+            return payload
+
+    excluded = {k: 0 for k in KERNELS}
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches of a check (the hammer paused, nothing else running)
+        are taken out of the path's counts."""
+        before = ops.launch_counts()
+        yield
+        after = ops.launch_counts()
+        for k in excluded:
+            excluded[k] += after[k] - before[k]
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-sync-")
+    servers, hammer, p, sub = [], None, None, None
+    rec = {"card": smi}
+    M.reset_all()
+    try:
+        batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                             seed=TRAIN_SEED + 17,
+                                             steps=SYNC_DELTAS + 1))
+        # the first training batch: its ids' rows move in later deltas
+        probe = {k: batches[0][k] for k in ("sparse", "dense")}
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+        state = trainer.init(batches[0])
+        step = trainer.jit_train_step()
+        root = os.path.join(tmp, "persist")
+        base = os.path.join(tmp, "base")
+
+        ops.reset_launch_counts()  # the path's run: counts read just after
+        p = IncrementalPersister(trainer, model, root, window=2,
+                                 policy=PersistPolicy(every_steps=1),
+                                 full_every=100)
+        state, _ = step(state, batches[0])
+        p.maybe_persist(state, batch=batches[0])
+        p.wait()
+        export_standalone(state, model, base, model_sign=SYNC_SIGN)
+        pub, _, pub_url = _serve(make_server, os.path.join(tmp, "reg-pub"),
+                                 publish={SYNC_SIGN: root})
+        servers.append(pub)
+        srv, _, url = _serve(make_server, os.path.join(tmp, "reg-srv"),
+                             batch_window_ms=2.0, max_batch=BATCH)
+        servers.append(srv)
+        client = ServingClient(url, timeout=300)
+        client.create_model(SYNC_SIGN, base)
+        sub = SyncSubscriber(srv.manager, SYNC_SIGN, pub_url)
+        check(sub.poll() == 0 and sub.version == 1,
+              f"sync: the subscriber negotiated the base ({sub.status()})")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+
+        hammer = _Hammer(url, probe, SYNC_HAMMERS, SYNC_HAMMER_ROWS)
+        b0 = M.Accumulator.get("serving.predict_batches").value()
+        r0 = M.Accumulator.get("serving.predict_requests").value()
+        hops, poll_ms, fault, prev = [], [], None, None
+        for i, b in enumerate(batches[1:], start=2):
+            state, _ = step(state, b)
+            p.maybe_persist(state, batch=b)
+            p.wait()
+            old = srv.manager.find_model(SYNC_SIGN)
+            if i == SYNC_FAULT:
+                hammer.pause()
+                with uncounted():
+                    before = old.predict(probe)
+                hammer.go.set()
+                rb = M.Accumulator.get("sync.rollbacks").value()
+                sub.faults = Truncate()
+                check(sub.poll() == 0 and sub.state == "DEGRADED",
+                      f"sync: a torn delta degrades ({sub.status()})")
+                now = srv.manager.find_model(SYNC_SIGN)
+                hammer.pause()
+                with uncounted():
+                    same = torch.equal(now.predict(probe), before)
+                hammer.go.set()
+                check(now is old and same
+                      and M.Accumulator.get("sync.rollbacks").value()
+                      == rb + 1, "sync: the node kept the last good "
+                      "servable and counted the rollback")
+                del now, before
+                fault = {"step": i, "reason": sub.last_error,
+                         "state": sub.state}
+                sub.faults = None
+            t0 = time.perf_counter()
+            applied = sub.poll()
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+            check(applied == 1 and sub.version == i and sub.state == "IDLE",
+                  f"sync: delta {i} applied ({sub.status()})")
+            hops.append(sub.status()["last_hops"]["hops"])
+            servable = srv.manager.find_model(SYNC_SIGN)
+            check(servable is not old and servable.step == i,
+                  f"sync: servable swapped to step {i}")
+            oracle_dir = os.path.join(tmp, "oracle")
+            export_standalone(state, model, oracle_dir)
+            oracle = StandaloneModel.load(oracle_dir)
+            hammer.pause()
+            with uncounted():
+                got = servable.predict(probe)
+                want = oracle.predict(probe)
+                with ops.plain_versions():
+                    plain = servable.predict(probe)
+            hammer.go.set()
+            check(torch.equal(got, want) and torch.equal(got, plain),
+                  f"sync: step {i}'s servable equals a fresh export and "
+                  "its plain-version forward, bit for bit")
+            check(prev is None or not torch.equal(got, prev),
+                  f"sync: step {i}'s logits moved")
+            prev = got
+            del oracle, old
+            shutil.rmtree(oracle_dir)
+        if fault is not None:
+            fault["recovered_state"] = sub.state
+        hammer.stop()
+        batches_run = M.Accumulator.get("serving.predict_batches").value() - b0
+        requests = M.Accumulator.get("serving.predict_requests").value() - r0
+        check(not hammer.failures and hammer.answered > 0,
+              f"sync: zero failed predicts ({hammer.failures[:3]})")
+        check(batches_run < requests, f"sync: the batcher merged requests "
+              f"({batches_run} batches, {requests} requests)")
+        del servable, got, want, plain, prev
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        rec["fp32"] = {
+            "deltas": SYNC_DELTAS, "poll_ms": poll_ms,
+            "hop_ms_median": {h: float(np.median([x[h] for x in hops]))
+                              for h in ("fetch", "apply", "swap")},
+            "hops": hops, "fault": fault,
+            "hammer_answers": hammer.answered,
+            "hammer_failures": len(hammer.failures),
+            "predict_batches": batches_run, "predict_requests": requests,
+            "memory_allocated_before": mem0, "memory_allocated_after": mem1}
+        p.close()
+        p = None
+
+        # the device work of one apply: the table's clone and row copy
+        last = list_deltas(root)[-1][1]
+        ids, rows, _ = _load_delta_table(last, "categorical")
+        w = srv.manager.find_model(SYNC_SIGN)._tables["categorical"][
+            "weights"]
+        idx = torch.from_numpy(ids.astype(np.int64)).cuda()
+        src = torch.from_numpy(rows).cuda()
+
+        def device_apply():
+            nw = w.clone()
+            nw.index_copy_(0, idx, src)
+
+        rec["apply_device_ms"] = mb.device_ms(device_apply)
+        # clone: the table read and written; copy: ids, rows in, rows out
+        rec["apply_bound_ms"] = (2 * w.numel() * w.element_size()
+                                 + ids.size * 8 + 2 * rows.nbytes
+                                 ) / mb.HBM_BYTES_PER_S * 1e3
+        rec["delta_rows"] = int(ids.size)
+        del idx, src, w
+
+        # the wire formats: a fresh manager follows the chain in one poll
+        live = state.tables["categorical"].weights
+        touched = np.unique(np.concatenate(
+            [b["sparse"]["categorical"].reshape(-1) for b in batches[1:]]))
+        touched = touched[touched >= 0]
+        want = live[torch.from_numpy(touched).cuda()].cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        delta_rows = sum(_load_delta_table(d, "categorical")[0].size
+                         for _, d in list_deltas(root))
+        rec["wire"] = {}
+        for fmt, tol in (("fp32", 0.0), ("bf16", 3e-2), ("int8", 6e-2)):
+            mgr = ModelManager(ModelRegistry(os.path.join(tmp, f"r-{fmt}")))
+            mgr.load_model(SYNC_SIGN, base)
+            fsub = SyncSubscriber(mgr, SYNC_SIGN, pub_url, wire=fmt)
+            f0 = M.Accumulator.get("sync.bytes_fetched").value()
+            t0 = time.perf_counter()
+            n = fsub.poll()
+            dt = time.perf_counter() - t0
+            check(n == SYNC_DELTAS, f"sync: the {fmt} subscriber applied "
+                  f"the chain ({fsub.status()})")
+            with uncounted():
+                got = mgr.find_model(SYNC_SIGN).lookup(
+                    "categorical", touched).cpu().numpy()
+            err = float(np.abs(got - want).max())
+            check(err <= tol * scale, f"sync: {fmt} rows within {tol} x "
+                  f"{scale} of the trainer's (max abs err {err})")
+            cost = wire.sync_delta_cost({"categorical": (ids.size, DIM + 1)},
+                                        fmt)
+            gauge = M.Accumulator.get("sync.wire_bytes_per_delta",
+                                      "gauge").value()
+            check(gauge == cost["bytes_total"],
+                  f"sync: {fmt} sync.wire_bytes_per_delta {gauge} is "
+                  f"sync_delta_cost's {cost['bytes_total']}")
+            fetched = M.Accumulator.get("sync.bytes_fetched").value() - f0
+            rec["wire"][fmt] = {
+                "ms_per_delta": dt * 1e3 / SYNC_DELTAS,
+                "last_hops": fsub.status()["last_hops"]["hops"],
+                "rows_per_s": delta_rows / dt,
+                "bytes_fetched_per_delta": fetched / SYNC_DELTAS,
+                "last_delta_cost": cost, "max_abs_err": err}
+            del mgr, fsub
+            torch.cuda.empty_cache()
+
+        # REST p50 at 4096 rows: batcher on (this node), subscriber polling
+        # and idle; batcher off on the restore node below
+        sub.interval_s = 0.05
+        sub.start()
+        rec["rest_p50_ms_batcher_sub_polling"] = _rest_p50(client, probe)
+        sub.stop()
+        rec["rest_p50_ms_batcher_sub_idle"] = _rest_p50(client, probe)
+
+        # restore: a third node rebuilds the servable from the live peer
+        dest = os.path.join(tmp, "restored")
+        t0 = time.perf_counter()
+        restore_from_peer(url, SYNC_SIGN, dest, page=SYNC_PAGE)
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(dest) for f in fs)
+        rnode, _, rurl = _serve(make_server, os.path.join(tmp, "reg-r"))
+        servers.append(rnode)
+        rclient = ServingClient(rurl, timeout=300)
+        rclient.create_model(SYNC_SIGN, dest)
+        restored = rnode.manager.find_model(SYNC_SIGN)
+        source = srv.manager.find_model(SYNC_SIGN)
+        with uncounted():
+            same = torch.equal(restored.predict(probe),
+                               source.predict(probe))
+        check(same, "sync: the restored servable's logits equal its peer's")
+        rec["restore"] = {"seconds": restore_s, "bytes": nbytes,
+                          "mb_per_s": nbytes / 1e6 / restore_s,
+                          "page_rows": SYNC_PAGE}
+        rec["rest_p50_ms_no_batcher"] = _rest_p50(rclient, probe)
+        counted = ops.launch_counts()
+        launches = ran_launches({k: counted[k] - excluded[k]
+                                 for k in KERNELS}, [graph_record(step)])
+        rec["launches"] = launches
+        rec["check_launches"] = excluded
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] > 0, f"the sync path launched {k}")
+        rec["wall_seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "sync", **rec})
+        return launches
+    finally:
+        if hammer is not None:
+            hammer.stop()
+        if sub is not None:
+            sub.stop()
+        if p is not None:
+            p.close()
+        for httpd in servers:
+            for s in httpd.subscribers.values():
+                s.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -6484,6 +6870,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         placement_launches = phase_placement(torch, smi)
         torch.cuda.empty_cache()
+        sync_launches = phase_sync(torch, mb, ops, data, optimizers, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -6500,9 +6888,10 @@ def main() -> int:
                    "seq": seq_launches[k],
                    "obs": obs_launches[k],
                    "placement": placement_launches[k],
+                   "sync": sync_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
-                 "seq", "obs", "placement"):
+                 "seq", "obs", "placement", "sync"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

@@ -11,9 +11,12 @@ add the CUDA-graph drivers, the Criteo entry points
 (`examples/criteo_deepctr.py`, `examples/criteo_lr_subclass.py`), hashed
 tables (`tables/hash_table.py`), the zoo's CTR families (`models/`), the
 mesh (`parallel/`), async persistence (`persist.py`: full persists and
-touched-row deltas, restored on one device or over the mesh's ranks) and
+touched-row deltas, restored on one device or over the mesh's ranks),
 host-cached tables (`tables/host_offload.py`: a device cache in front of
-the whole table in host RAM).
+the whole table in host RAM), and online sync and live replicas (`sync/`:
+a persist root's deltas published to serving nodes, applied into new
+servables and swapped in; `serving.MicroBatcher`,
+`serving.restore_from_peer`).
 The device kernels are hand-written CUDA: the row gather
 (`csrc/gather_rows.cu`, wrapper `ops/gather.py`), the window gather
 (`csrc/gather_rows_windows.cu`) and the fused sparse optimizer apply

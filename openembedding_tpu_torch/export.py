@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from .checkpoint import MODEL_META_FILE
-from .convert import dense_from_flax, dense_to_flax, tables_from_numpy
+from .convert import (dense_from_flax, dense_to_flax, table_to_numpy,
+                      tables_from_numpy)
 from .device import resolve_device
 from .embedding import serve_rows
 from .layers import unmaterialized_copy
@@ -57,6 +58,11 @@ def pad_ids_to_bucket(flat: np.ndarray) -> np.ndarray:
         return flat
     widths = [(0, bucket_size(k) - k)] + [(0, 0)] * (flat.ndim - 1)
     return np.pad(flat, widths, constant_values=-1)
+
+
+class _BadRange(ValueError):
+    """A row-iteration request outside the table: the caller's error
+    (400)."""
 
 
 def pad_serving_batch(batch, n: int, bucket: int):
@@ -171,6 +177,15 @@ def export_standalone(state: Union[WeightsState, TrainState],
     return meta
 
 
+def _dense_module(model: EmbeddingModel, flat: Dict[str, np.ndarray],
+                  device: torch.device) -> torch.nn.Module:
+    """A new copy of the model's dense module holding the flat flax-named
+    params, on `device`, in eval mode; `model.module` stays as it is."""
+    dense = unmaterialized_copy(model.module)
+    dense_from_flax(flat, dense)
+    return dense.to(device).eval()
+
+
 class StandaloneModel:
     """A loaded standalone export: read-only lookups + predict(), with every
     table and the dense module on `self.device`."""
@@ -183,8 +198,16 @@ class StandaloneModel:
         self.model = model         # None if no config recipe and none given
         self.dense = dense         # the export's dense module (model's copy)
         self.device = device
+        # the training step and model_version of the weights (the export's
+        # `extra` block): the version online sync negotiates (`sync/`)
         self.step = 0
         self.model_version = 0
+        # when the exported state was captured (freshness zero point); None
+        # on exports written without the stamp
+        self.birth_time: Optional[float] = None
+        # the flat dense params of an export with no model recipe (no
+        # module to load them into), for `export_dense` and `apply_update`
+        self._dense_flat: Optional[Dict[str, np.ndarray]] = None
 
     @classmethod
     def load(cls, path: str, model: Optional[EmbeddingModel] = None,
@@ -216,20 +239,179 @@ class StandaloneModel:
             else:
                 entry["kind"] = "array"
             tables[v.storage_name] = entry
-        dense = None
-        if model is not None:
-            z = np.load(os.path.join(path, "dense_params.npz"))
-            dense = unmaterialized_copy(model.module)
-            dense_from_flax({k: z[k] for k in z.files}, dense)
-            dense.to(device).eval()
-        out = cls(meta, tables, model, device, dense)
+        with np.load(os.path.join(path, "dense_params.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        out = cls(meta, tables, model, device,
+                  _dense_module(model, flat, device)
+                  if model is not None else None)
+        if model is None:
+            out._dense_flat = flat
         out.step = int(extra.get("step", 0))
         out.model_version = int(extra.get("model_version", 0))
+        bt = extra.get("birth_time")
+        out.birth_time = float(bt) if bt is not None else None
         return out
 
     @property
     def variable_names(self):
         return list(self._tables)
+
+    # -- the live-replica export surface (`serving.restore_from_peer`): a new
+    # node pages a live peer's rows through these over REST and rebuilds a
+    # standalone export with no shared filesystem ----------------------------
+
+    def export_manifest(self) -> dict:
+        """Row-iteration manifest: per variable its kind, resident row count
+        and width; and the model_meta JSON that rewrites the export."""
+        variables = []
+        for v in self.meta.variables:
+            t = self._tables[v.storage_name]
+            rows = (t["ids"].shape[0] if t["kind"] == "hash"
+                    else int(t["weights"].shape[0]))
+            variables.append({"storage_name": v.storage_name,
+                              "variable_id": v.variable_id,
+                              "kind": t["kind"], "rows": rows,
+                              "dim": int(t["dim"])})
+        cfg = self.model.config if self.model is not None else None
+        return {"variables": variables, "meta": json.loads(self.meta.to_json()),
+                "model_config": cfg}
+
+    def export_rows(self, name: str, start: int, count: int
+                    ) -> Dict[str, np.ndarray]:
+        """Rows [start, start+count) of one variable in the export's order
+        (hash: the id-sorted resident pairs; array: global row order), one
+        device-to-host copy."""
+        t = self._tables[name]
+        if start < 0 or count < 0:
+            raise _BadRange(f"bad row range [{start}, {start}+{count})")
+        out = {"weights": table_to_numpy(t["weights"][start:start + count])}
+        if t["kind"] == "hash":
+            out["ids"] = np.asarray(t["ids"][start:start + count])
+        return out
+
+    def export_dense(self) -> Dict[str, np.ndarray]:
+        """Flat flax-named dense params (the export's dense_params.npz)."""
+        if self.dense is None:
+            return dict(self._dense_flat or {})
+        return dense_to_flax(self.dense)
+
+    # -- online model sync (`sync/subscriber.py`) -----------------------------
+
+    @torch.no_grad()
+    def apply_update(self, tables: Dict[str, tuple],
+                     dense_flat: Dict[str, Any], *, step: int,
+                     model_version: Optional[int] = None
+                     ) -> "StandaloneModel":
+        """One committed delta applied into a NEW servable.
+
+        `tables`: {name: (int64 ids, (n, dim) float32 rows)}, the touched
+        rows of one `persist.IncrementalPersister` delta (weights only).
+        `dense_flat`: the delta's whole flat dense tree (`params/` already
+        stripped), `__embeddings__/<name>` entries included: those replace
+        their sparse_as_dense tables, exported as array tables.
+
+        RCU: `self` is never written, so predicts in flight on it finish
+        unperturbed while `ModelManager.swap` publishes the new one. A hash
+        table merges on the host into new sorted ids and rows (the delta's
+        rows win); an array table is cloned on the device and the rows
+        copied in (`index_copy_`); the dense tower is a new module. All
+        checks run before anything is built, and a failure raises with
+        `self` untouched. The device work has finished when this returns
+        (the stream is synchronized), so the swap never publishes a table
+        still being written."""
+        updates = {}
+        for name, (ids64, rows) in tables.items():
+            t = self._tables.get(name)
+            if t is None:
+                raise KeyError(f"delta updates unknown variable {name!r}")
+            ids64 = np.asarray(ids64, np.int64).reshape(-1)
+            rows = np.asarray(rows, np.float32)
+            if rows.shape != (ids64.size, int(t["dim"])):
+                raise ValueError(
+                    f"delta rows for {name!r} have shape {rows.shape}, "
+                    f"expected ({ids64.size}, {t['dim']}) — torn payload?")
+            if ids64.size == 0:
+                continue
+            if t["kind"] == "array":
+                vocab = t["weights"].shape[0]
+                if not ((ids64 >= 0) & (ids64 < vocab)).all():
+                    raise ValueError(
+                        f"delta ids for array variable {name!r} fall outside "
+                        f"[0, {vocab}) — wrong model or torn payload")
+            updates[name] = (ids64, rows)
+
+        emb_prefix = "__embeddings__/"
+        cur_flat = self.export_dense()
+        incoming = {k: v for k, v in dense_flat.items()
+                    if not k.startswith(emb_prefix)}
+        if set(incoming) != set(cur_flat):
+            raise ValueError(
+                "delta dense tree does not match the servable's: "
+                f"missing {sorted(set(cur_flat) - set(incoming))[:3]}, "
+                f"unexpected {sorted(set(incoming) - set(cur_flat))[:3]}")
+        new_flat = {}
+        for k, cur in cur_flat.items():
+            v = np.asarray(incoming[k])
+            if v.shape != cur.shape:
+                raise ValueError(
+                    f"delta dense param {k!r} has shape {v.shape}, "
+                    f"expected {cur.shape}")
+            new_flat[k] = v.astype(cur.dtype)
+        sad = {}
+        for k, v in dense_flat.items():
+            if not k.startswith(emb_prefix):
+                continue
+            name = k[len(emb_prefix):]
+            t = self._tables.get(name)
+            if t is None:  # a sparse_as_dense table not in this export
+                continue
+            v = np.asarray(v)
+            if v.shape != tuple(t["weights"].shape):
+                raise ValueError(
+                    f"delta rows for sparse_as_dense {name!r} have shape "
+                    f"{v.shape}, expected {tuple(t['weights'].shape)}")
+            sad[name] = v
+
+        new_tables = dict(self._tables)
+        for name, (ids64, rows) in updates.items():
+            t = self._tables[name]
+            w = t["weights"]
+            if t["kind"] == "hash":
+                all_ids = np.concatenate([t["ids"], ids64])
+                all_w = torch.cat([w.cpu(), torch.from_numpy(rows).to(w.dtype)])
+                # unique over the reversed concat: the first occurrence
+                # there is the last here, so the delta's rows win
+                uniq, ridx = np.unique(all_ids[::-1], return_index=True)
+                sel = torch.from_numpy(all_ids.size - 1 - ridx)
+                new_tables[name] = {**t, "ids": uniq,
+                                    "weights": all_w[sel].to(self.device)}
+            else:
+                idx = torch.from_numpy(ids64).to(self.device)
+                src = torch.from_numpy(rows).to(self.device).to(w.dtype)
+                new_w = w.clone()
+                new_w.index_copy_(0, idx, src)
+                new_tables[name] = {**t, "weights": new_w}
+        for name, v in sad.items():
+            t = new_tables[name]
+            new_tables[name] = {**t, "weights": tables_from_numpy(
+                {"w": v}, device=self.device)["w"].to(t["weights"].dtype)}
+
+        dense = (_dense_module(self.model, new_flat, self.device)
+                 if self.model is not None else None)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        out = StandaloneModel(self.meta, new_tables, self.model, self.device,
+                              dense)
+        if dense is None:
+            out._dense_flat = new_flat
+        out.step = int(step)
+        out.model_version = (int(model_version) if model_version is not None
+                             else self.model_version)
+        out.birth_time = self.birth_time
+        cached = getattr(self, "_pooled_features_cache", None)
+        if cached is not None:
+            out._pooled_features_cache = cached
+        return out
 
     def lookup(self, name: str, ids) -> torch.Tensor:
         """Read-only pull: absent/out-of-range ids -> zero rows. The flat id

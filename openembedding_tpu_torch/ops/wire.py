@@ -349,6 +349,12 @@ def np_decode_rows(wire: np.ndarray, dim: int, fmt: str) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(n, nb * INBAND_BLOCK)[:, :dim])
 
 
+def np_wire_dtype(fmt: str):
+    """The numpy dtype an encoded row payload is stored and shipped as
+    (bf16 as uint16 words: numpy has no bfloat16)."""
+    return {"fp32": np.float32, "bf16": np.uint16, "int8": np.int8}[fmt]
+
+
 # -- static wire-cost models (bytes a rank ships a step) ----------------------
 
 
@@ -448,3 +454,25 @@ def hot_reduce_cost(hot_rows_by_table, num_shards: int, fmt: str) -> dict:
             total += int(ring * H * dim * _itemsize(fmt))
     return {"format": fmt, "bytes": int(total),
             "a2a_bytes": int(a2a), "all_gather_bytes": int(ag)}
+
+
+def sync_delta_cost(tables, fmt: str) -> dict:
+    """Bytes of shipping one committed delta to a serving replica
+    (`sync/publisher.py` serves it, `utils/metrics.observe_sync_cost`
+    publishes it): per table {name: (touched_rows, dim)}, ids as exact int64
+    (8 B a row) and rows in the wire format, in-band scale lanes included
+    (`bytes_scales` breaks them out). Optimizer slots never ride the sync
+    wire."""
+    bytes_ids = bytes_rows = bytes_scales = rows_total = 0
+    w = np.dtype(np_wire_dtype(fmt)).itemsize
+    for _name, (n, dim) in tables.items():
+        bytes_ids += n * 8
+        bytes_rows += n * rows_wire_width(dim, fmt) * w
+        if fmt == "int8":
+            bytes_scales += n * _SCALE_LANES * scale_blocks(dim) * w
+        rows_total += n
+    return {"format": fmt, "rows": int(rows_total),
+            "wire_dtype": str(np.dtype(np_wire_dtype(fmt))),
+            "bytes_ids": int(bytes_ids), "bytes_rows": int(bytes_rows),
+            "bytes_scales": int(bytes_scales),
+            "bytes_total": int(bytes_ids + bytes_rows)}

@@ -1,25 +1,41 @@
 """Serving: model registry, model manager, REST admin + inference server.
 
-Port of `openembedding_tpu/serving.py` for slice 1: the file-based
-`ModelRegistry`, a `ModelManager` of standalone exports (`shard_num == 1`),
-and the REST routes
+Port of `openembedding_tpu/serving.py`: the file-based `ModelRegistry`, a
+`ModelManager` of standalone exports (`shard_num == 1`), and the REST routes
 
     GET    /models                 registry listing
     GET    /models/<sign>          one registry entry
     GET    /healthz
     POST   /models                 {model_sign, model_uri, replica_num, shard_num}
-    POST   /models/<sign>/pull     {variable, ids}
+    POST   /models/<sign>/pull     {variable, ids} (npz with
+                                   `Accept: application/octet-stream`)
     POST   /models/<sign>/predict  {sparse: {feature: ids}, dense}
-    DELETE /models/<sign>
+    DELETE /models/<sign>          (stops the model's subscriber)
+    GET    /nodes                  this node's info
+    DELETE /nodes/<id>             shut the node down
 
-and the telemetry family, as the JAX package serves it:
+online model sync (`sync/`), as the JAX package serves it:
+
+    GET    /models/<sign>:versions[?after=&wait_s=]   the publisher's feed
+    GET    /models/<sign>/delta/<step>/{meta,dense,table/<name>[?wire=]}
+    GET    /models/<sign>:syncstate                   the subscriber's status
+    POST   /models/<sign>/publish  {persist_root, wire}
+    POST   /models/<sign>/sync     {feed, interval_s, wire, wait_s}
+
+the live-replica restore surface (`restore_from_peer` pages it):
+
+    GET    /models/<sign>:exportmeta                  the row manifest
+    GET    /models/<sign>:rows?var=&start=&count=     npz pages of rows
+    GET    /models/<sign>:dense                       npz dense params
+
+and the telemetry family:
 
     GET    /metrics                Prometheus text of the registry
     GET    /statusz                operator one-pager (text)
     GET    /tracez[?n=]            the flight recorder's spans and events
     GET    /sloz[?format=text]     SLO verdicts
     GET    /historz[?metric=&window=]  metric history rings
-    GET    /timelinez[?n=]         events and spans with wall/monotonic time
+    GET    /timelinez[?n=]         events, spans and the delta lineage book
     GET    /fleetz[?peers=]        this node's /metrics merged with peers'
     POST   /capsule                {reason, ...}: a postmortem capsule
 
@@ -28,10 +44,11 @@ with the JAX package's status codes: 400 for a malformed or ragged request,
 binds a request id (`X-OETPU-Request-Id` / `X-OETPU-Trace`, made when
 absent) and runs in a `serving.http` span; predicts in `serving.predict`
 and `serving.model_call`; every answer carries `X-OETPU-Server-Time`.
-Pulled and predicted ids feed the heavy-hitter sketches. Every loaded
+Pulled and predicted ids feed the heavy-hitter sketches. Concurrent
+predicts can merge into one device batch (`MicroBatcher`). Every loaded
 model lives on the server's one device (the CUDA card unless the caller
-asks for the CPU). Online sync, the micro-batcher and `/nodes` are not
-ported yet (ROADMAP.md item 6).
+asks for the CPU). Sharded serving (`shard_num > 1`) is not ported yet
+(ROADMAP.md item 6.5).
 
 Run a node with `python -m openembedding_tpu_torch.serving --registry DIR`.
 """
@@ -52,7 +69,8 @@ import torch
 
 from .data import is_ragged, pad_ragged
 from .device import resolve_device
-from .export import RaggedBatchError, StandaloneModel, bucket_size
+from .export import (RaggedBatchError, StandaloneModel, _BadRange,
+                     bucket_size)
 from .utils import trace
 
 REQUEST_ID_HEADER = trace.REQUEST_ID_HEADER
@@ -231,6 +249,16 @@ class ModelManager:
                 self._cache[model_sign] = loaded
             return loaded
 
+    def servable_versions(self) -> Dict[str, dict]:
+        """{sign: {step, kind}} of every loaded servable (the /statusz
+        view: the registry shows what is registered, this what is
+        resident)."""
+        with self._lock:
+            cache = dict(self._cache)
+        return {sign: {"step": int(getattr(m, "step", 0) or 0),
+                       "kind": type(m).__name__}
+                for sign, m in cache.items()}
+
     def find_model_variable(self, model_sign: str, variable: str):
         m = self.find_model(model_sign)
         if variable not in m.variable_names:
@@ -240,6 +268,26 @@ class ModelManager:
     def evict(self, model_sign: str) -> None:
         with self._lock:
             self._cache.pop(model_sign, None)
+
+    def swap(self, model_sign: str, servable, *, expected=None) -> None:
+        """RCU publish of a new servable version (online sync): requests
+        that already resolved the old object finish on it; the next
+        `find_model` returns the new one. With `expected` the swap is
+        conditional: it refuses when the cached servable is no longer the
+        one the update was derived from (a reload or delete won the
+        race)."""
+        with self._lock:
+            cur = self._cache.get(model_sign)
+            if cur is None:
+                raise KeyError(
+                    f"model {model_sign!r} is not loaded; cannot swap")
+            if expected is not None and cur is not expected:
+                raise RuntimeError(
+                    f"model {model_sign!r} was reloaded concurrently; "
+                    "swap abandoned")
+            self._cache[model_sign] = servable
+        trace.event("serving", "servable_swap", model=model_sign,
+                    step=int(getattr(servable, "step", 0) or 0))
 
     def load_model(self, model_sign: str, uri: str, *, replica_num: int = 1,
                    shard_num: int = 1) -> dict:
@@ -257,13 +305,19 @@ class ModelManager:
             raise
 
 
-def _to_list(t: torch.Tensor) -> list:
-    """Device result -> JSON-ready list (the request's one device sync)."""
-    return t.detach().to("cpu", torch.float32).numpy().tolist()
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host as float32 numpy (the one device sync of
+    a request or merged batch)."""
+    return t.detach().to("cpu", torch.float32).numpy()
 
 
 class ServingHandler(BaseHTTPRequestHandler):
     manager: ModelManager = None  # set by make_server
+    batcher: "Optional[MicroBatcher]" = None  # set when batching is on
+    # per-server registries: http.server makes one handler instance a
+    # request, so they live on make_server's subclass (fresh dicts there)
+    publishers: dict = {}   # model_sign -> sync.SyncPublisher
+    subscribers: dict = {}  # model_sign -> sync.SyncSubscriber
     peers: tuple = ()             # the default /fleetz scrape set
     node_info: dict = {}          # make_server assigns one per server
     quiet = True
@@ -299,13 +353,32 @@ class ServingHandler(BaseHTTPRequestHandler):
                 self._http_span = sp
                 return handler()
 
-    def _json(self, code: int, payload) -> None:
+    def _json(self, code: int, payload, headers: Optional[dict] = None
+              ) -> None:
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
+
+    def _blob(self, body: bytes, headers: Optional[dict] = None) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _npz(self, arrays: dict) -> None:
+        """A dict of numpy arrays as an uncompressed .npz body."""
+        import io
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        self._blob(buf.getvalue())
 
     def _text(self, body: str, code: int = 200,
               content_type: str = "text/plain; charset=utf-8") -> None:
@@ -330,13 +403,37 @@ class ServingHandler(BaseHTTPRequestHandler):
         lines.append("node: " + json.dumps(self.node_info, sort_keys=True))
         lines.append("")
         lines.append("-- servables (loaded) --")
-        with self.manager._lock:
-            loaded = dict(self.manager._cache)
-        if not loaded:
+        versions = self.manager.servable_versions()
+        if not versions:
             lines.append("(none loaded)")
-        for sign in sorted(loaded):
+        for sign, v in sorted(versions.items()):
             entry = self.manager.registry.get(sign) or {}
-            lines.append(f"{sign}: status={entry.get('status', '?')}")
+            lines.append(f"{sign}: step={v['step']} kind={v['kind']} "
+                         f"status={entry.get('status', '?')}")
+        lines.append("")
+        lines.append("-- sync subscribers --")
+        if not self.subscribers:
+            lines.append("(none)")
+        for sign, sub in sorted(self.subscribers.items()):
+            st = sub.status()
+            f = st.get("freshness_ms")
+            fresh = f"freshness_ms={f:.1f} " if f is not None else ""
+            lines.append(
+                f"{sign}: state={st['state']} version={st['version']} "
+                f"applied={st['applied']} {fresh}"
+                f"last_degraded_reason={st.get('last_degraded_reason')}")
+        lines.append("")
+        lines.append("-- sync publishers --")
+        if not self.publishers:
+            lines.append("(none)")
+        for sign, pub in sorted(self.publishers.items()):
+            try:
+                feed = pub.versions()
+                lines.append(f"{sign}: head_step={feed['head_step']} "
+                             f"base_step={feed['base_step']} "
+                             f"deltas={len(feed['deltas'])}")
+            except Exception as e:  # noqa: BLE001
+                lines.append(f"{sign}: (feed error: {e})")
         lines.append("")
         def panel(title, render):
             # every panel renders whatever the others do
@@ -420,7 +517,53 @@ class ServingHandler(BaseHTTPRequestHandler):
         metrics.observe("fleet.peers", float(len(peers)), "gauge")
         metrics.observe("fleet.nodes_answering", float(len(scrapes)),
                         "gauge")
-        return "\n".join(comments) + "\n" + metrics.merge_prometheus(scrapes)
+        merged = metrics.merge_prometheus(scrapes)
+        comments.extend(self._fleetz_freshness(merged))
+        return "\n".join(comments) + "\n" + merged
+
+    @staticmethod
+    def _fleetz_freshness(merged: str) -> list:
+        """"Who is stale" comment lines for /fleetz: each instance's
+        `sync.freshness_ms` and head / applied version gauges read back out
+        of the merged scrape (gauges keep their `instance` label), and this
+        node's last hop breakdown from the lineage book."""
+        from .sync import lineage
+        out = []
+        try:
+            per: dict = {}
+            for line in merged.splitlines():
+                for metric, field in (("oetpu_sync_freshness_ms", "fresh"),
+                                      ("oetpu_sync_head_version", "head"),
+                                      ("oetpu_sync_applied_version",
+                                       "applied")):
+                    if not line.startswith(metric + "{"):
+                        continue
+                    m = re.search(r'instance="([^"]*)"', line)
+                    inst = m.group(1) if m else "self"
+                    try:
+                        val = float(line.rsplit(None, 1)[-1])
+                    except ValueError:
+                        continue
+                    per.setdefault(inst, {})[field] = val
+            for inst in sorted(per):
+                d = per[inst]
+                parts = [f"# fleet freshness: {inst}:"]
+                if "fresh" in d:
+                    parts.append(f"freshness_ms={d['fresh']:.1f}")
+                if "head" in d:
+                    parts.append(f"head_version={int(d['head'])}")
+                if "applied" in d:
+                    parts.append(f"applied_version={int(d['applied'])}")
+                out.append(" ".join(parts))
+            last = lineage.BOOK.last()
+            if last is not None and last.get("hops"):
+                hops = " ".join(f"{h}={v:.1f}ms" for h, v in
+                                sorted(last["hops"].items()))
+                out.append(f"# fleet freshness: self last delta "
+                           f"step={last['step']} hops: {hops}")
+        except Exception as e:  # noqa: BLE001 — degrade, don't 500
+            out.append(f"# fleet freshness: unavailable: {e}")
+        return out
 
     def _body(self) -> dict:
         length = int(self.headers.get("Content-Length", 0))
@@ -439,12 +582,23 @@ class ServingHandler(BaseHTTPRequestHandler):
         parts = urlsplit(self.path)
         self.query = {k: v[-1] for k, v in parse_qs(parts.query).items()}
         path = parts.path.rstrip("/")
-        m = re.fullmatch(r"/models/([A-Za-z0-9._-]+)(?:/(pull|predict))?",
+        m = re.fullmatch(
+            r"/models/([A-Za-z0-9._-]+)/delta/(\d+)"
+            r"/(meta|dense|table/[A-Za-z0-9._-]+)", path)
+        if m:
+            return "delta", m.group(1), (int(m.group(2)), m.group(3))
+        m = re.fullmatch(r"/models/([A-Za-z0-9._-]+)"
+                         r"(?::(\w+)|/(pull|predict|publish|sync))?",
                          path)
         if m:
-            return "model", m.group(1), m.group(2)
+            return "model", m.group(1), m.group(2) or m.group(3)
         if path == "/models":
             return "models", None, None
+        m = re.fullmatch(r"/nodes/([A-Za-z0-9._-]+)", path)
+        if m:
+            return "node", m.group(1), None
+        if path == "/nodes":
+            return "nodes", None, None
         if path[1:] in self._TELEMETRY:
             return path[1:], None, None
         return None, None, None
@@ -475,11 +629,25 @@ class ServingHandler(BaseHTTPRequestHandler):
         try:
             if kind == "models":
                 return self._json(200, self.manager.registry.show_models())
-            if kind == "model" and action is None:
+            if kind == "model" and action == "versions":
+                return self._get_versions(sign)
+            if kind == "model" and action == "syncstate":
+                sub = self.subscribers.get(sign)
+                if sub is None:
+                    return self._json(
+                        404, {"error": f"model {sign!r} has no subscriber"})
+                return self._json(200, sub.status())
+            if kind == "delta":
+                return self._get_delta(sign, *action)
+            if kind == "model" and action in ("exportmeta", "rows", "dense"):
+                return self._get_export(sign, action)
+            if kind == "model":
                 entry = self.manager.registry.get(sign)
                 if entry is None:
                     return self._json(404, {"error": f"unknown model {sign}"})
                 return self._json(200, entry)
+            if kind == "nodes":
+                return self._json(200, {"nodes": [self.node_info]})
             if kind == "healthz":
                 return self._json(200, {"status": "ok"})
             if kind is not None:
@@ -491,6 +659,66 @@ class ServingHandler(BaseHTTPRequestHandler):
             return self._json(404, {"error": str(e)})
         except Exception as e:  # noqa: BLE001 - every handler error is a 500
             return self._json(500, {"error": str(e)})
+
+    def _get_versions(self, sign: str):
+        """The online-sync feed: ETag = the head step; `?after=<step>&
+        wait_s=<s>` is a bounded long poll answering 304 when nothing newer
+        commits inside the window."""
+        pub = self.publishers.get(sign)
+        if pub is None:
+            return self._json(
+                404, {"error": f"model {sign!r} has no publisher"})
+        after = self.query.get("after")
+        after = (self._coerce(int, after, "after")
+                 if after is not None else None)
+        wait_s = self._coerce(float, self.query.get("wait_s", 0.0), "wait_s")
+        feed, changed = pub.wait_versions(after, wait_s)
+        etag = {"ETag": f'"{feed["head_step"]}"'}
+        if not changed:
+            self.send_response(304)
+            self.send_header("ETag", etag["ETag"])
+            self.end_headers()
+            return None
+        return self._json(200, feed, headers=etag)
+
+    def _get_delta(self, sign: str, step: int, fname: str):
+        pub = self.publishers.get(sign)
+        if pub is None:
+            return self._json(
+                404, {"error": f"model {sign!r} has no publisher"})
+        etag = {"ETag": f'"{step}"'}  # committed deltas never change
+        if fname == "meta":
+            return self._json(200, pub.delta_meta(step), headers=etag)
+        if fname == "dense":
+            return self._blob(pub.delta_dense(step), headers=etag)
+        fmt = self.query.get("wire")
+        if fmt is not None:
+            from .ops.wire import wire_format
+            fmt = self._coerce(wire_format, fmt, "wire")
+        return self._blob(pub.delta_table(step, fname[len("table/"):], fmt),
+                          headers=etag)
+
+    def _get_export(self, sign: str, action: str):
+        """The live-replica restore surface: a peer pages these to rebuild
+        a standalone export with no shared filesystem
+        (`restore_from_peer`)."""
+        model = self.manager.find_model(sign)
+        if action == "exportmeta":
+            return self._json(200, model.export_manifest())
+        if action == "dense":
+            return self._npz(model.export_dense())
+        var = self.query.get("var")
+        if var is None:
+            raise _BadRequest("rows: missing ?var=")
+        if var not in model.variable_names:
+            return self._json(
+                404, {"error": f"model {sign!r} has no variable {var!r}"})
+        start = self._coerce(int, self.query.get("start", 0), "start")
+        count = self._coerce(int, self.query.get("count", 1 << 16), "count")
+        try:
+            return self._npz(model.export_rows(var, start, count))
+        except _BadRange as e:
+            raise _BadRequest(str(e)) from e
 
     def _get_telemetry(self, kind: str):
         from .utils import history, metrics, sketch, slo
@@ -527,13 +755,14 @@ class ServingHandler(BaseHTTPRequestHandler):
                 "series": history.HISTORY.query(metric, window_s=window_s,
                                                 labels=labels or None)})
         if kind == "timelinez":
+            from .sync import lineage
             n = self._coerce(int, self.query.get("n", 512), "n")
             return self._json(200, {
                 "node": self.node_info.get("node_id", "self"),
                 "process": trace.PROCESS_ID, "wall_time": time.time(),
                 "events": [e.as_dict() for e in trace.RECORDER.events(n)],
                 "spans": [s.as_dict() for s in trace.RECORDER.spans(n)],
-                "lineage": []})
+                "lineage": lineage.BOOK.export()})
         return self._json(404, {"error": "not found"})
 
     def do_POST(self):  # noqa: N802
@@ -568,14 +797,45 @@ class ServingHandler(BaseHTTPRequestHandler):
                     shard_num=self._coerce(int, body.get("shard_num", 1),
                                            "shard_num"))
                 return self._json(200, entry)
+            if kind == "model" and action == "publish":
+                # this node becomes the sync publisher for `sign`
+                from .sync import SyncPublisher
+                root = self._field(body, "persist_root", "root")
+                if not os.path.isdir(root):
+                    raise _BadRequest(f"persist_root {root!r} is not a "
+                                      "directory")
+                pub = SyncPublisher(root, wire=body.get("wire"))
+                self.publishers[sign] = pub
+                return self._json(200, {"model_sign": sign,
+                                        **pub.versions()})
+            if kind == "model" and action == "sync":
+                # a live subscriber on this node
+                from .sync import SyncSubscriber
+                feed = self._field(body, "feed")
+                old = self.subscribers.pop(sign, None)
+                if old is not None:
+                    old.stop()
+                sub = SyncSubscriber(
+                    self.manager, sign, feed, wire=body.get("wire"),
+                    interval_s=self._coerce(
+                        float, body.get("interval_s", 1.0), "interval_s"),
+                    wait_s=self._coerce(
+                        float, body.get("wait_s", 0.0), "wait_s"))
+                self.subscribers[sign] = sub.start()
+                return self._json(200, sub.status())
             if kind == "model" and action == "pull":
                 model, variable = self.manager.find_model_variable(
                     sign, self._field(body, "variable"))
                 ids = self._coerce(_pull_ids, self._field(body, "ids"), "ids")
                 from .utils import sketch
                 sketch.record_ids(variable, ids)
-                return self._json(
-                    200, {"weights": _to_list(model.lookup(variable, ids))})
+                rows = _to_host(model.lookup(variable, ids))
+                # `Accept: application/octet-stream` streams the rows as npz
+                # (`ServingClient(binary=True)`): no JSON float round trip
+                if "application/octet-stream" in self.headers.get("Accept",
+                                                                  ""):
+                    return self._npz({"weights": rows})
+                return self._json(200, {"weights": rows.tolist()})
             if kind == "model" and action == "predict":
                 # one measurement, two views: the span and the labeled
                 # `serving.predict.ms{model=}` histogram
@@ -594,8 +854,11 @@ class ServingHandler(BaseHTTPRequestHandler):
                             lambda v: np.asarray(v, dtype=np.float32),
                             body["dense"], "dense")
                     try:
-                        with trace.span("serving", "model_call"):
-                            logits = _to_list(model.predict(batch))
+                        if self.batcher is not None:
+                            logits = self.batcher.predict(model, sign, batch)
+                        else:
+                            with trace.span("serving", "model_call"):
+                                logits = _to_host(model.predict(batch))
                     except KeyError as e:
                         # a feature the model needs is absent from the
                         # request
@@ -604,7 +867,12 @@ class ServingHandler(BaseHTTPRequestHandler):
                         ) from e
                     except RaggedBatchError as e:
                         raise _BadRequest(str(e)) from e
-                    return self._json(200, {"logits": logits})
+                    # close the delta's lineage chain on its first predict
+                    # at this version (idempotent, O(1), never raises)
+                    from .sync import lineage
+                    lineage.note_serve(
+                        sign, int(getattr(model, "step", 0) or 0))
+                    return self._json(200, {"logits": logits.tolist()})
             return self._json(404, {"error": "not found"})
         except _BadRequest as e:
             return self._json(400, {"error": str(e)})
@@ -619,13 +887,22 @@ class ServingHandler(BaseHTTPRequestHandler):
         return self._traced("DELETE", self._handle_delete)
 
     def _handle_delete(self):
-        kind, sign, action = self._route()
+        kind, sign, _ = self._route()
         try:
-            if kind == "model" and action is None:
+            if kind == "model":
+                sub = self.subscribers.pop(sign, None)
+                if sub is not None:
+                    sub.stop()  # a deleted model must not keep syncing
                 self.manager.registry.set_status(sign, "DELETING")
                 self.manager.evict(sign)
                 self.manager.registry.delete_model(sign)
                 return self._json(200, {"deleted": sign})
+            if kind == "node":
+                # the node is this process; shutdown() blocks until this
+                # handler returns, so it runs on a thread of its own
+                threading.Thread(target=self.server.shutdown,
+                                 daemon=True).start()
+                return self._json(200, {"shutdown": sign})
             return self._json(404, {"error": "not found"})
         except KeyError as e:
             return self._json(404, {"error": str(e)})
@@ -647,7 +924,9 @@ class ServingClient:
         self.timeout = timeout
         self._next = 0
 
-    def _request(self, method: str, path: str, body=None):
+    def _request(self, method: str, path: str, body=None, *,
+                 binary: bool = False):
+        import io
         import urllib.error
         import urllib.request
         start, last = self._next, None
@@ -660,9 +939,15 @@ class ServingClient:
                                          headers=trace.inject_headers())
             if data:
                 req.add_header("Content-Type", "application/json")
+            if binary:
+                req.add_header("Accept", "application/octet-stream")
             try:
                 with urllib.request.urlopen(req, timeout=self.timeout) as r:
-                    return json.loads(r.read())
+                    raw = r.read()
+                    if binary and "octet-stream" in r.headers.get(
+                            "Content-Type", ""):
+                        return dict(np.load(io.BytesIO(raw)))
+                    return json.loads(raw)
             except urllib.error.HTTPError:
                 raise  # a server answered; its answer stands
             except (urllib.error.URLError, ConnectionError, OSError) as e:
@@ -678,10 +963,16 @@ class ServingClient:
             return [[int(x) for x in row] for row in v]
         return np.asarray(v).tolist()
 
-    def pull(self, model_sign: str, variable: str, ids) -> np.ndarray:
+    def pull(self, model_sign: str, variable: str, ids, *,
+             binary: bool = False) -> np.ndarray:
+        """`binary=True` asks for the npz reply (Accept negotiation): no
+        JSON float round trip, for large pulls."""
         out = self._request("POST", f"/models/{model_sign}/pull",
                             {"variable": variable,
-                             "ids": self._jsonable_ids(ids)})
+                             "ids": self._jsonable_ids(ids)},
+                            binary=binary)
+        if binary:
+            return out["weights"]
         return np.asarray(out["weights"], np.float32)
 
     def predict(self, model_sign: str, sparse: Dict[str, Any],
@@ -704,26 +995,283 @@ class ServingClient:
         return self._request("GET", "/models")
 
 
+class MicroBatcher:
+    """Merge concurrent /predict requests into one padded device batch.
+
+    A request parks up to `window_ms` waiting for companions; the first
+    arrival (the leader) then runs the whole group as one `model.predict`
+    (which pads to a power-of-two bucket), makes the one device-to-host
+    copy of the merged logits and hands each request its slice. Groups are
+    keyed by (model, feature set and trailing shapes, dense width): only
+    structurally identical requests merge. A group reaching `max_batch`
+    rows wakes its leader early; a merged call never exceeds `max_batch`
+    rows (larger groups run in chunks). A failure reaches every member of
+    its chunk and no other request."""
+
+    def __init__(self, manager: "ModelManager", window_ms: float = 2.0,
+                 max_batch: int = 4096):
+        self.manager = manager
+        self.window_s = window_ms / 1e3
+        self.max_batch = max_batch
+        self._lock = threading.Lock()
+        self._full = threading.Condition(self._lock)
+        self._groups: Dict[tuple, list] = {}  # guarded-by: self._lock
+
+    @staticmethod
+    def _group_key(sign: str, batch: dict) -> tuple:
+        """Same feature set, same trailing shapes per feature, same dense
+        width."""
+        sparse = batch["sparse"]
+        dense = batch.get("dense")
+        return (sign,
+                tuple((k, np.asarray(v).shape[1:])
+                      for k, v in sorted(sparse.items())),
+                None if dense is None else np.asarray(dense).shape[1:])
+
+    @staticmethod
+    def _request_rows(batch: dict) -> int:
+        """Leading-dim row count; a request whose own features disagree
+        fails alone at enqueue, and an empty one is the caller's error
+        (KeyError -> the handler's 400)."""
+        if not batch["sparse"]:
+            raise KeyError("predict request has no sparse features")
+        ns = {k: int(np.asarray(v).shape[0])
+              for k, v in batch["sparse"].items()}
+        if batch.get("dense") is not None:
+            ns["dense"] = int(np.asarray(batch["dense"]).shape[0])
+        if len(set(ns.values())) != 1:
+            raise RaggedBatchError(f"ragged serving batch: row counts {ns}")
+        return next(iter(ns.values()))
+
+    def predict(self, model, sign: str, batch: dict) -> np.ndarray:
+        """Blocking: this request's logits slice, on the host. `model` is
+        the handler's already-resolved servable."""
+        n = self._request_rows(batch)
+        entry = {"batch": batch, "n": n, "done": threading.Event(),
+                 "out": None, "err": None, "t0": time.monotonic()}
+        key = self._group_key(sign, batch)
+        with self._lock:
+            group = self._groups.setdefault(key, [])
+            group.append(entry)
+            leader = len(group) == 1
+            if not leader and sum(e["n"] for e in group) >= self.max_batch:
+                self._full.notify_all()  # wake the leader early
+        if leader:
+            # leadership is decided once, at enqueue; the leader owns the
+            # window and the device call
+            with trace.span("serving", "queue_wait", role="leader", rows=n):
+                deadline = time.monotonic() + self.window_s
+                with self._lock:
+                    while (time.monotonic() < deadline
+                           and sum(e["n"] for e in self._groups.get(key, ()))
+                           < self.max_batch):
+                        self._full.wait(timeout=max(
+                            0.0, deadline - time.monotonic()))
+                    group = self._groups.pop(key, [])
+            with trace.span("serving", "batch_exec", requests=len(group),
+                            rows=sum(e["n"] for e in group)):
+                self._run(model, group)
+        else:
+            # a follower waits from enqueue until its group's run is done
+            with trace.span("serving", "queue_wait", role="follower", rows=n):
+                entry["done"].wait()
+        entry["done"].wait()
+        if entry["err"] is not None:
+            raise entry["err"]
+        return entry["out"]
+
+    def _run(self, model, group: list) -> None:
+        # chunk so one merged call never exceeds max_batch rows
+        chunk, rows = [], 0
+        for e in group:
+            if chunk and rows + e["n"] > self.max_batch:
+                self._run_chunk(model, chunk)
+                chunk, rows = [], 0
+            chunk.append(e)
+            rows += e["n"]
+        if chunk:
+            self._run_chunk(model, chunk)
+
+    def _run_chunk(self, model, group: list) -> None:
+        from .utils import metrics
+        # how long requests parked for companions, and how full the merged
+        # batch came out: the window's trade, read off /metrics
+        now = time.monotonic()
+        for e in group:
+            metrics.observe("serving.batch_wait_ms",
+                            (now - e["t0"]) * 1e3, "avg")
+        metrics.observe("serving.batch_fill_ratio",
+                        min(1.0, sum(e["n"] for e in group) / self.max_batch),
+                        "avg")
+        try:
+            batches = [e["batch"] for e in group]
+            merged = {"sparse": {
+                k: np.concatenate([np.asarray(b["sparse"][k])
+                                   for b in batches])
+                for k in batches[0]["sparse"]}}
+            if batches[0].get("dense") is not None:
+                merged["dense"] = np.concatenate(
+                    [np.asarray(b["dense"]) for b in batches])
+            with trace.span("serving", "model_call",
+                            rows=sum(e["n"] for e in group)):
+                # the one device-to-host copy of the merged batch
+                logits = _to_host(model.predict(merged))
+            metrics.observe("serving.predict_batches", 1)
+            metrics.observe("serving.predict_requests", len(group))
+            off = 0
+            for e in group:
+                e["out"] = logits[off:off + e["n"]]
+                off += e["n"]
+        except Exception as err:  # noqa: BLE001 — delivered to every waiter
+            for e in group:
+                e["err"] = err
+        finally:
+            for e in group:
+                e["done"].set()
+
+
+def restore_from_peer(peer: str, model_sign: str, dest: str, *,
+                      page: int = 1 << 16, timeout: float = 60.0) -> str:
+    """Rebuild a model's standalone export from a live serving peer over
+    REST: page the peer's `:exportmeta`, `:rows` and `:dense` endpoints and
+    write a standard export under `dest`, with no shared filesystem. The
+    peer may be a node of either package. Register `dest` with the local
+    node (POST /models) to finish the restore.
+
+    Crash safety: everything pages into `dest + ".tmp-<pid>"`, renamed into
+    place only after the last byte (meta and config included) is on disk,
+    so a peer that dies mid-page, a timeout or a local crash never leaves a
+    half-written export at `dest`. A `dest` that exists is replaced only at
+    that rename.
+
+    Returns `dest`. Raises on a peer error or a model that is not NORMAL.
+    """
+    import shutil
+    import urllib.request
+
+    def get(path: str) -> bytes:
+        req = urllib.request.Request(f"{peer}{path}",
+                                     headers=trace.inject_headers())
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.read()
+
+    entry = json.loads(get(f"/models/{model_sign}"))
+    if entry.get("status") != "NORMAL":
+        raise RuntimeError(
+            f"peer model {model_sign!r} is {entry.get('status')!r}, "
+            "not restorable")
+    manifest = json.loads(get(f"/models/{model_sign}:exportmeta"))
+
+    tmp = dest.rstrip("/\\") + f".tmp-{os.getpid()}"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    try:
+        _page_restore(get, manifest, model_sign, tmp, peer, page,
+                      final_uri=dest)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)  # never leave partial pages
+        raise
+    if os.path.exists(dest):
+        shutil.rmtree(dest)  # replaced only once tmp is complete
+    os.replace(tmp, dest)
+    return dest
+
+
+def _page_restore(get, manifest, model_sign: str, dest: str, peer: str,
+                  page: int, final_uri: str) -> None:
+    """Page the peer's rows, dense params and meta into `dest` (the staging
+    directory; the caller renames it); the meta written records
+    `final_uri`, where the export lands after the rename."""
+    import io
+    from urllib.parse import quote
+
+    from .checkpoint import MODEL_META_FILE
+    from .export import MODEL_CONFIG_FILE
+    os.makedirs(dest, exist_ok=True)
+    for v in manifest["variables"]:
+        vdir = os.path.join(dest, f"variable_{v['variable_id']}")
+        os.makedirs(vdir, exist_ok=True)
+        chunks: Dict[str, list] = {"weights": [], "ids": []}
+        for start in range(0, v["rows"], page):
+            data = np.load(io.BytesIO(get(
+                f"/models/{model_sign}:rows"
+                f"?var={quote(v['storage_name'], safe='')}"
+                f"&start={start}&count={page}")))
+            chunks["weights"].append(data["weights"])
+            if "ids" in data:
+                chunks["ids"].append(data["ids"])
+        w = (np.concatenate(chunks["weights"]) if chunks["weights"]
+             else np.zeros((0, v["dim"]), np.float32))
+        if w.shape[0] != v["rows"]:
+            raise RuntimeError(
+                f"peer returned {w.shape[0]} rows for {v['storage_name']!r}, "
+                f"manifest says {v['rows']} (model changed mid-restore?)")
+        np.save(os.path.join(vdir, "weights.npy"), w)
+        if v["kind"] == "hash":
+            ids = (np.concatenate(chunks["ids"]) if chunks["ids"]
+                   else np.zeros((0,), np.int64))
+            np.save(os.path.join(vdir, "ids.npy"), ids)
+
+    dense = np.load(io.BytesIO(get(f"/models/{model_sign}:dense")))
+    np.savez(os.path.join(dest, "dense_params.npz"),
+             **{k: dense[k] for k in dense.files})
+
+    meta = dict(manifest["meta"])
+    meta["uri"] = final_uri
+    meta["num_shards"] = 1  # the restored artifact is a standalone export
+    # the written meta describes the written files
+    meta["dense_manifest"] = {
+        k: {"shape": list(dense[k].shape), "dtype": str(dense[k].dtype)}
+        for k in dense.files}
+    meta["extra"] = {"standalone": True,
+                     "restored_from": f"{peer}/models/{model_sign}"}
+    with open(os.path.join(dest, MODEL_META_FILE), "w") as f:
+        json.dump(meta, f, indent=2, sort_keys=True)
+    if manifest.get("model_config") is not None:
+        with open(os.path.join(dest, MODEL_CONFIG_FILE), "w") as f:
+            json.dump(manifest["model_config"], f, indent=2, sort_keys=True)
+
+
 def make_server(registry_root: str, host: str = "127.0.0.1", port: int = 0,
-                *, device=None, peers: Optional[list] = None
-                ) -> ThreadingHTTPServer:
+                *, device=None, batch_window_ms: float = 0.0,
+                max_batch: int = 4096,
+                publish: Optional[Dict[str, str]] = None,
+                publish_wire: Optional[str] = None,
+                peers: Optional[list] = None) -> ThreadingHTTPServer:
     """Build (not start) the serving HTTP server; port 0 picks a free port.
     Models load onto `device` (None = the CUDA card; raises without one).
-    `peers` (base URLs of other nodes) is the default `GET /fleetz` scrape
-    set (`?peers=` overrides it per request)."""
+    `batch_window_ms > 0` merges concurrent predicts (`MicroBatcher`, at
+    most `max_batch` rows a call). `publish` ({model_sign: persist_root})
+    registers online-sync publishers (more via POST
+    /models/<sign>/publish; subscribers attach via POST
+    /models/<sign>/sync). `peers` (base URLs of other nodes) is the default
+    `GET /fleetz` scrape set (`?peers=` overrides it per request)."""
     manager = ModelManager(ModelRegistry(registry_root), device=device)
 
     class Handler(ServingHandler):
         pass
 
     Handler.manager = manager
+    Handler.batcher = (MicroBatcher(manager, window_ms=batch_window_ms,
+                                    max_batch=max_batch)
+                       if batch_window_ms > 0 else None)
+    Handler.publishers = {}
+    Handler.subscribers = {}
     Handler.peers = list(peers or [])
+    if publish:
+        from .sync import SyncPublisher
+        for sign, root in publish.items():
+            Handler.publishers[sign] = SyncPublisher(root, wire=publish_wire)
     Handler.node_info = {"node_id": f"{os.uname().nodename}:{os.getpid()}",
                          "registry": registry_root,
                          "device": str(manager.device),
+                         "batch_window_ms": batch_window_ms,
+                         "publishes": sorted(Handler.publishers),
                          "peers": Handler.peers}
     httpd = ThreadingHTTPServer((host, port), Handler)
     httpd.manager = manager
+    httpd.publishers = Handler.publishers
+    httpd.subscribers = Handler.subscribers
     return httpd
 
 
@@ -737,6 +1285,25 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="where models load (default: the CUDA card; "
                          "fails when there is none)")
+    ap.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="merge concurrent /predict requests inside this "
+                         "window (0 = off)")
+    ap.add_argument("--max-batch", type=int, default=4096,
+                    help="largest merged predict batch (rows)")
+    ap.add_argument("--publish", action="append", default=[],
+                    metavar="SIGN=PERSIST_ROOT",
+                    help="serve this persist root's committed delta chain as "
+                         "the online-sync feed for SIGN (repeatable)")
+    ap.add_argument("--sync-from", action="append", default=[],
+                    metavar="SIGN=FEED_URL",
+                    help="keep the loaded model SIGN fresh against a "
+                         "publisher node's feed (repeatable; the model must "
+                         "be loaded on this node)")
+    ap.add_argument("--sync-interval", type=float, default=1.0,
+                    help="subscriber poll interval, seconds")
+    ap.add_argument("--sync-wire", default=None,
+                    help="row encoding on the sync wire "
+                         "(fp32|bf16|int8; default fp32)")
     ap.add_argument("--peers", action="append", default=[],
                     help="base URLs of other nodes (comma-separated, "
                          "repeatable): GET /fleetz merges their /metrics "
@@ -756,6 +1323,7 @@ def main(argv=None) -> int:
                     help="arm postmortem capsules (SLO breaches, POST "
                          "/capsule) into DIR")
     args = ap.parse_args(argv)
+    from .sync import SyncSubscriber
     from .utils import capsule, slo
     if args.flight_recorder > 0:
         trace.configure(args.flight_recorder)
@@ -771,17 +1339,38 @@ def main(argv=None) -> int:
     if args.slo_interval > 0:
         slo.EVALUATOR.interval_s = args.slo_interval
         slo_eval = slo.EVALUATOR.start()
+
+    def kv(pairs, what):
+        out = {}
+        for p in pairs:
+            if "=" not in p:
+                ap.error(f"--{what} expects SIGN=VALUE, got {p!r}")
+            k, v = p.split("=", 1)
+            out[k] = v
+        return out
+
     httpd = make_server(args.registry, args.host, args.port,
                         device=args.device,
+                        batch_window_ms=args.batch_window_ms,
+                        max_batch=args.max_batch,
+                        publish=kv(args.publish, "publish"),
+                        publish_wire=args.sync_wire,
                         peers=[p for arg in args.peers
                                for p in arg.split(",") if p])
+    for sign, feed in kv(args.sync_from, "sync-from").items():
+        httpd.subscribers[sign] = SyncSubscriber(
+            httpd.manager, sign, feed, wire=args.sync_wire,
+            interval_s=args.sync_interval).start()
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
-          f"(registry: {args.registry}, device: {httpd.manager.device})")
+          f"(registry: {args.registry}, device: {httpd.manager.device})",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        for sub in httpd.subscribers.values():
+            sub.stop()
         httpd.server_close()
         if slo_eval is not None:
             slo_eval.stop()

@@ -1,7 +1,7 @@
 """The port's copy of `openembedding_tpu/utils/capsule.py`. Divergences
 kept on purpose (ROADMAP.md §C): `hlo_budget_digest` is null (no HLO
-budget on the card), `fingerprint` is null and `lineage` empty (no online
-sync yet).
+budget on the card) and `fingerprint` is null (ROADMAP.md item 7);
+`lineage` is the port's delta lineage book (`sync/lineage.BOOK`).
 
 Postmortem capsules: one self-contained flight-data dump per failure.
 
@@ -121,6 +121,13 @@ class CapsuleWriter:
             except Exception as e:  # noqa: BLE001 — a raising provider must
                 # not kill the dump (record what broke instead)
                 context[name] = f"<context provider error: {e!r}>"
+        # delta lineage records (where a stale delta's time went): a capsule
+        # still writes if the sync layer is broken
+        try:
+            from ..sync.lineage import BOOK
+            lineage_records = BOOK.export()
+        except Exception as e:  # noqa: BLE001
+            lineage_records = [{"error": f"<lineage unavailable: {e!r}>"}]
         return {
             "version": CAPSULE_VERSION,
             "ts": now,
@@ -131,7 +138,7 @@ class CapsuleWriter:
             "history": history.HISTORY.export(),
             "metrics": metrics.report(reset=False),
             "memory": memwatch.WATCH.export(),
-            "lineage": [],
+            "lineage": lineage_records,
             "fingerprint": None,
             "context": context,
             "hlo_budget_digest": _hlo_budget_digest(),

@@ -215,6 +215,15 @@ def observe_exchange_cost(cost: Dict[str, "object"]) -> None:
     observe("exchange.dim_groups", float(cost.get("dim_groups", 0)), "gauge")
 
 
+def observe_sync_cost(cost: Dict[str, "object"]) -> None:
+    """Publish the online-sync wire cost of the delta most recently served
+    (`ops/wire.sync_delta_cost`) as gauges, the JAX package's `sync.*`
+    names."""
+    observe("sync.wire_bytes_per_delta",
+            float(cost.get("bytes_total", 0)), "gauge")
+    observe("sync.rows_per_delta", float(cost.get("rows", 0)), "gauge")
+
+
 class NonFiniteError(RuntimeError):
     """Raised by `Trainer(halt_on_nonfinite=True)` when the numerics sentinel
     sees a non-finite loss or gradient. `sources` maps the offending

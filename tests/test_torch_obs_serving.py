@@ -19,6 +19,7 @@ Counts are compared exactly, times not at all.
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -116,6 +117,12 @@ def _drive(tag, export, tmp_path):
                 client.predict("m-0", {"categorical": ids},
                                rng.standard_normal((16, 13)))
         client.pull("m-0", "categorical", [1, 2, 3])
+        # a request's http span closes just after its answer is written:
+        # wait for the last one before scraping
+        deadline = time.time() + 5.0
+        while sum(s.name == "http" for s in t.RECORDER.spans()) \
+                < N_PREDICT + 2 and time.time() < deadline:
+            time.sleep(0.01)
         out = {"rids": rids, "sent": sent + 3}
         code, headers, text = _get(f"{url}/metrics")
         assert code == 200 and headers.get(t.SERVER_TIME_HEADER)
