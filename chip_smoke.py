@@ -41,8 +41,10 @@ final line:
    the apply phase, torch.profiler must see one device kernel per call
    (traced after the three kernel phases' timings, and before the later
    phases' many profiler sessions, after which a session has once traced
-   no kernel at all). Times: the kernel, its plain version, the gather
-   kernel and the library call, beside the byte bound;
+   no kernel at all; every profiler check counts only a session that
+   traced both spin kernels around the call, `device_kernels`). Times: the
+   kernel, its plain version, the gather kernel and the library call,
+   beside the byte bound;
 5. apply   — the fused sparse apply against its plain version on the card.
    Main case: the 2^24 x 10 float32 table and its Adagrad accumulator,
    updated from one `synthetic_criteo(4096, id_space=2^24, seed=7)` batch
@@ -373,7 +375,36 @@ final line:
    p50 at 4096 rows with the batcher (subscriber polling and idle) and
    without, the restore's seconds and MB/s, the card's memory before and
    after the swaps, the launches (the checks' own taken out);
-19. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+19. shard   — sharded serving (`parallel/serving.py`, `ShardedModel`) at
+   the flagship's full width: the array flagship trained one
+   `jit_train_step` on `synthetic_criteo(4096, id_space=2^24, seed=36)`
+   with an `IncrementalPersister` (a base, then a delta a step), written in
+   the single layout (`Trainer.save`) and, by four staged gloo ranks
+   loading it, in the sharded layout. (a) Each layout served at T = 4 and
+   T = 2 shards staged on the one card: every shard holds
+   `rows_per_shard(T)` rows; one batch's ids with -1 pads and out-of-range
+   ids pull the trainer's rows bit for bit; predict at 4096 rows launches
+   one gather a shard and is bit-equal to `StandaloneModel.predict` of an
+   export of the same state and to the same servable through the plain
+   gather. (b) The hashed flagship (2^24 slots) after one graph step,
+   served at T = 4: bit-equal to the trainer's read-only pull, absent ids
+   zero; each shard's slots beside JAX's size. (c) REST:
+   `make_server(devices=["cuda:0"] * 4)`, `POST /models` with
+   `shard_num=4` ends NORMAL, pull and predict answer the trainer's rows
+   and the standalone logits, `shard_num=8` is refused (500, ERROR), and
+   `restore_from_peer` from the sharded node gives an export with
+   bit-equal logits. (d) A subscriber follows 3 deltas into the sharded
+   servable (a standalone twin follows the same feed): after each swap the
+   touched rows equal the trainer's by id, the servable before it is
+   unchanged, and four client threads post REST predicts across the swaps
+   with no failure. (e) A DeepFM whose table is bfloat16, exported and
+   checkpointed, served standalone and at T = 4: rows bit-equal to the
+   trainer's bfloat16 rows, logits equal. Times: load seconds at each T,
+   in-process and REST predict p50 at 4096 rows sharded and standalone,
+   the `apply` hop a delta sharded and standalone, the restore's MB/s,
+   each shard's bytes, gather launches a predict, the card's name and
+   power limit;
+20. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -556,31 +587,68 @@ def phase_kernel(torch, mb, gather) -> dict:
     return main
 
 
-def device_kernels(torch, fn, tries: int = 3) -> tuple:
-    """Names of the device kernels that one call of `fn` enqueues, as
-    torch.profiler traces them, and the profiler sessions it took. Inside
-    each session the call sits between two spin kernels (left out of the
-    names), and the session ends a few ms after the last kernel: a short
-    session of one call alone sometimes traced no device kernel on the
-    H100. A session that sees no kernel but the spins is taken again: the
-    card ran the call (its output is checked), so the trace lost it."""
+BRACKET_CYCLES = 1_000_000  # the spins around the call: about 0.5 ms
+WARM_CYCLES = 10_000        # the spins that open a session: about 5 us
+
+
+def profiled_session(torch, fn, opening: int = 32) -> list:
+    """One torch.profiler session of one call of `fn` between two spin
+    kernels of `BRACKET_CYCLES`; the session ends 10 ms after the last
+    kernel. It opens with `opening` short spins, run to their end: on the
+    H100 a session may lose its first device records (late in the script,
+    an eager step's session lost its first three every time), and they
+    absorb the loss. -> [(name, us on the device)] of the device records
+    traced, in order of start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, tries + 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.01)
+        for _ in range(opening):
+            torch.cuda._sleep(WARM_CYCLES)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(10_000)
-            fn()
-            torch.cuda._sleep(10_000)
-            torch.cuda.synchronize()
-            time.sleep(0.01)
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and "spin" not in e.name]
-        if names:
+        torch.cuda._sleep(BRACKET_CYCLES)
+        fn()
+        torch.cuda._sleep(BRACKET_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+    device = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in device]
+
+
+def bracket_spins(traced) -> int:
+    """The spins of `BRACKET_CYCLES` among a session's records (a short
+    opening spin runs about 5 us, a bracket about 500)."""
+    return sum(1 for name, us in traced if "spin" in name and us >= 100)
+
+
+def device_kernels(torch, fn, tries: int = 5) -> tuple:
+    """Names of the device kernels that one call of `fn` enqueues, as
+    torch.profiler traces them, and what each profiler session it took
+    traced (bracket spins, opening spins, other records). Each
+    session is a `profiled_session`: the call sits between two spin
+    kernels (left out of the names). The trace of a session may lose
+    device records on the H100: a short session of one call alone has
+    traced no kernel at all, and a session of a whole training step has
+    lost its first records (hence the opening spins). So a session counts
+    only when it traced both brackets, the spin before the call and the
+    one after; one that lost either is taken again, up to `tries` sessions
+    (the card ran the call: its output is checked). If no session traced
+    both, the names of the last are returned and the caller's check fails
+    on them."""
+    sessions = []
+    for _ in range(tries):
+        traced = profiled_session(torch, fn)
+        names = [name for name, _ in traced if "spin" not in name]
+        spins = bracket_spins(traced)
+        sessions.append({"spins": spins, "records": len(names),
+                         "opening": len(traced) - len(names) - spins})
+        if spins == 2 and names:
             break
-    return names, attempt
+    return names, sessions
 
 
 STAGE_SHARES = (float("inf"), 0.5, 0.0)  # none, dense runs, every run
@@ -708,10 +776,11 @@ def kernels_profile(torch, phase: str, calls, kernel: str) -> None:
         kernels, sessions = device_kernels(torch, fn)
         emit({"phase": phase, "case": f"profiler: {name}",
               "device_kernels_per_call": kernels,
-              "profiler_sessions": sessions})
+              "profiler_sessions": len(sessions),
+              "profiler_session_log": sessions})
         check(len(kernels) == 1 and kernel in kernels[0],
               f"one {phase} call enqueues one device kernel, {kernel} "
-              f"({name}: {kernels})")
+              f"({name}: {kernels}; sessions {sessions})")
 
 
 def _apply_once(torch, mb, apply, opt, w, slots, idx, g, counts):
@@ -1863,11 +1932,14 @@ def example_cache(torch, mb, ops, ex, argv, drive, batches, tmp, total
                 run["trainer"].train_step(run["state"], batches[0])
             names, sessions = device_kernels(torch, one_step)
             rec["profiler_kernels_per_step"] = len(names)
+            rec["profiler_sessions"] = len(sessions)
+            rec["profiler_session_log"] = sessions
             rec["profiler_gather_kernels"] = [n[:60] for n in names
                                               if "gather_rows_kernel" in n]
             check(len(rec["profiler_gather_kernels"]) == 1,
                   f"the profiler sees the gather kernel on the "
-                  f"sparse_as_dense pull ({names})")
+                  f"sparse_as_dense pull ({len(names)} kernels, gathers "
+                  f"{rec['profiler_gather_kernels']}, sessions {sessions})")
         emit({"phase": "example", "case": "cache train", **rec})
         out[what] = rec
         del run
@@ -6346,7 +6418,8 @@ class _Hammer:
     holds them off (no request in flight) while the plain versions are
     swapped in for a comparison."""
 
-    def __init__(self, url, batch, threads, rows):
+    def __init__(self, url, batch, threads, rows, sign=SYNC_SIGN):
+        self.sign = sign
         self.go = threading.Event()
         self.go.set()
         self.done = threading.Event()
@@ -6372,7 +6445,7 @@ class _Hammer:
                     continue
                 self.inflight += 1
             try:
-                got = client.predict(SYNC_SIGN, sparse, dense)
+                got = client.predict(self.sign, sparse, dense)
                 if got.shape != (rows,) or not np.isfinite(got).all():
                     raise ValueError(f"logits of shape {got.shape}")
                 with self.cv:
@@ -6403,11 +6476,11 @@ def _serve(make_server, registry, **kw):
     return httpd, th, f"http://127.0.0.1:{httpd.server_address[1]}"
 
 
-def _rest_p50(client, batch, n=SYNC_REST) -> float:
+def _rest_p50(client, batch, n=SYNC_REST, sign=SYNC_SIGN) -> float:
     ms = []
     for _ in range(n):
         t0 = time.perf_counter()
-        got = client.predict(SYNC_SIGN, batch["sparse"], batch["dense"])
+        got = client.predict(sign, batch["sparse"], batch["dense"])
         ms.append((time.perf_counter() - t0) * 1e3)
         check(got.shape == (BATCH,) and np.isfinite(got).all(),
               "sync: finite REST logits")
@@ -6690,6 +6763,410 @@ def phase_sync(torch, mb, ops, data, optimizers, smi: str) -> int:
             httpd.server_close()
         shutil.rmtree(tmp, ignore_errors=True)
 
+SHARD_SIGN = "deepfm-shard-0"
+SHARD_SEED = TRAIN_SEED + 29  # synthetic_criteo seed of the shard phase
+SHARD_T = (4, 2)          # shards of the array flagship's servables
+SHARD_STAGED = 4          # gloo ranks that write the sharded layout
+SHARD_DELTAS = 3          # deltas the subscriber follows
+SHARD_PREDICTS = 20       # predicts of 4096 rows a p50 (after 2 untimed)
+
+
+def shard_write_rank(mesh, single: str, sharded: str) -> int:
+    """One of the staged ranks: the single-layout checkpoint loaded into
+    this rank's shard of a `MeshTrainer` state and written again in the
+    sharded layout -> the step it loaded."""
+    import torch
+    from openembedding_tpu_torch import data, optimizers
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(mesh.staged and mesh.size == SHARD_STAGED, f"a staged mesh {mesh}")
+    trainer = MeshTrainer(make_deepfm(vocabulary=VOCAB, dim=DIM),
+                          optimizers.Adagrad(learning_rate=0.05), mesh=mesh)
+    batch = local_batch(next(data.synthetic_criteo(
+        BATCH, id_space=VOCAB, seed=SHARD_SEED, steps=1)), mesh)
+    state = trainer.load(trainer.init(batch), single)
+    trainer.save(state, sharded, include_optimizer=False)
+    return int(state.step)
+
+
+def _p50_ms(torch, fn, n=SHARD_PREDICTS) -> float:
+    """Median wall ms of `fn()` up to its result on the host, after two
+    untimed calls."""
+    fn(), fn()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        if isinstance(out, torch.Tensor):
+            out.cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _shard_bytes(sm) -> list:
+    return [sum(t.numel() * t.element_size() for t in ts.tensors())
+            for ts in sm.tables["categorical"]]
+
+
+def phase_shard(torch, mb, ops, data, optimizers, smi: str) -> dict:
+    """Sharded serving at full width -> {kernel: launches of the phase}.
+    See the module docstring, item 19. Launches of the checks and of the
+    standalone twins are taken out of the counts."""
+    import dataclasses
+    import urllib.error
+    from openembedding_tpu_torch.embedding import lookup as table_lookup
+    from openembedding_tpu_torch.export import (StandaloneModel,
+                                                export_standalone)
+    from openembedding_tpu_torch.model import Trainer
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.ops import gather
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    from openembedding_tpu_torch.parallel.serving import ShardedModel
+    from openembedding_tpu_torch.persist import (IncrementalPersister,
+                                                 PersistPolicy)
+    from openembedding_tpu_torch.serving import (ModelManager, ModelRegistry,
+                                                 ServingClient, make_server,
+                                                 restore_from_peer)
+    from openembedding_tpu_torch.sync import SyncSubscriber
+
+    excluded = {k: 0 for k in KERNELS}
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches of a check or of a standalone twin are taken out of
+        the path's counts."""
+        before = ops.launch_counts()
+        yield
+        after = ops.launch_counts()
+        for k in excluded:
+            excluded[k] += after[k] - before[k]
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-shard-")
+    servers, subs, p, hammer = [], [], None, None
+    rec = {"card": smi}
+    try:
+        batches = list(data.synthetic_criteo(BATCH, id_space=VOCAB,
+                                             seed=SHARD_SEED,
+                                             steps=1 + SHARD_DELTAS))
+        probe = {k: batches[0][k] for k in ("sparse", "dense")}
+        # one batch's ids with -1 pads and out-of-range ids
+        rng = np.random.default_rng(SEED + 19)
+        ids = np.array(batches[0]["sparse"]["categorical"])
+        ids[rng.random(ids.shape) < 0.05] = -1
+        ids[rng.random(ids.shape) < 0.02] = VOCAB + 17
+        flat = torch.from_numpy(ids.reshape(-1)).cuda()
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        spec = model.specs["categorical"]
+        trainer = Trainer(model, optimizers.Adagrad(learning_rate=0.05))
+        state = trainer.init(batches[0])
+        step = trainer.jit_train_step()
+        root = os.path.join(tmp, "persist")
+        single = os.path.join(tmp, "single")
+        sharded = os.path.join(tmp, "sharded")
+        export = os.path.join(tmp, "export")
+
+        ops.reset_launch_counts()  # the path's run: counts read just after
+        p = IncrementalPersister(trainer, model, root, window=2,
+                                 policy=PersistPolicy(every_steps=1),
+                                 full_every=100)
+        state, _ = step(state, batches[0])
+        p.maybe_persist(state, batch=batches[0])
+        p.wait()
+        t0 = time.perf_counter()
+        trainer.save(state, single, include_optimizer=False)
+        rec["single_save_seconds"] = time.perf_counter() - t0
+        export_standalone(state, model, export, model_sign=SHARD_SIGN)
+        t0 = time.perf_counter()
+        loaded = run_local(shard_write_rank, SHARD_STAGED, backend="gloo",
+                           device="cuda", args=(single, sharded),
+                           timeout_s=600, threads=0)
+        rec["sharded_write_seconds"] = time.perf_counter() - t0
+        check(loaded == [1] * SHARD_STAGED, f"shard: the ranks loaded step "
+              f"1 ({loaded})")
+        live = state.tables["categorical"].weights
+        want = gather.gather_rows_reference(live, flat).reshape(
+            ids.shape + (DIM + 1,))
+        standalone = StandaloneModel.load(export)
+        with uncounted():
+            want_logits = standalone.predict(probe)
+
+        # (a) the array flagship, both layouts, at T = 4 and 2
+        rec["array"] = []
+        for layout, path in (("single", single), ("sharded", sharded)):
+            for T in SHARD_T:
+                t0 = time.perf_counter()
+                sm = ShardedModel.load(path, devices=["cuda:0"] * T)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                shards = sm.tables["categorical"]
+                check(len(shards) == T and all(
+                    ts.weights.is_cuda and tuple(ts.weights.shape)
+                    == (spec.rows_per_shard(T), DIM + 1) and ts.slots == {}
+                    for ts in shards), f"shard: {layout} T={T}: every "
+                    "shard holds rows_per_shard(T) rows, no slots")
+                check(torch.equal(sm.lookup("categorical", ids), want),
+                      f"shard: {layout} T={T}: lookups bit-equal to the "
+                      "trainer's rows by id")
+                before = ops.launch_counts()["gather_rows"]
+                logits = sm.predict(probe)
+                torch.cuda.synchronize()
+                per_predict = ops.launch_counts()["gather_rows"] - before
+                check(per_predict == T, f"shard: {layout} T={T}: one "
+                      f"gather a shard a predict ({per_predict})")
+                with uncounted():
+                    with ops.plain_versions():
+                        plain = sm.predict(probe)
+                check(torch.equal(logits, want_logits)
+                      and torch.equal(logits, plain),
+                      f"shard: {layout} T={T}: predict at {BATCH} rows "
+                      "bit-equal to StandaloneModel's and to its plain "
+                      "gather's")
+                r = {"layout": layout, "T": T, "load_seconds": load_s,
+                     "shard_bytes": _shard_bytes(sm),
+                     "gather_launches_per_predict": per_predict,
+                     "predict_p50_ms": _p50_ms(
+                         torch, lambda: sm.predict(probe))}
+                with uncounted():  # the standalone servable, in turn
+                    r["standalone_predict_p50_ms"] = _p50_ms(
+                        torch, lambda: standalone.predict(probe))
+                if layout == "single" and T == SHARD_T[0]:
+                    r["profile"] = profile_device(
+                        torch, lambda: sm.predict(probe).cpu())
+                rec["array"].append(r)
+                del sm, logits, plain
+        torch.cuda.empty_cache()
+
+        # (b) the hashed flagship at T = 4
+        hmodel = make_deepfm(VOCAB, DIM, hashed=True, capacity=HASH_CAPACITY)
+        htrainer = Trainer(hmodel, optimizers.Adagrad(learning_rate=0.05))
+        hbatch = next(data.synthetic_criteo(BATCH, id_space=HASH_ID_SPACE,
+                                            seed=SHARD_SEED, steps=1))
+        hstate = htrainer.init(hbatch)
+        hstep = htrainer.jit_train_step()
+        hstate, _ = hstep(hstate, hbatch)
+        hsingle = os.path.join(tmp, "hash_single")
+        htrainer.save(hstate, hsingle, include_optimizer=False)
+        hids = np.array(hbatch["sparse"]["categorical"])
+        hids[rng.random(hids.shape) < 0.05] = -1
+        absent = rng.integers(0, HASH_ID_SPACE, size=hids.shape)
+        fresh = rng.random(hids.shape) < 0.05
+        hids[fresh] = absent[fresh]
+        hflat = torch.from_numpy(hids.reshape(-1)).cuda()
+        with uncounted():
+            hwant = table_lookup(hmodel.specs["categorical"],
+                                 hstate.tables["categorical"], hflat)
+        resident = int((hstate.tables["categorical"].keys >= 0).sum())
+        t0 = time.perf_counter()
+        hsm = ShardedModel.load(hsingle, devices=["cuda:0"] * 4)
+        torch.cuda.synchronize()
+        hload = time.perf_counter() - t0
+        got = hsm.lookup("categorical", hids).reshape(-1, DIM + 1)
+        check(torch.equal(got, hwant), "shard: the hashed flagship's "
+              "lookups at T=4 bit-equal to the trainer's read-only pull")
+        keys = torch.cat([ts.keys for ts in hsm.tables["categorical"]])
+        gone = ~np.isin(hids.reshape(-1), keys.cpu().numpy())
+        check(bool(gone.any()) and not bool(
+            got[torch.from_numpy(gone).cuda()].any()),
+            "shard: absent ids pull zero rows")
+        before = ops.launch_counts()["gather_rows"]
+        hsm.predict({"sparse": hbatch["sparse"], "dense": hbatch["dense"]})
+        torch.cuda.synchronize()
+        rec["hash"] = {
+            "T": 4, "resident_ids": resident, "load_seconds": hload,
+            "jax_slots_per_shard": max(-(-resident * 10 // 28), 64),
+            "slots_per_shard": [int(ts.keys.shape[0])
+                                for ts in hsm.tables["categorical"]],
+            "shard_bytes": _shard_bytes(hsm),
+            "gather_launches_per_predict":
+                ops.launch_counts()["gather_rows"] - before,
+            "predict_p50_ms": _p50_ms(torch, lambda: hsm.predict(
+                {"sparse": hbatch["sparse"], "dense": hbatch["dense"]}))}
+        del hsm, hstate, htrainer, got, hwant, keys
+        torch.cuda.empty_cache()
+
+        # (c) REST: shard_num=4 staged on the one card
+        srv, _, url = _serve(make_server, os.path.join(tmp, "reg"),
+                             devices=["cuda:0"] * 4)
+        servers.append(srv)
+        client = ServingClient(url, timeout=300)
+        t0 = time.perf_counter()
+        entry = client.create_model(SHARD_SIGN, single, shard_num=4)
+        rec["rest_load_seconds"] = time.perf_counter() - t0
+        sm = srv.manager.find_model(SHARD_SIGN)
+        check(entry["status"] == "NORMAL" and isinstance(sm, ShardedModel)
+              and sm.num_shards == 4, f"shard: POST /models shard_num=4 "
+              f"ends NORMAL ({entry})")
+        pulled = client.pull(SHARD_SIGN, "categorical", ids[:64],
+                             binary=True)
+        check(np.array_equal(pulled, want[:64].cpu().numpy()),
+              "shard: the REST pull answers the trainer's rows")
+        rest = client.predict(SHARD_SIGN, probe["sparse"], probe["dense"])
+        check(np.array_equal(rest, want_logits.cpu().numpy()),
+              "shard: the REST predict answers the standalone logits")
+        try:
+            client.create_model("deepfm-toobig-0", single, shard_num=8)
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        check(refused == 500 and srv.manager.registry.get(
+            "deepfm-toobig-0")["status"] == "ERROR",
+            f"shard: shard_num=8 on a list of 4 is refused ({refused})")
+        client.create_model(SHARD_SIGN + "-standalone", export)
+        rec["rest_predict_p50_ms"] = _rest_p50(
+            client, probe, sign=SHARD_SIGN)
+        with uncounted():
+            rec["rest_standalone_predict_p50_ms"] = _rest_p50(
+                client, probe, sign=SHARD_SIGN + "-standalone")
+        dest = os.path.join(tmp, "restored")
+        t0 = time.perf_counter()
+        restore_from_peer(url, SHARD_SIGN, dest, page=SYNC_PAGE)
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(dest) for f in fs)
+        with uncounted():
+            restored = StandaloneModel.load(dest)
+            same = torch.equal(restored.predict(probe), want_logits)
+        check(same, "shard: the export restored from the sharded peer "
+              "gives bit-equal logits")
+        rec["restore"] = {"seconds": restore_s, "bytes": nbytes,
+                          "mb_per_s": nbytes / 1e6 / restore_s,
+                          "page_rows": SYNC_PAGE}
+        del restored, sm, want
+        shutil.rmtree(dest)
+
+        # (d) sync: a subscriber follows the deltas into the sharded
+        # servable; a standalone twin follows the same feed
+        pub, _, pub_url = _serve(make_server, os.path.join(tmp, "reg-pub"),
+                                 publish={SHARD_SIGN: root})
+        servers.append(pub)
+        sub = SyncSubscriber(srv.manager, SHARD_SIGN, pub_url)
+        subs.append(sub)
+        check(sub.poll() == 0 and sub.version == 1,
+              f"shard: the subscriber negotiated the base ({sub.status()})")
+        twin = ModelManager(ModelRegistry(os.path.join(tmp, "reg-twin")))
+        twin.load_model(SHARD_SIGN, export)
+        tsub = SyncSubscriber(twin, SHARD_SIGN, pub_url)
+        subs.append(tsub)
+        with uncounted():
+            check(tsub.poll() == 0, "shard: the twin negotiated the base")
+        touched = np.unique(np.concatenate(
+            [b["sparse"]["categorical"].reshape(-1) for b in batches]))
+        touched = touched[touched >= 0]
+        tflat = torch.from_numpy(touched).cuda()
+        hammer = _Hammer(url, probe, SYNC_HAMMERS, SYNC_HAMMER_ROWS,
+                         sign=SHARD_SIGN)
+        hops, twin_hops = [], []
+        for i, b in enumerate(batches[1:], start=2):
+            state, _ = step(state, b)
+            p.maybe_persist(state, batch=b)
+            p.wait()
+            old = srv.manager.find_model(SHARD_SIGN)
+            hammer.pause()
+            with uncounted():
+                old_rows = old.lookup("categorical", touched)
+            hammer.go.set()
+            check(sub.poll() == 1 and sub.version == i,
+                  f"shard: delta {i} applied ({sub.status()})")
+            hops.append(sub.status()["last_hops"]["hops"])
+            with uncounted():
+                check(tsub.poll() == 1, f"shard: the twin applied {i}")
+            twin_hops.append(tsub.status()["last_hops"]["hops"])
+            new = srv.manager.find_model(SHARD_SIGN)
+            check(new is not old and new.step == i,
+                  f"shard: the servable swapped to step {i}")
+            hammer.pause()
+            with uncounted():
+                got = new.lookup("categorical", touched)
+                same_old = torch.equal(old.lookup("categorical", touched),
+                                       old_rows)
+            hammer.go.set()
+            check(torch.equal(got, live[tflat]), f"shard: step {i}'s rows "
+                  "bit-equal to the trainer's by id")
+            check(same_old, f"shard: the servable before step {i} is "
+                  "unchanged")
+            del old, new, got, old_rows
+        hammer.stop()
+        check(not hammer.failures and hammer.answered > 0,
+              f"shard: zero failed predicts across the swaps "
+              f"({hammer.failures[:3]})")
+        rec["sync"] = {
+            "deltas": SHARD_DELTAS, "hammer_answers": hammer.answered,
+            "apply_ms": [h["apply"] for h in hops],
+            "twin_apply_ms": [h["apply"] for h in twin_hops],
+            "apply_ms_median": float(np.median([h["apply"] for h in hops])),
+            "twin_apply_ms_median": float(np.median(
+                [h["apply"] for h in twin_hops])),
+            "hops": hops}
+        for s_ in subs:
+            s_.stop()
+        p.close()
+        p = None
+        del twin, tsub, sub
+        torch.cuda.empty_cache()
+
+        # (e) bfloat16: a DeepFM whose table is bfloat16, standalone and
+        # sharded
+        bmodel = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        bmodel.specs["categorical"] = dataclasses.replace(
+            spec, datatype="bfloat16")
+        btrainer = Trainer(bmodel, optimizers.Adagrad(learning_rate=0.05))
+        bstate = btrainer.init(batches[0])
+        bstate, _ = btrainer.train_step(bstate, batches[0])
+        bw = bstate.tables["categorical"].weights
+        check(bw.dtype == torch.bfloat16, "shard: a bfloat16 table")
+        bexport = os.path.join(tmp, "bf16_export")
+        bsingle = os.path.join(tmp, "bf16_single")
+        export_standalone(bstate, bmodel, bexport)
+        btrainer.save(bstate, bsingle, include_optimizer=False)
+        bwant = gather.gather_rows_reference(bw, flat).reshape(
+            ids.shape + (DIM + 1,))
+        with uncounted():
+            bso = StandaloneModel.load(bexport, model=bmodel)
+            bso_rows = bso.lookup("categorical", ids)
+            bso_logits = bso.predict(probe)
+        bsm = ShardedModel.load(bsingle, devices=["cuda:0"] * 4,
+                                model=bmodel)
+        bsm_rows = bsm.lookup("categorical", ids)
+        check(bso_rows.dtype == bsm_rows.dtype == torch.bfloat16
+              and torch.equal(bso_rows, bwant)
+              and torch.equal(bsm_rows, bwant),
+              "shard: bfloat16 rows, standalone and sharded, bit-equal to "
+              "the trainer's")
+        check(torch.equal(bsm.predict(probe), bso_logits),
+              "shard: the bfloat16 servables' logits are equal")
+        rec["bf16"] = {"shard_bytes": _shard_bytes(bsm),
+                       "export_bytes": os.path.getsize(os.path.join(
+                           bexport, "variable_0", "weights.npy"))}
+        del bsm, bso, bstate, btrainer, bw, bwant
+
+        counted = ops.launch_counts()
+        launches = ran_launches({k: counted[k] - excluded[k]
+                                 for k in KERNELS},
+                                [graph_record(step), graph_record(hstep)])
+        rec["launches"] = launches
+        rec["check_launches"] = excluded
+        for k in ("gather_rows", "fused_sparse_apply"):
+            check(launches[k] > 0, f"the shard path launched {k}")
+        rec["wall_seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "shard", **rec})
+        return launches
+    finally:
+        if hammer is not None:
+            hammer.stop()
+        for s_ in subs:
+            s_.stop()
+        if p is not None:
+            p.close()
+        for httpd in servers:
+            for s_ in httpd.subscribers.values():
+                s_.stop()
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
@@ -6872,6 +7349,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         sync_launches = phase_sync(torch, mb, ops, data, optimizers, smi)
         torch.cuda.empty_cache()
+        shard_launches = phase_shard(torch, mb, ops, data, optimizers, smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -6889,9 +7368,10 @@ def main() -> int:
                    "obs": obs_launches[k],
                    "placement": placement_launches[k],
                    "sync": sync_launches[k],
+                   "shard": shard_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
-                 "seq", "obs", "placement", "sync"):
+                 "seq", "obs", "placement", "sync", "shard"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

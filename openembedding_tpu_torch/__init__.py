@@ -16,7 +16,9 @@ host-cached tables (`tables/host_offload.py`: a device cache in front of
 the whole table in host RAM), and online sync and live replicas (`sync/`:
 a persist root's deltas published to serving nodes, applied into new
 servables and swapped in; `serving.MicroBatcher`,
-`serving.restore_from_peer`).
+`serving.restore_from_peer`), and sharded serving
+(`parallel/serving.py`: a checkpoint served from table shards on a list
+of devices, `shard_num > 1` on a serving node).
 The device kernels are hand-written CUDA: the row gather
 (`csrc/gather_rows.cu`, wrapper `ops/gather.py`), the window gather
 (`csrc/gather_rows_windows.cu`) and the fused sparse optimizer apply

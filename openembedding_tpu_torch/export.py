@@ -6,12 +6,15 @@ what the other wrote:
 - `model_meta` — the ModelMeta JSON (+ `extra`: step, model_version,
   birth_time); `model_config.json` — the zoo recipe that rebuilds the module;
 - `variable_<id>/weights.npy` in global id order (array tables), plus
-  `ids.npy`, the sorted resident ids, for hash tables;
+  `ids.npy`, the sorted resident ids, for hash tables; a bfloat16 table's
+  rows are its 2-byte words (numpy's `V2`, what `np.save` writes of the
+  JAX package's bfloat16 arrays);
 - `dense_params.npz` — the dense tower's params under their flax names.
 
 `StandaloneModel.load()` puts the tables and the dense module on one device
 (the CUDA card unless the caller asks for the CPU); `lookup` and `predict`
-gather rows through the hand-written kernel there (`ops/gather.py`).
+gather rows through the hand-written kernel there (`ops/gather.py`), in
+the table's dtype (float32 or bfloat16).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from .checkpoint import MODEL_META_FILE
+from .checkpoint import MODEL_META_FILE, store_rows
 from .convert import (dense_from_flax, dense_to_flax, table_to_numpy,
                       tables_from_numpy)
 from .device import resolve_device
@@ -145,10 +148,6 @@ def export_standalone(state: Union[WeightsState, TrainState],
             if spec.use_hash_table:
                 ids = np.zeros(0, np.int64)
                 weights = weights[:0]
-        if weights.dtype != torch.float32:
-            raise NotImplementedError(
-                f"variable {name!r}: the port exports float32 tables only, "
-                f"got {weights.dtype}")
         vdir = os.path.join(path, f"variable_{spec.variable_id}")
         os.makedirs(vdir, exist_ok=True)
         meta.variables.append(ModelVariableMeta(
@@ -158,8 +157,7 @@ def export_standalone(state: Union[WeightsState, TrainState],
                    "capacity": spec.capacity}))
         if ids is not None:
             np.save(os.path.join(vdir, "ids.npy"), ids)
-        np.save(os.path.join(vdir, "weights.npy"),
-                weights.detach().cpu().numpy())
+        np.save(os.path.join(vdir, "weights.npy"), table_to_numpy(weights))
 
     dense = dense_to_flax(state.dense)
     np.savez(os.path.join(path, "dense_params.npz"), **dense)
@@ -325,7 +323,7 @@ class StandaloneModel:
             if t is None:
                 raise KeyError(f"delta updates unknown variable {name!r}")
             ids64 = np.asarray(ids64, np.int64).reshape(-1)
-            rows = np.asarray(rows, np.float32)
+            rows = store_rows(np.asarray(rows))
             if rows.shape != (ids64.size, int(t["dim"])):
                 raise ValueError(
                     f"delta rows for {name!r} have shape {rows.shape}, "

@@ -4,7 +4,8 @@ seq) one (`mesh`), their collectives (`collectives`), process-group set-up
 and a local launcher (`multihost`), the sharded pull/push protocol
 (`sharded`), `MeshTrainer` and the context-parallel `SeqMeshTrainer`
 (`trainer`), ring and Ulysses attention (`sequence`), the ZeRO
-dense-state layout (`zero`) and sharded checkpoints (`checkpoint`)."""
+dense-state layout (`zero`), sharded checkpoints (`checkpoint`) and
+sharded serving (`serving.ShardedModel`: one process, no collective)."""
 
 from .mesh import DATA_AXIS, SEQ_AXIS, Mesh, make_mesh, make_seq_mesh
 from .sharded import (ExchangePlan, deinterleave_rows, grouped_apply_gradients,

@@ -324,7 +324,7 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
     src_shards = {v.storage_name: v.table.get("src_shards", meta.num_shards)
                   for v in meta.variables}
     T = num_shards
-    device = load_dense(state, model, path)
+    load_dense(state, model, path)
     for name, spec in model.ps_specs().items():
         S = src_shards.get(name, meta.num_shards) \
             if layout == "sharded" else 1
@@ -354,7 +354,7 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
                                  mmap_mode="r")
                     parts[n].append(np.asarray(mm[sel]))
             rows = {n: tables_from_numpy({"a": np.concatenate(p)},
-                                         device=device)["a"]
+                                         device=ts.weights.device)["a"]
                     for n, p in parts.items()}
             # the residuals ride as a slot: the load writes `ts.ef` itself
             view = dataclasses.replace(ts, slots=slots)
@@ -365,7 +365,7 @@ def load_sharded(state, model, path: str, *, num_shards: int = 1,
             dst = ts.weights if n == "weights" else slots[n[len("slot_"):]]
             dst.copy_(tables_from_numpy({"a": _array_target_shard(
                 rank, T, dst.shape[0], src, f"{n}.npy", S, spec.input_dim)},
-                device=device)["a"])
+                device=dst.device)["a"])
     state.step = int(extra.get("step", 0))
     state.model_version = int(extra.get("model_version", 0))
     return state

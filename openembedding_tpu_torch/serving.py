@@ -1,7 +1,9 @@
 """Serving: model registry, model manager, REST admin + inference server.
 
 Port of `openembedding_tpu/serving.py`: the file-based `ModelRegistry`, a
-`ModelManager` of standalone exports (`shard_num == 1`), and the REST routes
+`ModelManager` of servables (a standalone export at `shard_num == 1`, a
+checkpoint served from `shard_num` table shards above it), and the REST
+routes
 
     GET    /models                 registry listing
     GET    /models/<sign>          one registry entry
@@ -45,10 +47,16 @@ binds a request id (`X-OETPU-Request-Id` / `X-OETPU-Trace`, made when
 absent) and runs in a `serving.http` span; predicts in `serving.predict`
 and `serving.model_call`; every answer carries `X-OETPU-Server-Time`.
 Pulled and predicted ids feed the heavy-hitter sketches. Concurrent
-predicts can merge into one device batch (`MicroBatcher`). Every loaded
-model lives on the server's one device (the CUDA card unless the caller
-asks for the CPU). Sharded serving (`shard_num > 1`) is not ported yet
-(ROADMAP.md item 6.5).
+predicts can merge into one device batch (`MicroBatcher`). A standalone
+model lives on the server's device (the CUDA card unless the caller asks
+for the CPU). A model registered with `shard_num > 1` loads as a
+`parallel.serving.ShardedModel` over the first `shard_num` entries of the
+node's device list (`devices=`; by default every CUDA card, and none
+without a card): its table shards stay apart, one a device, and its dense
+tower runs on the first. A list may repeat a device, staging the shards
+on one card. A `shard_num` beyond the list is refused (500, and the
+registry entry is `ERROR`). Sync, swaps, the batcher, `/statusz` and the
+export routes take either kind of servable.
 
 Run a node with `python -m openembedding_tpu_torch.serving --registry DIR`.
 """
@@ -210,26 +218,36 @@ class ModelRegistry:
 
 
 class ModelManager:
-    """model_sign -> cached servable on `device`; refuses models that are not
-    NORMAL. Serves standalone exports (`shard_num == 1`) only."""
+    """model_sign -> cached servable; refuses models that are not NORMAL.
 
-    def __init__(self, registry: ModelRegistry, device=None):
+    `shard_num <= 1` loads a `StandaloneModel` export onto `device`.
+    `shard_num > 1` loads a checkpoint as a `ShardedModel` over the first
+    `shard_num` entries of `devices` (None = every CUDA card of the node,
+    resolved at load; a device may repeat), never materialized whole: the
+    reference's serving from the sharded PS (`exb_ops.cpp:261-276`)."""
+
+    def __init__(self, registry: ModelRegistry, device=None, devices=None):
         self.registry = registry
         self.device = resolve_device(device)
-        self._cache: Dict[str, StandaloneModel] = {}  # guarded-by: self._lock
+        self.devices = list(devices) if devices is not None else None
+        self._cache: Dict[str, Any] = {}  # guarded-by: self._lock
         self._lock = threading.Lock()
         # per-sign load guards: two first requests for one model load it once
         self._loading: Dict[str, threading.Lock] = {}  # guarded-by: self._lock
 
-    def _load_entry(self, entry: dict) -> StandaloneModel:
+    def _load_entry(self, entry: dict):
         shard_num = int(entry.get("shard_num", 1))
-        if shard_num > 1:
+        if shard_num <= 1:
+            return StandaloneModel.load(entry["uri"], device=self.device)
+        from .parallel.serving import ShardedModel, serving_devices
+        devices = serving_devices(self.devices)
+        if shard_num > len(devices):
             raise ValueError(
-                f"shard_num={shard_num}: sharded serving is not ported yet "
-                "(see ROADMAP.md); register the model with shard_num=1")
-        return StandaloneModel.load(entry["uri"], device=self.device)
+                f"shard_num={shard_num} exceeds the {len(devices)} devices "
+                "on this serving node")
+        return ShardedModel.load(entry["uri"], devices=devices[:shard_num])
 
-    def find_model(self, model_sign: str) -> StandaloneModel:
+    def find_model(self, model_sign: str):
         with self._lock:
             if model_sign in self._cache:
                 return self._cache[model_sign]
@@ -1233,20 +1251,23 @@ def _page_restore(get, manifest, model_sign: str, dest: str, peer: str,
 
 
 def make_server(registry_root: str, host: str = "127.0.0.1", port: int = 0,
-                *, device=None, batch_window_ms: float = 0.0,
+                *, device=None, devices=None, batch_window_ms: float = 0.0,
                 max_batch: int = 4096,
                 publish: Optional[Dict[str, str]] = None,
                 publish_wire: Optional[str] = None,
                 peers: Optional[list] = None) -> ThreadingHTTPServer:
     """Build (not start) the serving HTTP server; port 0 picks a free port.
-    Models load onto `device` (None = the CUDA card; raises without one).
+    Standalone models load onto `device` (None = the CUDA card; raises
+    without one); a model registered with `shard_num > 1` loads its shards
+    over the first `shard_num` of `devices` (None = every CUDA card).
     `batch_window_ms > 0` merges concurrent predicts (`MicroBatcher`, at
     most `max_batch` rows a call). `publish` ({model_sign: persist_root})
     registers online-sync publishers (more via POST
     /models/<sign>/publish; subscribers attach via POST
     /models/<sign>/sync). `peers` (base URLs of other nodes) is the default
     `GET /fleetz` scrape set (`?peers=` overrides it per request)."""
-    manager = ModelManager(ModelRegistry(registry_root), device=device)
+    manager = ModelManager(ModelRegistry(registry_root), device=device,
+                           devices=devices)
 
     class Handler(ServingHandler):
         pass

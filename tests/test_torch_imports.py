@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax():
             "openembedding_tpu_torch.parallel.multihost",
             "openembedding_tpu_torch.parallel.sharded",
             "openembedding_tpu_torch.parallel.trainer",
-            "openembedding_tpu_torch.parallel.checkpoint"} <= set(mods)
+            "openembedding_tpu_torch.parallel.checkpoint",
+            "openembedding_tpu_torch.parallel.serving"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -238,8 +238,10 @@ def test_registry_and_manager(exports, tmp_path):
     assert mgr.find_model("c-0") is mgr.find_model("c-0")
     with pytest.raises(FileExistsError):
         reg.create_model("c-0", "/x")
-    with pytest.raises(ValueError, match="sharded serving is not ported"):
-        mgr.load_model("s-0", exports["folded_f32"], shard_num=2)
+    # shard_num beyond the node's device list is refused and recorded
+    one = ModelManager(reg, device="cpu", devices=["cpu"])
+    with pytest.raises(ValueError, match="shard_num=2 exceeds the 1 devices"):
+        one.load_model("s-0", exports["folded_f32"], shard_num=2)
     assert reg.get("s-0")["status"] == "ERROR"
     with pytest.raises(Exception):
         mgr.load_model("bad", str(tmp_path / "missing"))
