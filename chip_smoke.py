@@ -404,7 +404,34 @@ final line:
    the `apply` hop a delta sharded and standalone, the restore's MB/s,
    each shard's bytes, gather launches a predict, the card's name and
    power limit;
-20. microbench — `openembedding_tpu_torch.microbench` at full size (its own
+20. ingest  — the ingest path (`data/ingest.py`,
+   `MeshTrainer.train_stream`) and remote storage (`utils/fs.py`) at the
+   flagship's full width (`make_deepfm(1 << 24, 9)`, Adagrad(0.05), batch
+   4096, windows of K = 8), on a one-rank NCCL mesh (`make_mesh()` on
+   cuda:0), `tools/ingest_soak.py`'s phases: (1) the ceiling, pre-staged
+   windows through the window driver (`jit_train_many`, wrapped in
+   `utils/guards.assert_no_recompile`), min ms a step; (2) the replay line
+   rate, batches of two `synthetic://` files parsed before the timer and
+   served by a source registered with `ingest.register_source`, the ring
+   (depth 3) stacking and staging them into `train_stream`: ex/s and the
+   input-wait share; (3) the synthetic line rate, `ingest.feed(...,
+   source="synthetic", workers=2, depth=3, window=8)`; (4) the throttled
+   control, the producer paced at 2x the ceiling a batch at depth 1, over
+   the synthetic source (the soak's recipe; its share must read over 0.5)
+   and over the replay source (reported); one capture across every
+   stream, K gathers and K applies a window; (5) the replay stream's state
+   and losses bit-equal to the same windows through `train_many` with the
+   plain versions, eager, from the same initial state; (6) four staged
+   gloo ranks on the card fed by `ingest.feed(..., mesh=mesh, window=4)`
+   over 2 windows, each window's collective fingerprint equal on every
+   rank and across the windows, losses and state bit-equal to the same
+   global windows built by hand through `train_many`; (7) a `ShellPipeFS`
+   over cat / cp / test / ls / mkdir registered as `oefs://`: the replay
+   state saved to a URI and loaded back bit-equal, an export staged out
+   and loaded from the URI predicting 4096 rows bit-equal to the local
+   export, `read_criteo_tsv` over a URI equal to the local read, and the
+   MB/s of `stage_out` / `stage_in` and of the checkpoint's save and load;
+21. microbench — `openembedding_tpu_torch.microbench` at full size (its own
    JSON lines): every kernel at widths 64 and 128 against its plain version
    and a library call, and the train step through the graph, eager and
    plain. Its launches are counted as they ran: its graph's capture is
@@ -7168,6 +7195,394 @@ def phase_shard(torch, mb, ops, data, optimizers, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+INGEST_K = 8              # steps a window (bench.py case_ingest's K)
+INGEST_SEED = TRAIN_SEED + 41  # synthetic_criteo seed of the first file
+# windows of each stream; two synthetic "days" each, K * windows / 2 steps
+INGEST_WINDOWS = {"ceiling": 6, "replay": 24, "synthetic": 16,
+                  "throttled": 4}
+INGEST_STAGED_K = 4       # the staged ranks' windows: 2 of 4 steps
+INGEST_STAGED_WINDOWS = 2
+INGEST_TSV_BATCHES = 4    # the TSV read back off a URI, batches of 4096
+INGEST_SCHEME = "oefs"    # the phase's own filesystem scheme
+
+
+def _ingest_files(seed: int, windows: int, k: int = INGEST_K) -> list:
+    """Two synthetic spec "files" holding `windows` windows of `k` steps."""
+    return [f"synthetic://steps={windows * k // 2}&seed={seed + s}"
+            f"&id_space={VOCAB}" for s in range(2)]
+
+
+def _oefs(fsmod, root: str):
+    """A ShellPipeFS over cat / cp / test / ls / mkdir that keeps
+    `oefs://<path>` under `<path>` (the shell strips the scheme)."""
+    strip = 'p="${{0#' + INGEST_SCHEME + '://}}"; '
+
+    def sh(cmd):
+        return ["sh", "-c", strip + cmd, "{path}"]
+
+    return fsmod.ShellPipeFS(
+        cat=sh('cat "$p"'),
+        put=sh('mkdir -p "$(dirname "$p")" && cat > "$p"'),
+        test=sh('test -e "$p"'), ls=sh('ls "$p"'), mkdir=sh('mkdir -p "$p"'),
+        testdir=sh('test -d "$p"'),
+        puttree=["sh", "-c", 'mkdir -p "${{1#' + INGEST_SCHEME
+                 + '://}}" && cp -r "$0"/. "${{1#' + INGEST_SCHEME
+                 + '://}}"', "{local}", "{path}"])
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def ingest_staged_rank(mesh, files):
+    """One of the staged ranks (gloo, tensors on the card): the flagship
+    fed by `ingest.feed(files, BATCH, mesh=mesh, window=4)` into
+    `train_stream`, each window's collective fingerprint taken as it runs;
+    then the same global windows built by hand (each batch's rows of this
+    rank, stacked) through `train_many` from a clone of the initial state:
+    losses and state bit-equal. Returns numbers only."""
+    import torch
+    from openembedding_tpu_torch import ops, optimizers
+    from openembedding_tpu_torch import microbench as mb
+    from openembedding_tpu_torch.data import ingest
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer
+    from openembedding_tpu_torch.parallel.multihost import local_batch
+    from openembedding_tpu_torch.utils import guards, metrics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.staged and mesh.size == MESH_STAGED, f"a staged mesh {mesh}")
+    metrics.reset_all()
+    model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+    trainer = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                          mesh=mesh, wire="fp32")
+    globals_ = [b for f in files
+                for b in ingest.SOURCES["synthetic"](f, BATCH)]
+    state = trainer.init(local_batch(globals_[0], mesh))
+    ref = state.clone()
+    fps, losses = [], []
+
+    def driver(st, w):
+        box = {}
+
+        def window():
+            box["out"] = trainer.train_many(st, w)
+
+        fps.append(guards.collective_fingerprint(window))
+        st, m = box["out"]
+        losses.append(m["loss"].clone())
+        return st, m
+
+    ops.reset_launch_counts()  # the path's run: counts read just after
+    staged0 = mesh.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = ingest.feed(files, BATCH, mesh=mesh, source="synthetic",
+                       window=INGEST_STAGED_K, workers=2, depth=2,
+                       label="staged")
+    state, rep = trainer.train_stream(state, ring, driver=driver)
+    torch.cuda.synchronize()
+    share = ingest.input_wait_share()
+    steps = INGEST_STAGED_K * INGEST_STAGED_WINDOWS
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = _mesh_launches(ops.launch_counts())
+    staged = (mesh.staged_bytes - staged0) / steps
+    ref_losses = []
+    for w in range(INGEST_STAGED_WINDOWS):
+        host = [local_batch(b, mesh) for b in
+                globals_[w * INGEST_STAGED_K:(w + 1) * INGEST_STAGED_K]]
+        ref, m = trainer.train_many(ref, _stacked(host))
+        ref_losses.append(m["loss"].clone())
+    cmp = _compare(torch, mb, state, torch.cat(losses).cpu().numpy(), ref,
+                   torch.cat(ref_losses).cpu().numpy(), "vs_hand_windows")
+    return {"rank": mesh.rank, "windows": rep["windows"], "fps": fps,
+            "losses": torch.cat(losses).cpu().numpy().tolist(),
+            "launches": launches, "ms_per_step": ms,
+            "input_wait_share": share,
+            "staged_bytes_per_step": staged, **cmp}
+
+
+def _ingest_stream(torch, tr, state, ring, driver, losses, ingest,
+                   metrics) -> tuple:
+    """`train_stream` over `ring` (the registry reset just before) ->
+    (state, the stream's record)."""
+    label = ring._labels["ring"]
+    losses.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, rep = tr.train_stream(state, ring, driver=driver)
+    seconds = time.perf_counter() - t0
+    share = ingest.input_wait_share()
+    report = metrics.report()
+    windows = rep["windows"]
+    return state, {
+        "windows": windows, "seconds": seconds,
+        "ex_per_s": windows * INGEST_K * BATCH / seconds,
+        "input_wait_share": share, "loss": rep["loss"],
+        "window_ms_mean": report.get("trainer.window_ms"),
+        "window_ms_p50": report.get("trainer.window_ms.p50"),
+        "input_wait_ms_mean": report.get("trainer.input_wait_ms"),
+        "input_wait_ms_p50": report.get("trainer.input_wait_ms.p50"),
+        "input_wait_ms_p99": report.get("trainer.input_wait_ms.p99"),
+        "stage_ms_mean": report.get(f'ingest.stage_ms{{ring="{label}"}}'),
+        "stage_ms_p99": report.get(
+            f'ingest.stage_ms{{ring="{label}"}}.p99'),
+        "parse_ms_mean": report.get(f'ingest.parse_ms{{pool="{label}"}}')}
+
+
+def phase_ingest(torch, mb, ops, data, optimizers, smi: str) -> dict:
+    """The ingest path and remote storage at full width -> {kernel:
+    launches of the phase}. See the module docstring, item 20."""
+    import torch.distributed as dist
+    from openembedding_tpu_torch.data import ingest
+    from openembedding_tpu_torch.export import (StandaloneModel,
+                                                export_standalone)
+    from openembedding_tpu_torch.models import make_deepfm
+    from openembedding_tpu_torch.parallel import MeshTrainer, make_mesh
+    from openembedding_tpu_torch.parallel import multihost
+    from openembedding_tpu_torch.parallel.multihost import run_local
+    from openembedding_tpu_torch.utils import fs as fsmod
+    from openembedding_tpu_torch.utils import guards, metrics
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-ingest-")
+    rec = {"card": smi, "batch": BATCH, "window": INGEST_K}
+    multihost.initialize("nccl", init_file=os.path.join(tmp, "store"),
+                         rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        check(mesh.size == 1 and mesh.device.type == "cuda",
+              f"ingest: a one-rank mesh on the card ({mesh})")
+        model = make_deepfm(vocabulary=VOCAB, dim=DIM)
+        tr = MeshTrainer(model, optimizers.Adagrad(learning_rate=0.05),
+                         mesh=mesh, capacity_factor=0.0, wire="fp32",
+                         pipeline_steps=True)
+        many = tr._many_driver()  # what train_stream drives by default
+        guarded = guards.assert_no_recompile(many, label="ingest.many")
+        losses = []
+
+        def driver(st, w):
+            st, m = guarded(st, w)
+            losses.append(m["loss"].clone())  # the next replay overwrites
+            return st, m
+
+        # (1) the ceiling: pre-staged windows through the graph driver
+        files = _ingest_files(INGEST_SEED, INGEST_WINDOWS["ceiling"])
+        first = next(ingest.SOURCES["synthetic"](files[0], BATCH))
+        staged = list(ingest.feed(files, BATCH, mesh=mesh,
+                                  source="synthetic", window=INGEST_K,
+                                  depth=2, label="stage"))
+        check(len(staged) == INGEST_WINDOWS["ceiling"],
+              "ingest: the ceiling's windows")
+        state = tr.init(first)
+        times = []
+        for i, w in enumerate(staged):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = driver(state, w)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3 / INGEST_K)
+        del staged
+        ceiling_ms = min(times)
+        check(many.captures == 1 and many.graph_launches == [
+            {"gather_rows": INGEST_K, "gather_rows_windows": 0,
+             "fused_sparse_apply": INGEST_K}],
+            f"ingest: one capture, K gathers and K applies a window "
+            f"({graph_record(many)})")
+        rec["ceiling"] = {"ms_per_step_min": ceiling_ms,
+                          "ms_per_step_median": float(np.median(times)),
+                          "ex_per_s": BATCH / ceiling_ms * 1e3}
+
+        # (2) replay line rate: batches parsed before the timer, served by
+        # a registered source; the ring only stacks and stages them
+        rfiles = _ingest_files(INGEST_SEED + 2, INGEST_WINDOWS["replay"])
+        parsed = {f: list(ingest.SOURCES["synthetic"](f, BATCH))
+                  for f in rfiles}
+        ingest.register_source(
+            "smoke_replay", lambda path, batch_size, **kw: iter(parsed[path]))
+        start = state.clone()
+        ops.reset_launch_counts()  # the path's run: counts read just after
+        before = graph_record(many)
+        metrics.reset_all()
+        state, rec["replay"] = _ingest_stream(
+            torch, tr, state, ingest.feed(
+                rfiles, BATCH, mesh=mesh, source="smoke_replay",
+                window=INGEST_K, depth=3, label="replay"),
+            driver, losses, ingest, metrics)
+        replay_losses = torch.cat(losses).cpu().numpy()
+        after_replay = state.clone()
+
+        # (3) synthetic line rate: parsed by two workers as it streams
+        metrics.reset_all()
+        state, rec["synthetic"] = _ingest_stream(
+            torch, tr, state, ingest.feed(
+                _ingest_files(INGEST_SEED + 4, INGEST_WINDOWS["synthetic"]),
+                BATCH, mesh=mesh, source="synthetic", workers=2, depth=3,
+                window=INGEST_K, label="synthetic"),
+            driver, losses, ingest, metrics)
+
+        # (4) throttled: the producer paced at 2x the ceiling a batch,
+        # depth 1, as the soak's control (synthetic, two workers); and the
+        # same pace over the replay source
+        throttle_s = 2 * ceiling_ms / 1e3
+        metrics.reset_all()
+        state, rec["throttled"] = _ingest_stream(
+            torch, tr, state, ingest.feed(
+                _ingest_files(INGEST_SEED + 6, INGEST_WINDOWS["throttled"]),
+                BATCH, mesh=mesh, source="synthetic", workers=2, depth=1,
+                window=INGEST_K, label="slow", throttle_s=throttle_s),
+            driver, losses, ingest, metrics)
+        metrics.reset_all()
+        state, rec["throttled_replay"] = _ingest_stream(
+            torch, tr, state, ingest.feed(
+                rfiles, BATCH, mesh=mesh, source="smoke_replay", depth=1,
+                window=INGEST_K, label="slow_replay", throttle_s=throttle_s),
+            driver, losses, ingest, metrics)
+        rec["throttle_s"] = throttle_s
+        counted = ops.launch_counts()
+        after = graph_record(many)
+        launches = {k: counted[k]
+                    + after["launches_replayed"].get(k, 0)
+                    - before["launches_replayed"].get(k, 0)
+                    - after["launches_captured"].get(k, 0)
+                    + before["launches_captured"].get(k, 0)
+                    for k in KERNELS}
+        windows_run = sum(rec[k]["windows"] for k in (
+            "replay", "synthetic", "throttled", "throttled_replay"))
+        check(launches == {"gather_rows": INGEST_K * windows_run,
+                           "gather_rows_windows": 0,
+                           "fused_sparse_apply": INGEST_K * windows_run},
+              f"ingest: K gathers and K applies ran a window ({launches})")
+        check(many.captures == 1 and guarded.trace_count() == 1,
+              f"ingest: one capture across every stream "
+              f"({graph_record(many)})")
+        for k, want in (("replay", INGEST_WINDOWS["replay"]),
+                        ("synthetic", INGEST_WINDOWS["synthetic"]),
+                        ("throttled", INGEST_WINDOWS["throttled"]),
+                        ("throttled_replay", INGEST_WINDOWS["replay"])):
+            check(rec[k]["windows"] == want,
+                  f"ingest: {k} ran {want} windows ({rec[k]['windows']})")
+        check(rec["throttled"]["input_wait_share"] > 0.5,
+              f"ingest: the throttled stream reads input-bound "
+              f"({rec['throttled']['input_wait_share']})")
+
+        # (5) the replay stream against the same windows through the plain
+        # versions, eager, from the same initial state
+        host_windows = list(ingest.FeedRing(
+            ingest.sharded_reader(rfiles, BATCH, source="smoke_replay"),
+            window=INGEST_K, device=False, label="replay_host"))
+        ref, ref_losses = start, []
+        with ops.plain_versions():
+            for w in host_windows:
+                ref, m = tr.train_many(ref, w)
+                ref_losses.append(m["loss"])
+        plain = ops.launch_counts()
+        check(all(plain[k] == counted[k] for k in KERNELS),
+              "ingest: the plain run launched no kernel")
+        rec["bit_equality"] = _compare(
+            torch, mb, after_replay, replay_losses, ref,
+            torch.cat(ref_losses).cpu().numpy(), "replay_vs_plain")
+        del ref, start, after_replay, host_windows
+        torch.cuda.empty_cache()
+
+        # (6) four staged gloo ranks on the card, fed by the ring
+        sfiles = _ingest_files(INGEST_SEED + 8, INGEST_STAGED_WINDOWS,
+                               INGEST_STAGED_K)
+        t0 = time.perf_counter()
+        ranks = run_local(ingest_staged_rank, MESH_STAGED, backend="gloo",
+                          device="cuda", args=(sfiles,), timeout_s=600,
+                          threads=0)
+        fp0 = ranks[0]["fps"][0]
+        for out in ranks:
+            check(out["windows"] == INGEST_STAGED_WINDOWS,
+                  f"ingest: rank {out['rank']} ran its windows")
+            check(out["fps"] == [fp0] * INGEST_STAGED_WINDOWS,
+                  f"ingest: rank {out['rank']}'s fingerprints equal every "
+                  f"rank's across both windows ({out['fps']}, {fp0})")
+            for k in ("gather_rows", "fused_sparse_apply"):
+                check(out["launches"][k] > 0,
+                      f"ingest: staged rank {out['rank']} launched {k}")
+                launches[k] += out["launches"][k]
+        rec["staged"] = {"ranks": MESH_STAGED,
+                         "wall_seconds": time.perf_counter() - t0,
+                         "fingerprint": fp0, "per_rank": ranks}
+
+        # (7) remote storage through the phase's own scheme
+        root = os.path.join(tmp, "remote")
+        fsmod.register_filesystem(INGEST_SCHEME, _oefs(fsmod, root))
+        uri = f"{INGEST_SCHEME}://{root}"
+        remote = {}
+        t0 = time.perf_counter()
+        tr.save(state, f"{uri}/ckpt")
+        remote["save_seconds"] = time.perf_counter() - t0
+        remote["checkpoint_bytes"] = _dir_bytes(os.path.join(root, "ckpt"))
+        fresh = tr.init(first)
+        t0 = time.perf_counter()
+        fresh = tr.load(fresh, f"{uri}/ckpt")
+        remote["load_seconds"] = time.perf_counter() - t0
+        unequal = _bits_equal(torch, mb, mb.state_bits(fresh),
+                              mb.state_bits(state))
+        check(not unequal, f"ingest: the checkpoint loaded from the URI is "
+              f"bit-equal ({unequal})")
+        del fresh
+        torch.cuda.empty_cache()
+        exp = os.path.join(tmp, "export")
+        export_standalone(state, model, exp)
+        nbytes = _dir_bytes(exp)
+        t0 = time.perf_counter()
+        fsmod.stage_out(exp, f"{uri}/export")
+        out_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = fsmod.stage_in(f"{uri}/export")
+        in_s = time.perf_counter() - t0
+        check(_dir_bytes(back) == nbytes, "ingest: stage_in brought every "
+              "byte back")
+        shutil.rmtree(back, ignore_errors=True)
+        probe = {k: first[k] for k in ("sparse", "dense")}
+        local_logits = StandaloneModel.load(exp, model=model).predict(probe)
+        remote_logits = StandaloneModel.load(f"{uri}/export",
+                                             model=model).predict(probe)
+        check(local_logits.shape[0] == BATCH
+              and torch.equal(mb.bits(local_logits), mb.bits(remote_logits)),
+              "ingest: the export loaded from the URI predicts bit-equal")
+        tsv = os.path.join(tmp, "day.tsv")
+        write_criteo_tsv(tsv, INGEST_TSV_BATCHES * BATCH, SEED + 41)
+        with fsmod.open_stream(f"{uri}/data/day.tsv", "wb") as f, \
+                open(tsv, "rb") as src:
+            shutil.copyfileobj(src, f)
+        local_rows = list(data.read_criteo_tsv(tsv, BATCH, id_space=VOCAB,
+                                               native="off"))
+        t0 = time.perf_counter()
+        remote_rows = list(data.read_criteo_tsv(f"{uri}/data/day.tsv", BATCH,
+                                                id_space=VOCAB))
+        remote["tsv_read_seconds"] = time.perf_counter() - t0
+        check(len(local_rows) == INGEST_TSV_BATCHES
+              and _same_batches(local_rows, remote_rows),
+              "ingest: read_criteo_tsv over the URI equals the local read")
+        remote.update({
+            "export_bytes": nbytes, "stage_out_seconds": out_s,
+            "stage_in_seconds": in_s,
+            "stage_out_mb_per_s": nbytes / out_s / 1e6,
+            "stage_in_mb_per_s": nbytes / in_s / 1e6,
+            "checkpoint_save_mb_per_s":
+                remote["checkpoint_bytes"] / remote["save_seconds"] / 1e6,
+            "checkpoint_load_mb_per_s":
+                remote["checkpoint_bytes"] / remote["load_seconds"] / 1e6})
+        rec["remote"] = remote
+        rec["launches"] = launches
+        rec["graph"] = graph_record(many)
+        rec["wall_seconds"] = time.perf_counter() - t_phase
+        emit({"phase": "ingest", **rec})
+        return launches
+    finally:
+        fsmod._REGISTRY.pop(INGEST_SCHEME, None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_build(torch, kernel_modules, _build) -> None:
     """Build every kernel at the same time, one nvcc each."""
     t0 = time.perf_counter()
@@ -7351,6 +7766,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         shard_launches = phase_shard(torch, mb, ops, data, optimizers, smi)
         torch.cuda.empty_cache()
+        ingest_launches = phase_ingest(torch, mb, ops, data, optimizers,
+                                       smi)
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _, bench_launches = phase_microbench(torch, mb, ops)
@@ -7369,9 +7787,10 @@ def main() -> int:
                    "placement": placement_launches[k],
                    "sync": sync_launches[k],
                    "shard": shard_launches[k],
+                   "ingest": ingest_launches[k],
                    "microbench": bench_launches[k]} for k in KERNELS}
     for path in ("hash", "lr_example", "zoo", "mesh", "persist", "offload",
-                 "seq", "obs", "placement", "sync", "shard"):
+                 "seq", "obs", "placement", "sync", "shard", "ingest"):
         for k in ("gather_rows", "fused_sparse_apply"):
             check(by_path[k][path] > 0, f"the {path} phase launched {k}")
     rows = [("gather_rows", "gather_rows.cu", ":148", main_gather),

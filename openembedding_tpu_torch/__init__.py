@@ -18,7 +18,12 @@ a persist root's deltas published to serving nodes, applied into new
 servables and swapped in; `serving.MicroBatcher`,
 `serving.restore_from_peer`), and sharded serving
 (`parallel/serving.py`: a checkpoint served from table shards on a list
-of devices, `shard_num > 1` on a serving node).
+of devices, `shard_num > 1` on a serving node), and the ingest path
+(`data/ingest.py`: file-sharded streaming, a parse pool, a device feed
+ring into `parallel.MeshTrainer.train_stream`), remote storage
+(`utils/fs.py`: registered URI schemes through save, load and serving),
+the YAML configuration tree (`config.py`) and the runtime guards
+(`utils/guards.py`).
 The device kernels are hand-written CUDA: the row gather
 (`csrc/gather_rows.cu`, wrapper `ops/gather.py`), the window gather
 (`csrc/gather_rows_windows.cu`) and the fused sparse optimizer apply
@@ -28,9 +33,12 @@ Entry points run on the card unless the caller passes `device="cpu"`;
 with `device=None` and no CUDA device they raise instead of falling back.
 """
 
+from . import config
+from .config import EnvConfig, Flags
 from .device import resolve_device
 from .persist import (AsyncPersister, IncrementalPersister, PersistPolicy,
                       persist_server_model, restore_server_model)
 
-__all__ = ["resolve_device", "AsyncPersister", "IncrementalPersister",
-           "PersistPolicy", "persist_server_model", "restore_server_model"]
+__all__ = ["config", "EnvConfig", "Flags", "resolve_device",
+           "AsyncPersister", "IncrementalPersister", "PersistPolicy",
+           "persist_server_model", "restore_server_model"]

@@ -12,7 +12,7 @@ int32 where asked): the split-pair id layout has no place in the port.
   table.
 - `read_criteo_tsv` parses with the native C++ pipeline (`native/`) when it
   builds, and with the Python row parser otherwise; both give the same
-  batches.
+  batches. Remote URIs stream through `utils/fs` on the Python parser.
 - `prefetch_to_device` stages batches through pinned host memory and copies
   them to the card on a side stream while the current step runs.
 - Multi-host: pass (host_id, num_hosts) and each host reads its interleaved
@@ -25,9 +25,12 @@ tokens hashed.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gzip
+import io
 import itertools
+import os
 import queue as queue_mod
 import threading
 import time
@@ -85,12 +88,17 @@ def _parse_rows(rows, id_space: int):
     return labels, dense, sparse
 
 
-def _local_paths(paths) -> list:
-    """The paths as a list of local paths (see `utils.fs.local_path`)."""
-    from ..utils.fs import local_path
+def _path_list(paths) -> list:
     if isinstance(paths, (str, bytes)) or hasattr(paths, "__fspath__"):
         paths = [paths]
-    return [local_path(p) for p in paths]
+    return list(paths)
+
+
+def _local_paths(paths) -> list:
+    """The paths as a list of local paths (`utils.fs.local_path`): for the
+    readers that open local files only."""
+    from ..utils.fs import local_path
+    return [local_path(p) for p in _path_list(paths)]
 
 
 def read_criteo_tsv(paths, batch_size: int, *, id_space: int = 1 << 25,
@@ -108,13 +116,25 @@ def read_criteo_tsv(paths, batch_size: int, *, id_space: int = 1 << 25,
     parser when it does not; "on" requires it; "off" forces Python. Only
     building the reader falls back: a failure while reading raises.
 
+    Remote URIs (a scheme registered with `utils.fs.register_filesystem`)
+    always stream through `utils.fs.open_stream` on the Python engine, a
+    .gz decoded as it arrives; `native="on"` refuses them. A transport that
+    fails in the middle of a stream raises.
+
     With `repeat=True` the Python engine starts every pass with no pending
     rows, so a file with fewer rows than one batch (and `drop_remainder`)
     never yields: it loops forever, as the JAX package's reader does."""
-    paths = _local_paths(paths)
+    from ..utils import fs as fsmod
+    paths = [os.fspath(p) for p in _path_list(paths)]
     if native not in ("auto", "on", "off"):
         raise ValueError(f"bad native mode {native!r}")
-    if native != "off":
+    any_remote = any(fsmod.is_remote(p) for p in paths)
+    if any_remote and native == "on":
+        raise ValueError("native reader reads local files only; remote URIs "
+                         "stream through utils.fs (native='off'/'auto')")
+    paths = [p if fsmod.is_remote(p) else fsmod.split_uri(p)[1]
+             for p in paths]
+    if native != "off" and not any_remote:
         reader = None
         try:
             from .. import native as native_mod
@@ -131,8 +151,19 @@ def read_criteo_tsv(paths, batch_size: int, *, id_space: int = 1 << 25,
     while True:
         pending = []
         for path in paths:
-            opener = gzip.open if str(path).endswith(".gz") else open
-            with opener(path, "rt") as f:
+            stack = contextlib.ExitStack()
+            if fsmod.is_remote(path):
+                # GzipFile does not close its fileobj, so the pipe reader
+                # (whose close() waits for the transport and raises on a
+                # failed one) enters the stack itself
+                raw = stack.enter_context(fsmod.open_stream(path, "rb"))
+                f = stack.enter_context(io.TextIOWrapper(
+                    gzip.GzipFile(fileobj=raw) if path.endswith(".gz")
+                    else raw))
+            else:
+                opener = gzip.open if path.endswith(".gz") else open
+                f = stack.enter_context(opener(path, "rt"))
+            with stack:
                 for i, line in enumerate(f):
                     if i % num_hosts != host_id:
                         continue

@@ -213,8 +213,14 @@ class StandaloneModel:
         """Load an export onto `device` (None = the CUDA card; raises when
         there is none). The export's dense weights load into a copy of the
         model's dense module (`self.dense`); `model.module` stays as it
-        is."""
+        is. `path` may be a URI of a registered filesystem (`utils/fs`):
+        the export is staged to a local temporary directory first."""
+        from .utils import fs as fsmod
         device = resolve_device(device)
+        if fsmod.is_remote(path):
+            with fsmod.staged(path) as local:
+                return cls.load(local, model=model, device=device)
+        path = fsmod.split_uri(os.fspath(path))[1]
         with open(os.path.join(path, MODEL_META_FILE)) as f:
             raw_meta = f.read()
         meta = ModelMeta.from_json(raw_meta)

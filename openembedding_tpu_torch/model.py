@@ -48,7 +48,6 @@ from .ops.sparse import (lookup_rows, lookup_rows_trainable, pack_table,
 from .tables.hash_table import hash_apply_gradients_packed
 from .optimizers import Adagrad, SparseOptimizer
 from .utils import trace as _trace
-from .utils.fs import local_path
 
 
 def binary_logloss(logits: torch.Tensor, labels: torch.Tensor,
@@ -512,31 +511,60 @@ class Trainer:
 
     # -- checkpoints ---------------------------------------------------------
 
+    def _stage_save(self, write_fn, path: str):
+        """`write_fn(path)`; for a remote URI (`utils/fs`) `write_fn` writes
+        into a local temporary directory, which is then pushed to the URI
+        (`fs.stage_out`) and removed. Each rank pushes only the files it
+        wrote, so the uploads of a sharded checkpoint compose."""
+        from .utils import fs as fsmod
+        if not fsmod.is_remote(path):
+            return write_fn(fsmod.split_uri(path)[1])
+        import shutil
+        import tempfile
+        local = tempfile.mkdtemp(prefix="oetpu_ckpt_out_")
+        try:
+            meta = write_fn(local)
+            fsmod.stage_out(local, path)
+            return meta
+        finally:
+            shutil.rmtree(local, ignore_errors=True)
+
+    def _stage_load(self, read_fn, path: str):
+        """`read_fn` of a local directory holding `path` (`fs.staged`: a
+        remote URI is fetched into a temporary directory first)."""
+        from .utils import fs as fsmod
+        with fsmod.staged(path) as local:
+            return read_fn(fsmod.split_uri(local)[1])
+
     def save(self, state: TrainState, path: str, **kw):
-        """`checkpoint.save_server_model` of the state into the local
-        directory `path` (remote URIs: ROADMAP.md item 7); pass
-        `include_optimizer=False` to leave the optimizer slots out. A
-        host-cached table writes its whole store, the residents written
-        back first (`offload_store_snapshots`)."""
+        """`checkpoint.save_server_model` of the state into `path`, a local
+        directory or a URI of a registered filesystem (`utils/fs`: written
+        locally, then pushed); pass `include_optimizer=False` to leave the
+        optimizer slots out. A host-cached table writes its whole store, the
+        residents written back first (`offload_store_snapshots`)."""
         from .checkpoint import save_server_model
-        return save_server_model(
-            state, self.model, local_path(path),
-            offload_stores=self.offload_store_snapshots(state), **kw)
+        stores = self.offload_store_snapshots(state)
+        return self._stage_save(lambda p: save_server_model(
+            state, self.model, p, offload_stores=stores, **kw), path)
 
     def load(self, state: TrainState, path: str) -> TrainState:
-        """`checkpoint.load_server_model` from the local directory `path`
-        into `state`, in place; returns it. A sharded checkpoint (written by
-        `parallel.MeshTrainer.save` at any mesh size) loads through
-        `parallel/checkpoint.load_sharded`, as in the JAX package. A
-        host-cached table loads into its store, its cache reset."""
+        """`checkpoint.load_server_model` from `path` (a local directory, or
+        a URI staged to local disk first) into `state`, in place; returns
+        it. A sharded checkpoint (written by `parallel.MeshTrainer.save` at
+        any mesh size) loads through `parallel/checkpoint.load_sharded`, as
+        in the JAX package. A host-cached table loads into its store, its
+        cache reset."""
         from .checkpoint import load_server_model
         from .parallel.checkpoint import checkpoint_layout, load_sharded
-        path = local_path(path)
-        if checkpoint_layout(path) == "sharded":
-            return load_sharded(state, self.model, path,
-                                offload=self._adopted(state))
-        return load_server_model(state, self.model, path,
-                                 offload=self._adopted(state))
+
+        def read(p):
+            if checkpoint_layout(p) == "sharded":
+                return load_sharded(state, self.model, p,
+                                    offload=self._adopted(state))
+            return load_server_model(state, self.model, p,
+                                     offload=self._adopted(state))
+
+        return self._stage_load(read, path)
 
     def _adopted(self, state: TrainState) -> Dict[str, Any]:
         """`self.offload`, each table holding `state`'s cache."""

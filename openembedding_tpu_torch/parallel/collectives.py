@@ -30,7 +30,10 @@ JAX package.
 collective per kind, under the names of XLA's HLO ops that the JAX package
 counts (`all_to_all`, `all_reduce` for `dense_sum` / `psum` / `pmean` /
 `psum_stats`, `all_gather`, `reduce_scatter`, `collective_permute`); a
-collective built on another counts once, under its own kind. Under NCCL the tensors stay on the card. Under gloo, which
+collective built on another counts once, under its own kind.
+`record_sequence()` records the same collectives in order, with the group
+size, dtype and shape of each (`utils/guards`' fingerprint). Under NCCL the
+tensors stay on the card. Under gloo, which
 moves host tensors only, a CUDA tensor goes through host buffers because
 the caller chose `backend="gloo"`; the bytes copied each way are counted
 in `mesh.staged_bytes`. Gloo and NCCL both refuse int16 and uint16
@@ -54,9 +57,10 @@ _BYTE_VIEW = {torch.int16: torch.int8, torch.uint16: torch.int8,
               torch.bool: torch.uint8}
 
 
-# the open `record_bytes` dicts, and how deep the current collective nests
-# in another (only the outermost one counts)
+# the open `record_bytes` dicts and `record_sequence` lists, and how deep
+# the current collective nests in another (only the outermost one counts)
 _RECORDS: List[Dict[str, int]] = []
+_SEQUENCES: List[List[tuple]] = []
 _DEPTH = [0]
 
 
@@ -72,6 +76,39 @@ def record_bytes():
         _RECORDS.remove(seen)
 
 
+@contextlib.contextmanager
+def record_sequence():
+    """Record every collective run inside the block, in order, as (kind,
+    group size, dtype, shape) -> the list, filled as they run (what
+    `utils/guards.collective_fingerprint` hashes). A dict of stats
+    (`psum_stats`) records its keys, shapes and dtypes."""
+    seq: List[tuple] = []
+    _SEQUENCES.append(seq)
+    try:
+        yield seq
+    finally:
+        _SEQUENCES.remove(seq)
+
+
+def _signature(x) -> tuple:
+    if isinstance(x, dict):
+        return ("dict", tuple((k, str(v.dtype), tuple(v.shape))
+                              for k, v in sorted(x.items())))
+    return (str(x.dtype), tuple(x.shape))
+
+
+def _note(kind: str, mesh: Mesh, x, scale) -> None:
+    """Count one outermost collective in the open records."""
+    if _RECORDS:
+        n = int(_nbytes(x) * scale(mesh))
+        for seen in _RECORDS:
+            seen[kind] = seen.get(kind, 0) + n
+    if _SEQUENCES:
+        entry = (kind, mesh.size) + _signature(x)
+        for seq in _SEQUENCES:
+            seq.append(entry)
+
+
 def _nbytes(x) -> int:
     if isinstance(x, dict):
         return sum(v.numel() * 8 for v in x.values())
@@ -80,14 +117,14 @@ def _nbytes(x) -> int:
 
 def _counted(kind: str, scale=lambda mesh: 1):
     """Count a collective's result bytes (`_nbytes` of its input times
-    `scale(mesh)`) under `kind` in every open `record_bytes`."""
+    `scale(mesh)`) under `kind` in every open `record_bytes`, and record it
+    in every open `record_sequence`."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(mesh, x, *args, **kwargs):
-            if _RECORDS and _DEPTH[0] == 0 and mesh.size > 1:
-                n = int(_nbytes(x) * scale(mesh))
-                for seen in _RECORDS:
-                    seen[kind] = seen.get(kind, 0) + n
+            if (_RECORDS or _SEQUENCES) and _DEPTH[0] == 0 \
+                    and mesh.size > 1:
+                _note(kind, mesh, x, scale)
             _DEPTH[0] += 1
             try:
                 return fn(mesh, x, *args, **kwargs)
@@ -244,6 +281,9 @@ def broadcast_object(mesh: Mesh, obj=None, src: int = 0):
 
 def barrier(mesh: Mesh) -> None:
     if mesh.size > 1:
+        if _DEPTH[0] == 0:
+            for seq in _SEQUENCES:
+                seq.append(("barrier", mesh.size))
         dist.barrier(group=mesh.group)
 
 

@@ -8,6 +8,11 @@ init file, always with a finite timeout. Every rank reads the same batch
 stream and keeps its own rows (`local_batch`), the JAX `global_batch`
 sharding `P("data")` seen from one rank.
 
+`global_batch` / `window_batch` give a rank its rows of the node's batch
+(or of a stacked window, along axis 1) on its device: the ingest ring's
+staging (`data/ingest.py`). A node is the JAX package's host: every rank
+of a node reads the node's stream (`node_id`, `num_nodes`).
+
 `run_local` spawns S ranks on this machine (the tests and `chip_smoke.py`
 use it); `torchrun --nproc-per-node S` is the production launcher.
 `allgather_host_ids` unions the ranks' host-side id sets (the incremental
@@ -82,6 +87,89 @@ def host_id() -> int:
 def num_hosts() -> int:
     """The number of ranks (1 without a process group)."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def node_id() -> int:
+    """This process's node (torchrun's GROUP_RANK; 0 without it): the
+    "host" of the JAX package's multi-host ingest, which reads its own
+    slice of the files (`data.ingest.sharded_files`) and feeds every rank
+    on the node."""
+    return int(os.environ.get("GROUP_RANK", 0))
+
+
+def num_nodes() -> int:
+    """The number of nodes (torchrun's NNODES; 1 without it)."""
+    return int(os.environ.get("NNODES", 1))
+
+
+def _node_rows(x, mesh: Mesh, axis: str, dim: int):
+    """This rank's rows along `dim` of its node's share of a batch: the
+    node's N ranks along `axis` (the mesh's ranks on the axis, over
+    `num_nodes()`) split the node's rows in rank order."""
+    names = tuple(mesh.axis_names)
+    if axis not in names:
+        raise ValueError(f"axis {axis!r} is not one of the mesh's {names}")
+    if len(names) == 1:
+        pos, size = mesh.rank, mesh.size
+    else:
+        coords = divmod(mesh.rank, mesh.shape[1])
+        pos, size = coords[names.index(axis)], mesh.shape[names.index(axis)]
+    nodes = num_nodes()
+    if size % nodes:
+        raise ValueError(f"the mesh's {size} ranks along {axis!r} do not "
+                         f"divide over {nodes} nodes")
+    per_node = size // nodes
+    return _block(x, per_node, pos % per_node, dim, "batch")
+
+
+def node_rows(local, mesh: Mesh, axis: str = "data", dim: int = 0):
+    """This rank's block of every leaf of the node's batch along `dim`, on
+    the host (numpy arrays or tensors as given; None stays None): what
+    `global_batch` (dim 0) and `window_batch` (dim 1) put on the device."""
+    def take(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        if x.ndim < dim + 1:
+            raise ValueError(f"{'window_batch' if dim else 'global_batch'}"
+                             f" leaf ndim {x.ndim}: need "
+                             f"{'(K, batch, ...)' if dim else '(batch, ...)'}")
+        return _node_rows(x, mesh, axis, dim)
+
+    return take(local)
+
+
+def _put_rows(local, mesh: Mesh, axis: str, dim: int):
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        return torch.as_tensor(x).to(mesh.device)
+
+    return put(node_rows(local, mesh, axis, dim))
+
+
+def global_batch(local: Dict, mesh: Mesh, axis: str = "data") -> Dict:
+    """This rank's rows of a batch, as tensors on the mesh's device.
+
+    `local` is the node's rows of the global batch (the whole batch on one
+    node): every rank of a node reads the node's stream and keeps its own
+    block of rows, in rank order along `axis` (on one node this is
+    `local_batch`). It is the JAX `global_batch` seen from one rank: the
+    JAX package puts a host's rows on its devices, sharded over the axis."""
+    return _put_rows(local, mesh, axis, 0)
+
+
+def window_batch(local: Dict, mesh: Mesh, axis: str = "data") -> Dict:
+    """`global_batch` for a stacked K-step window: every leaf is (K, batch,
+    ...), the batch dim is axis 1 and K stays whole on every rank (what
+    `MeshTrainer.train_many` steps over). A leaf of fewer than 2 dims
+    raises ValueError."""
+    return _put_rows(local, mesh, axis, 1)
 
 
 def _block(x, size: int, index: int, dim: int, what: str):

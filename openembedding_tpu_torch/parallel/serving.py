@@ -55,7 +55,6 @@ from ..model import SAD_SCOPE, attach_ids
 from ..ops import gather
 from ..tables.hash_table import (fresh_keys, hash_find, hash_find_or_insert,
                                  shard_probe)
-from ..utils.fs import local_path
 
 # the times a serving hash shard may grow by a quarter at load (to 2.44x
 # JAX's size) before an id without a slot fails the load
@@ -233,8 +232,16 @@ class ShardedModel:
         of the checkpoint's ids. Where an id finds no slot within the probe
         budget there, the shard grows by a quarter and loads again, up to
         `HASH_GROWTHS` times (JAX raises at once); past that the load
-        raises RuntimeError."""
-        path = local_path(path)
+        raises RuntimeError.
+
+        `path` may be a URI of a registered filesystem (`utils/fs`): the
+        checkpoint is staged to a local temporary directory first (the
+        loaders are random-access), as `Trainer.load` stages it."""
+        from ..utils import fs as fsmod
+        if fsmod.is_remote(path):
+            with fsmod.staged(path) as local:
+                return cls.load(local, devices=devices, model=model)
+        path = fsmod.split_uri(os.fspath(path))[1]
         devices = serving_devices(devices)
         T = len(devices)
         with open(os.path.join(path, MODEL_META_FILE)) as f:

@@ -85,7 +85,6 @@ from ..model import (EmbeddingModel, TrainState, Trainer, _batch_slice,
 from ..ops import wire as wire_mod
 from ..optimizers import SparseOptimizer
 from ..utils import metrics as _metrics
-from ..utils.fs import local_path
 from . import collectives as coll
 from . import zero
 from .mesh import Mesh, make_mesh
@@ -865,15 +864,17 @@ class MeshTrainer(Trainer):
 
     def save(self, state: TrainState, path: str, **kw):
         """Every rank writes its own shards (`parallel/checkpoint.py`), rank
-        0 the meta and the dense files; returns once all have written. The
+        0 the meta and the dense files; returns once all have written. To a
+        remote URI (`utils/fs`) each rank writes into a local temporary
+        directory and pushes only the files it wrote. The
         placement is written back first (`hot_sync`), so the files equal a
         run's without it; `ef` is saved as the slot `__ef__`."""
         from .checkpoint import save_sharded
-        meta = save_sharded(self.externalize(state), self.model,
-                            local_path(path), num_shards=self.num_shards,
-                            rank=self.mesh.rank,
-                            offload_stores=self.offload_store_snapshots(
-                                state), **kw)
+        stores = self.offload_store_snapshots(state)
+        state = self.externalize(state)
+        meta = self._stage_save(lambda p: save_sharded(
+            state, self.model, p, num_shards=self.num_shards,
+            rank=self.mesh.rank, offload_stores=stores, **kw), path)
         coll.barrier(self.mesh)
         return meta
 
@@ -888,10 +889,10 @@ class MeshTrainer(Trainer):
         hold their addresses); the masters come from the loaded params and
         the residual re-seeds to zeros."""
         from .checkpoint import load_sharded
-        return self.load_into(state, lambda target: load_sharded(
-            target, self.model, local_path(path),
-            num_shards=self.num_shards, rank=self.mesh.rank,
-            offload=self._adopted(state)))
+        return self._stage_load(lambda p: self.load_into(
+            state, lambda target: load_sharded(
+                target, self.model, p, num_shards=self.num_shards,
+                rank=self.mesh.rank, offload=self._adopted(state))), path)
 
     def load_into(self, state: TrainState, fill) -> TrainState:
         """`load`'s path around `fill(target)`, which writes a restored
@@ -1509,11 +1510,53 @@ class MeshTrainer(Trainer):
         return super().jit_eval_step()
 
     def _many_driver(self):
-        """`offload_train_many`'s window: `train_many` on a staged mesh,
-        which has no graph driver."""
+        """The window driver the trainer keeps (`offload_train_many`'s and
+        `train_stream`'s): `jit_train_many`, or `train_many` on a staged
+        mesh, which has no graph driver."""
         if self.mesh.staged:
             return self.train_many
         return super()._many_driver()
+
+    def train_stream(self, state: TrainState, windows, *,
+                     block: bool = True, driver=None):
+        """Drive the window driver over a stream of stacked K-step windows
+        already on the device (a `data.ingest.FeedRing` in window mode),
+        with the input-wait attribution lane: each window's blocking
+        `next()` lands in `trainer.input_wait_ms` (`input_timed`) and each
+        window's wall time in the `trainer.window_ms` histogram, the
+        denominator `data.ingest.input_wait_share` folds the waits against.
+        Window stats fold through `record_window_stats`.
+
+        `driver`: None is the trainer's kept window driver
+        (`_many_driver`: the `jit_train_many` CUDA graph, or `train_many`
+        on a staged mesh; on the CPU the eager window). The ring drops a
+        partial window, so every window has one structure and the graph is
+        captured once. `block=True` synchronizes the trainer's stream after
+        every window (and before the first), so `window_ms` is the window's
+        wall time; with `block=False` only the launches are timed.
+
+        Returns `(state, {"windows": n, "loss": last})`, `last` the last
+        step's loss of the last window (None for an empty stream)."""
+        import time as _time
+        cuda = self.device.type == "cuda"
+        sync = (torch.cuda.current_stream(self.device).synchronize
+                if cuda and block else (lambda: None))
+        many = driver if driver is not None else self._many_driver()
+        n = 0
+        last = None
+        sync()
+        for w in self.input_timed(windows):
+            t0 = _time.perf_counter()
+            state, m = many(state, w)
+            sync()
+            _metrics.observe("trainer.window_ms",
+                             (_time.perf_counter() - t0) * 1e3, "hist")
+            self.record_window_stats(m)
+            # a graph's outputs are overwritten by its next replay
+            last = m["loss"][-1].clone() if isinstance(m, dict) else None
+            n += 1
+        return state, {"windows": n,
+                       "loss": None if last is None else float(last)}
 
 
 

@@ -2,8 +2,9 @@
 the metrics registry (`metrics`), spans and the flight recorder (`trace`),
 metric history rings (`history`), SLOs (`slo`), postmortem capsules
 (`capsule`), heavy-hitter sketches (`sketch`), sampled step timing
-(`stepwatch`), the device-memory ledger (`memwatch`) and local paths
-(`fs`). Remote filesystems are ROADMAP.md item 7."""
+(`stepwatch`), the device-memory ledger (`memwatch`), remote storage
+URIs (`fs`) and the runtime guards (`guards`: no CUDA-graph re-capture,
+a fixed collective sequence)."""
 
 from . import metrics, trace
 from .metrics import (Accumulator, vtimer, report, report_table,

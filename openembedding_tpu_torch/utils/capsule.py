@@ -1,6 +1,8 @@
 """The port's copy of `openembedding_tpu/utils/capsule.py`. Divergences
 kept on purpose (ROADMAP.md §C): `hlo_budget_digest` is null (no HLO
-budget on the card) and `fingerprint` is null (ROADMAP.md item 7);
+budget on the card); `fingerprint` is the port's collective fingerprint
+(`utils/guards.last_fingerprint()`: the recorded collective sequence, not
+a traced one);
 `lineage` is the port's delta lineage book (`sync/lineage.BOOK`).
 
 Postmortem capsules: one self-contained flight-data dump per failure.
@@ -16,7 +18,7 @@ evidence at the moment of failure into one atomic
 - every metric history ring (`utils/history.HISTORY.export()`) plus a
   point-in-time `metrics.report()`;
 - the device-memory ledger (`utils/memwatch.WATCH.export()`);
-- the last collective fingerprint (null in the port);
+- the last collective fingerprint (`utils/guards.last_fingerprint()`);
 - registered context providers (resolved trainer/serving config —
   `register_context("trainer", lambda: {...})`);
 - the sha256 digest of the checked-in HLO-budget table, naming the compiled
@@ -110,7 +112,7 @@ class CapsuleWriter:
     # -- assembly -------------------------------------------------------------
 
     def _payload(self, reason: str, attrs: Dict[str, Any]) -> Dict[str, Any]:
-        from . import history, memwatch, trace
+        from . import guards, history, memwatch, trace
         now = time.time()
         context: Dict[str, Any] = {}
         with _LOCK:
@@ -139,7 +141,7 @@ class CapsuleWriter:
             "metrics": metrics.report(reset=False),
             "memory": memwatch.WATCH.export(),
             "lineage": lineage_records,
-            "fingerprint": None,
+            "fingerprint": guards.last_fingerprint(),
             "context": context,
             "hlo_budget_digest": _hlo_budget_digest(),
         }

@@ -123,7 +123,7 @@ def test_repeat_restarts_every_pass(engine):
 
 
 def test_remote_uris_and_bad_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no filesystem registered"):
         next(criteo.read_criteo_tsv("gs://bucket/day_0.tsv", 8))
     with pytest.raises(ValueError, match="native mode"):
         next(criteo.read_criteo_tsv(TRAIN100, 8, native="maybe"))

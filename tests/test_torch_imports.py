@@ -51,7 +51,12 @@ def test_every_module_imports_without_jax():
             "openembedding_tpu_torch.parallel.sharded",
             "openembedding_tpu_torch.parallel.trainer",
             "openembedding_tpu_torch.parallel.checkpoint",
-            "openembedding_tpu_torch.parallel.serving"} <= set(mods)
+            "openembedding_tpu_torch.parallel.serving",
+            "openembedding_tpu_torch.config",
+            "openembedding_tpu_torch.data.ingest",
+            "openembedding_tpu_torch.ingest_soak",
+            "openembedding_tpu_torch.utils.fs",
+            "openembedding_tpu_torch.utils.guards"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
