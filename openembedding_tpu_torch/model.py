@@ -47,6 +47,7 @@ from .ops.sparse import (lookup_rows, lookup_rows_trainable, pack_table,
                          unpack_table)
 from .tables.hash_table import hash_apply_gradients_packed
 from .optimizers import Adagrad, SparseOptimizer
+from .utils import phases as _phases
 from .utils import trace as _trace
 
 
@@ -934,11 +935,14 @@ class Trainer:
         between them. The pull and the push go through `tables_pull` and
         `tables_apply`, the dense gradients through `dense_grad_stats`,
         `reduce_dense_grads` and `dense_update`, the loss and stats through
-        `reduce_metrics` (the hooks MeshTrainer overrides). The four phases
-        are `torch.profiler` ranges (`trainer.pull`, `trainer.compute`,
-        `trainer.dense_apply`, `trainer.sparse_apply`)."""
-        b = _transformed(self.model, b)
-        with record_function("trainer.pull"), _trace.span("trainer", "pull"):
+        `reduce_metrics` (the hooks MeshTrainer overrides). Its phases
+        (`utils/phases.phase`: a profiler range and a trace span each) are
+        `trainer.pull` (the batch's transform and every table's pull, a hash
+        table's `hash.probe_insert` inside it), then `_step_tail`'s
+        `trainer.compute` and `trainer.apply`; they partition the step but
+        for `reduce_metrics`."""
+        with _phases.phase("trainer", "pull"):
+            b = _transformed(self.model, b)
             ids = self._batch_ids(b)
             pulled, plans, stats = self.tables_pull(state, ids, packed)
         return self._step_tail(state, b, ids, pulled, plans, stats, packed)
@@ -962,11 +966,17 @@ class Trainer:
         `MeshTrainer.train_many` feeds it rows prefetched a step ahead.
         `before_apply` runs just before the sparse apply (the pipelined
         loop's wait on its prefetch's serve). With the sentinel, its stats
-        join `stats` before `reduce_metrics`. Each phase is also a trace
-        span (`trainer.compute`, `trainer.apply`): host time of an eager
-        step or of a capture, never of a replay."""
+        join `stats` before `reduce_metrics`. Its phases: `trainer.compute`
+        (the pulled rows and the sparse_as_dense tables made autograd
+        leaves, the sparse_as_dense pulls, forward, loss, backward, the
+        dense gradients and their reduce) and `trainer.apply`, which holds
+        `trainer.dense_apply` and `trainer.sparse_apply` (the push's dedup,
+        `trainer.dedup`, inside it). As spans and ranges they time the host:
+        an eager step or a capture. Under a timed driver
+        (`jit_train_many(timed=True)`, `utils/phases.clocked`) each is also
+        timed on the device at every replay of the graph."""
         sad_specs = self.model.sad_specs()
-        with record_function("trainer.pull"):
+        with _phases.phase("trainer", "compute"):
             for rows in pulled.values():
                 rows.requires_grad_()
             # each sparse_as_dense table enters autograd as a leaf that
@@ -976,8 +986,6 @@ class Trainer:
                           .requires_grad_() for name in sad_specs}
             for name in sad_specs:
                 pulled[name] = sad_rows(sad_leaves[name], ids[name])
-        with record_function("trainer.compute"), \
-                _trace.span("trainer", "compute"):
             embedded = {name: combine(spec, ids[name], pulled[name])
                         for name, spec in self.model.specs.items()}
             attach_ids(embedded, self.model, b, self.device)
@@ -994,11 +1002,11 @@ class Trainer:
                         {name: pulled[name].grad
                          for name in self.model.ps_specs()}))
             grads = self.reduce_dense_grads(grads)
-        with _trace.span("trainer", "apply"):
-            with record_function("trainer.dense_apply"):
+        with _phases.phase("trainer", "apply"):
+            with _phases.phase("trainer", "dense_apply"):
                 self.dense_update(state, grads)
                 self.reduce_module_state(state.dense)
-            with record_function("trainer.sparse_apply"), torch.no_grad():
+            with _phases.phase("trainer", "sparse_apply"), torch.no_grad():
                 if before_apply is not None:
                     before_apply()
                 stats.update(self.tables_apply(
@@ -1010,20 +1018,43 @@ class Trainer:
         loss, stats = self.reduce_metrics(loss.detach(), stats)
         return loss, logits.detach(), stats
 
-    def train_step(self, state: TrainState, batch
+    def train_step(self, state: TrainState, batch, *, timed: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One synchronous step: the batch to the device (`trainer.h2d`),
         then `_step`, in place. Returns (state, {"loss": (), "logits":
         (B,), "stats": {"<table>_overflow": () int32 per hash table, and
         with the sentinel its health stats}}); nothing is read back to the
         host (`record_step_stats` reads them). The JAX package's
-        single-device step has no overflow stats (ROADMAP.md §C)."""
+        single-device step has no overflow stats (ROADMAP.md §C).
+        `timed`: the step's phases are timed on the device and its
+        counters kept (`_timed`)."""
         with record_function("trainer.h2d"):
             b = self._device_batch(batch)
-        loss, logits, stats = self._step(state, b, {})
+        out = self._timed(lambda: self._step_metrics(state, b), timed)
         state.step += 1
         state.model_version += 1
-        return state, {"loss": loss, "logits": logits, "stats": stats}
+        return state, out
+
+    def _step_metrics(self, state: TrainState, b) -> Dict[str, Any]:
+        loss, logits, stats = self._step(state, b, {})
+        return {"loss": loss, "logits": logits, "stats": stats}
+
+    def _timed(self, run: Callable[[], Dict[str, Any]], timed: bool
+               ) -> Dict[str, Any]:
+        """`run()`'s metrics; with `timed`, run inside a phase clock
+        (`utils/phases.clocked`) and given its counters, each summed over
+        the run's steps on the device: "distinct", the live unique rows of
+        every push's dedup, and "inserted", the slots the hash tables'
+        pulls claimed; and "phases", the `PhaseClock` whose `ms()` reads
+        the phases' device time."""
+        with _phases.clocked(self.device, timed) as clock:
+            out = run()
+            if clock is not None:
+                for name in ("distinct", "inserted"):
+                    out[name] = clock.counters.get(name, torch.zeros(
+                        (), dtype=torch.int64, device=self.device))
+                out["phases"] = clock
+        return out
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
@@ -1051,8 +1082,13 @@ class Trainer:
         the steps on the packed arrays (a hash table keeps its keys and
         counter apart, updated in place), copies the values back into the
         split tensors at exit; the state's split table objects are back in
-        place whatever happens."""
+        place whatever happens. The whole is the phase `trainer.window`."""
         self._check_offload_prepared()
+        with _phases.phase("trainer", "window"):
+            return self._many_steps(state, b)
+
+    def _many_steps(self, state: TrainState, b: Dict[str, Any]
+                    ) -> Dict[str, Any]:
         layouts = self._packed_layouts(state)
         split = {name: state.tables[name] for name in layouts}
         overflow = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -1081,7 +1117,7 @@ class Trainer:
             state.tables.update(split)
         return {"loss": torch.stack(losses), "overflow": overflow}
 
-    def train_many(self, state: TrainState, batches
+    def train_many(self, state: TrainState, batches, *, timed: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """K steps over stacked batches (every leaf has a leading K dim): the
         port of the JAX package's scan window. Tables that
@@ -1092,9 +1128,11 @@ class Trainer:
         Equal to K `train_step` calls, bit for bit.
         Returns (state, {"loss": (K,), "overflow": ()}); "overflow" sums the
         steps' `<table>_overflow` stats, the ids the hash tables' pulls found
-        no slot for in the window (0 without hash tables)."""
+        no slot for in the window (0 without hash tables). `timed`: the
+        window's phases are timed on the device and its counters kept
+        (`_timed`)."""
         b = self._device_batch(batches)
-        metrics = self._many(state, b)
+        metrics = self._timed(lambda: self._many(state, b), timed)
         k_steps = metrics["loss"].shape[0]
         state.step += k_steps
         state.model_version += k_steps
@@ -1136,19 +1174,22 @@ class Trainer:
 
     # -- compiled steps ------------------------------------------------------
 
-    def jit_train_step(self) -> "CompiledStep":
+    def jit_train_step(self, timed: bool = False) -> "CompiledStep":
         """`train_step` as a CUDA graph: `step(state, batch) -> (state,
-        metrics)`, the state updated in place (see `CompiledStep`). With
-        `measure_every=N` the driver is wrapped in the trainer's StepWatch
-        (one call in N measured); `jit_train_many` and `jit_eval_step` stay
-        unwrapped, as in the JAX package."""
-        return self._wrap_measured(CompiledStep(self, kind="step"))
+        metrics)`, the state updated in place (see `CompiledStep`; `timed`:
+        its phases timed at every replay). With `measure_every=N` the
+        driver is wrapped in the trainer's StepWatch (one call in N
+        measured); `jit_train_many` and `jit_eval_step` stay unwrapped, as
+        in the JAX package."""
+        return self._wrap_measured(CompiledStep(self, kind="step",
+                                                timed=timed))
 
-    def jit_train_many(self) -> "CompiledStep":
+    def jit_train_many(self, timed: bool = False) -> "CompiledStep":
         """A whole `train_many` window (its K steps, and the pack and unpack
         where the gate packs) as one CUDA graph, one dispatch per window:
-        the port's counterpart of the jitted scan (see `CompiledStep`)."""
-        return CompiledStep(self, kind="many")
+        the port's counterpart of the jitted scan (see `CompiledStep`;
+        `timed`: its phases timed at every replay)."""
+        return CompiledStep(self, kind="many", timed=timed)
 
     def jit_eval_step(self) -> "CompiledStep":
         """`eval_step` as a CUDA graph: `fn(state, batch) -> {"logits",
@@ -1204,7 +1245,15 @@ class CompiledStep:
       capture holds (`parallel/collectives.record_bytes`), what the
       trainer's StepWatch attributes a sampled step's time over. A replay
       runs no host code, so each call is one trace span: `trainer.capture`
-      or `trainer.replay`.
+      or `trainer.replay`; the step's phase spans fire at the warm-up and
+      the capture only.
+    - `timed=True` (not for eval): each graph is captured inside a phase
+      clock of its own (`utils/phases`), so its phases are event-record
+      nodes that every replay stamps on the device, and its metrics add the
+      counters "distinct" and "inserted" (`Trainer._timed`). `phase_ms()`
+      reads the last call's phases. The clock is kept in the graph's static
+      outputs and dropped with the graph. Untimed, no event is made and the
+      graph holds what it always did.
 
     On a Trainer made with device="cpu" a call runs the eager function."""
 
@@ -1212,12 +1261,16 @@ class CompiledStep:
 
     KINDS = ("step", "many", "eval")
 
-    def __init__(self, trainer: Trainer, *, kind: str = "step"):
+    def __init__(self, trainer: Trainer, *, kind: str = "step",
+                 timed: bool = False):
         if kind not in self.KINDS:
             raise ValueError(f"kind={kind!r}: expected one of {self.KINDS}")
+        if timed and kind == "eval":
+            raise ValueError("an eval graph has no phases to time")
         self.trainer = trainer
         self.kind = kind
         self.many = kind == "many"
+        self.timed = timed
         self.captures = 0
         self.replays = 0
         self.launches_captured: Dict[str, int] = {}
@@ -1229,6 +1282,7 @@ class CompiledStep:
     def _release(self) -> None:
         # batch key -> (graph, static inputs, static outputs, launches)
         self._graphs: Dict[Any, tuple] = {}
+        self._clock = None  # the last call's PhaseClock (timed)
         self._state = self._state_ptrs = None
         self._epoch = self.trainer.graph_epoch
 
@@ -1243,9 +1297,18 @@ class CompiledStep:
         if self.kind == "eval":
             return tr.eval_step(state, b)
         if self.many:
-            return tr._many(state, b)
-        loss, logits, stats = tr._step(state, b, {})
-        return {"loss": loss, "logits": logits, "stats": stats}
+            return tr._timed(lambda: tr._many(state, b), self.timed)
+        return tr._timed(lambda: tr._step_metrics(state, b), self.timed)
+
+    def phase_ms(self) -> Dict[str, float]:
+        """{phase: device ms summed over the last call's steps} of a timed
+        driver (`trainer.window` once, for a window), each step's phases
+        also observed in the `<phase>.device_ms` histograms; {} before a
+        timed call. It waits on the last call's final event alone. A nested
+        phase counts whole, inside its parent's figure too."""
+        if self._clock is None:
+            return {}
+        return self._clock.ms(observe=True)
 
     def _advance(self, state: TrainState, batch) -> None:
         if self.kind == "eval":
@@ -1255,6 +1318,8 @@ class CompiledStep:
         state.model_version += k
 
     def _result(self, state: TrainState, metrics):
+        if self.timed:
+            self._clock = metrics["phases"]
         return metrics if self.kind == "eval" else (state, metrics)
 
     def __call__(self, state: TrainState, batch):
@@ -1262,8 +1327,10 @@ class CompiledStep:
         if tr.device.type != "cuda":
             if self.kind == "eval":
                 return tr.eval_step(state, batch)
-            return (tr.train_many(state, batch) if self.many
-                    else tr.train_step(state, batch))
+            state, out = (
+                tr.train_many(state, batch, timed=self.timed) if self.many
+                else tr.train_step(state, batch, timed=self.timed))
+            return self._result(state, out)
         if self.many:
             tr._check_offload_prepared()
         key = _batch_key(batch)
@@ -1318,4 +1385,4 @@ class CompiledStep:
         self._state, self._state_ptrs = state, _state_key(state)
         self._graphs[key] = (graph, static_in, static_out, launches)
         self._advance(state, batch)
-        return self._result(state, out)
+        return self._result(state, out)  # the warm-up: this call's real run

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils import phases
 from . import apply, gather
 from .dedup import unique_with_counts
 
@@ -130,6 +131,20 @@ def _dedup_routed(n_rows: int, row_ids: torch.Tensor, grads: torch.Tensor,
     return g, counts, idx
 
 
+def _push_dedup(n_rows: int, row_ids: torch.Tensor, grads: torch.Tensor,
+                pre_counts: Optional[torch.Tensor], dead_apart: bool = False):
+    """`_dedup_routed` of a push, as the phase `trainer.dedup`; under a
+    phase clock (`utils/phases.active`) its live unique rows are counted
+    as "distinct"."""
+    with phases.phase("trainer", "dedup"):
+        g, counts, idx = _dedup_routed(n_rows, row_ids, grads, pre_counts,
+                                       dead_apart)
+        clock = phases.active()
+        if clock is not None:
+            clock.count("distinct", (counts > 0).sum())
+    return g, counts, idx
+
+
 def sparse_apply_dense_table(
     optimizer,
     weights: torch.Tensor,
@@ -146,10 +161,11 @@ def sparse_apply_dense_table(
     multiplicity already accumulated upstream, default 1 per occurrence,
     0 = pad. Duplicate gradients are summed and the optimizer runs once per
     unique row, in float32 whatever the table's dtype; untouched rows stay
-    bit-identical. `dead_apart`: see `_dedup_routed`. Returns (weights,
-    slots), the tensors given."""
-    g, counts, idx = _dedup_routed(weights.shape[0], row_ids, grads,
-                                   pre_counts, dead_apart)
+    bit-identical. `dead_apart`: see `_dedup_routed`. The dedup is the
+    phase `trainer.dedup` (`_push_dedup`). Returns (weights, slots), the
+    tensors given."""
+    g, counts, idx = _push_dedup(weights.shape[0], row_ids, grads,
+                                 pre_counts, dead_apart)
     # through the module attribute, so a caller can swap in the plain version
     return apply.fused_sparse_apply(optimizer, weights, slots, idx,
                                     g.float(), counts)
@@ -247,8 +263,8 @@ def sparse_apply_packed_table(optimizer, packed: torch.Tensor, layout,
     """`sparse_apply_dense_table` on the packed layout, in place: the same
     dedup and the same fused apply, on column views of `packed` (the slots
     in the order the optimizer takes them). Returns `packed`."""
-    g, counts, idx = _dedup_routed(packed.shape[0], row_ids, grads,
-                                   pre_counts)
+    g, counts, idx = _push_dedup(packed.shape[0], row_ids, grads,
+                                 pre_counts)
     weights, cols = unpack_table(packed, layout, dim, packed.dtype)
     slots = {name: cols[name] for name in optimizer.slot_shapes(dim)}
     apply.fused_sparse_apply(optimizer, weights, slots, idx, g.float(),

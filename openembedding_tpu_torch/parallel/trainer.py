@@ -1494,13 +1494,13 @@ class MeshTrainer(Trainer):
                 "driver: its collectives copy through the host. Run "
                 "train_step / train_many, or use NCCL")
 
-    def jit_train_step(self):
+    def jit_train_step(self, timed: bool = False):
         self._graphs_allowed()
-        return super().jit_train_step()
+        return super().jit_train_step(timed)
 
-    def jit_train_many(self):
+    def jit_train_many(self, timed: bool = False):
         self._graphs_allowed()
-        return super().jit_train_many()
+        return super().jit_train_many(timed)
 
     def jit_eval_step(self):
         """`eval_step` as a CUDA graph (its pulls' exchange and the loss's

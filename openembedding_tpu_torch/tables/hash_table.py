@@ -33,9 +33,11 @@ The JAX package also keeps a split-pair uint32 key layout for JAX with 64-bit
 types off; the port never builds it, and `np_resident_ids`,
 `np_ids_as_int64` and `np_join_ids`/`np_split_ids` convert such states.
 
-The pull's probe is the `torch.profiler` range `hash.probe_insert`. The
-train step's push takes the pull's slots; a push given ids alone probes
-again, in the range `hash.probe_find`.
+The pull's probe is the phase `hash.probe_insert` (`utils/phases`: a
+profiler range and a trace span, timed on the device under a timed
+driver, which also counts the slots it claims as "inserted"). The train
+step's push takes the pull's slots; a push given ids alone probes again,
+in the phase `hash.probe_find`.
 
 Ids must be non-negative; -1 is the empty-slot sentinel and the batch pad.
 Pulls go through the gather kernel (`ops/gather.gather_rows`), which returns
@@ -50,10 +52,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import gather
 from ..ops.dedup import unique_with_counts
+from ..utils import phases
 
 EMPTY = -1
 DEFAULT_NUM_PROBES = 64
@@ -218,7 +220,9 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
     must be unique among the non-negative ones (dedup first), negative ids
     are skipped. Returns (slot (n,) int64, `capacity` for a skipped or
     overflowed id; overflow () int32, the non-negative ids left without a
-    slot). The placement rule is the module docstring's."""
+    slot). The placement rule is the module docstring's. Under a phase
+    clock (`utils/phases.active`) the slots claimed are counted as
+    "inserted"."""
     capacity = keys.shape[0]
     n = ids.shape[0]
     device = ids.device
@@ -231,6 +235,8 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
     slot = torch.full((n,), capacity, dtype=torch.int64, device=device)
     # the contenders' highest index per slot, -1 where none
     claim = torch.full((capacity,), -1, dtype=torch.int32, device=device)
+    clock = phases.active()
+    claimed = torch.zeros_like(placed) if clock is not None else None
     for d in range(num_probes):
         pos = torch.remainder(base + d, capacity)
         cur = keys[pos]
@@ -246,7 +252,11 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
         claim.index_fill_(0, pos, -1)
         slot = torch.where(got, pos, slot)
         placed = placed | got
+        if claimed is not None:
+            claimed |= got
     overflow = torch.sum(~placed).to(torch.int32)
+    if clock is not None:
+        clock.count("inserted", claimed.sum())
     return slot, overflow
 
 
@@ -297,7 +307,7 @@ def hash_lookup_train(state, ids: torch.Tensor, out_dim: int = None):
     uniq = unique_with_counts(ids.to(torch.int64))
     probe = torch.where(uniq.counts > 0, uniq.unique_ids,
                         torch.full_like(uniq.unique_ids, EMPTY))
-    with record_function("hash.probe_insert"):
+    with phases.phase("hash", "probe_insert"):
         uslot, overflow = hash_find_or_insert(state.keys, probe)
     slot = uslot[uniq.inverse]
     rows = gather.gather_rows(state.weights, slot)
@@ -312,7 +322,7 @@ def _grad_slots_and_counts(state, ids: torch.Tensor, slot=None):
     the pull) has count 0, so its gradient is dropped. `slot`: the pull's
     slots of these ids (keys unchanged since), which skip the find probe."""
     if slot is None:
-        with record_function("hash.probe_find"):
+        with phases.phase("hash", "probe_find"):
             slot = hash_find(state.keys, ids)
     capacity = state.keys.shape[0]
     return slot, (slot < capacity).to(torch.int32)

@@ -2,7 +2,8 @@
 the metrics registry (`metrics`), spans and the flight recorder (`trace`),
 metric history rings (`history`), SLOs (`slo`), postmortem capsules
 (`capsule`), heavy-hitter sketches (`sketch`), sampled step timing
-(`stepwatch`), the device-memory ledger (`memwatch`), remote storage
+(`stepwatch`), the train step's phases timed on the device (`phases`),
+the device-memory ledger (`memwatch`), remote storage
 URIs (`fs`) and the runtime guards (`guards`: no CUDA-graph re-capture,
 a fixed collective sequence)."""
 

@@ -3,12 +3,14 @@ sampled synchronize brackets, byte attribution per collective kind and the
 `exchange.cost_drift` gauge, under the JAX package's metric names.
 
 The trainer's phase spans fire in eager steps and while a graph is
-captured, never at a replay, so they time no replayed step. This module
-measures without touching the step: every Nth CALL of the step callable is
-bracketed host-side by `torch.cuda.synchronize()` before (steps still
-queued do not count) and after, and lands in the `trainer.step_ms`
-histogram; CUDA events around the same call give `trainer.step_device_ms`.
-All other calls pay one integer increment.
+captured, never at a replay; a replayed step's phases are timed on the
+device by a timed driver (`jit_train_many(timed=True)`, `utils/phases`),
+whose graph stamps an event at each phase's edges. This module measures
+the whole call without touching the step: every Nth CALL of the step
+callable is bracketed host-side by `torch.cuda.synchronize()` before
+(steps still queued do not count) and after, and lands in the
+`trainer.step_ms` histogram; CUDA events around the same call give
+`trainer.step_device_ms`. All other calls pay one integer increment.
 
 Attribution: the JAX package reads each collective kind's result bytes off
 the compiled HLO once. A CUDA graph has no HLO, so the port counts the

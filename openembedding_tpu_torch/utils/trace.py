@@ -43,8 +43,11 @@ enough to stay always-on, like the accumulators. NOTE on jitted code: a span
 around traced (jit/shard_map/scan) Python measures TRACE time, once per
 compile — honest for compile structure, not per-step execution. Put spans
 around the jitted CALL (dispatch+wall) or host-side stages for runtime
-numbers; `model.Trainer.train_step`'s phase spans are the trace-time kind
-and say so.
+numbers. In the port the step's phase spans (`model.Trainer._step`, opened
+through `utils/phases.phase`) are the capture-time kind inside a CUDA
+graph: a replay runs no host code. A timed driver
+(`jit_train_many(timed=True)`) times the same phases on the device at every
+replay, into the `<group>.<name>.device_ms` histograms.
 """
 
 from __future__ import annotations
