@@ -1475,6 +1475,13 @@ def graph_record(driver) -> dict:
             "launches_replayed": dict(driver.launches_replayed)}
 
 
+def row_launches(counted: dict) -> dict:
+    """The row kernels' entries of a launch count: a path's gathers and
+    applies, checked apart from the hash probe's kernels, which only the
+    hashed paths launch."""
+    return {k: counted[k] for k in KERNELS}
+
+
 def ran_launches(counted: dict, graphs, captures: int = 1) -> dict:
     """The kernel launches that ran on the card in a run through CUDA-graph
     drivers, from their `graph_record`s: the wrappers' counts over the run
@@ -1583,7 +1590,7 @@ def phase_train(torch, mb, ops, optimizers, data) -> dict:
                     else (MANY_WINDOWS, MANY_STEPS))
         check(d["captures"] == 1 and d["replays"] == calls - 1,
               f"jit_train_{name}: one capture, then replays ({d})")
-        check(d["graph_launches"] == [{
+        check([row_launches(g) for g in d["graph_launches"]] == [{
             "gather_rows": k * n_tables, "gather_rows_windows": 0,
             "fused_sparse_apply": k * n_tables}],
             f"each captured step launches one gather and one apply per "
@@ -2229,6 +2236,282 @@ def hash_small_capacity(torch, mb, ops, optimizers, batches) -> dict:
             "overflow": overflow[0], **rec}
 
 
+PROBE_CELL = "deepfm_d9_hashed"   # the benchmark's hashed configuration
+PROBE_TRAFFIC = "criteo_zipf"      # and its traffic
+PROBE_POOL_SEED = 3_000_000_024    # a seed of the size the benchmark draws
+
+
+def _probe_records(got, want, what: str) -> dict:
+    """(keys, slot, overflow, inserted, pending) of a kernel run against
+    the plain run's: bit-equal, or the check fails."""
+    import torch
+    names = ("keys", "slot")
+    for name, a, b in zip(names, got[:2], want[:2]):
+        check(torch.equal(a, b), f"{what}: {name} bit-equal to the plain "
+              "rounds")
+    counts = {name: (int(a), int(b)) for name, a, b in zip(
+        ("overflow", "inserted", "pending"), got[2:], want[2:])}
+    check(all(a == b for a, b in counts.values()),
+          f"{what}: counts equal to the plain rounds ({counts})")
+    return {name: a for name, (a, _) in counts.items()}
+
+
+def _probe_case(torch, mb, hash_probe, keys0, ids, num_probes, what: str,
+                timed: bool = False) -> dict:
+    """One probe of `ids` into copies of `keys0`: the kernels eager, then
+    captured in a CUDA graph and replayed twice (the keys reset before
+    each), each bit-equal to the plain rounds in keys, slots, overflow,
+    inserted and pending; one walk and one contest a call, none at a
+    replay. `timed`: the replay's device ms (keys reset before each, out of
+    the timing) beside the plain call's."""
+    from openembedding_tpu_torch.tables import hash_table
+    plain_keys = keys0.clone()
+    want = (plain_keys, *hash_table.hash_find_or_insert_reference(
+        plain_keys, ids, num_probes))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eager_keys = keys0.clone()
+    before = dict(hash_probe.LAUNCHES)
+    got = (eager_keys, *hash_probe.find_or_insert(eager_keys, ids,
+                                                  num_probes))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - keys0.numel() * 8
+    ran = {k: hash_probe.LAUNCHES[k] - before[k] for k in before}
+    check(ran == {"hash_walk": 1, "hash_contest": 1},
+          f"{what}: one walk and one contest a call ({ran})")
+    rec = _probe_records(got, want, f"{what}, eager")
+    del got, eager_keys
+    graph_keys, static_ids = keys0.clone(), ids.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = dict(hash_probe.LAUNCHES)
+    with torch.cuda.graph(graph, stream=stream):
+        out = hash_probe.find_or_insert(graph_keys, static_ids, num_probes)
+    captured = {k: hash_probe.LAUNCHES[k] - before[k] for k in before}
+    check(captured == {"hash_walk": 1, "hash_contest": 1},
+          f"{what}: the capture holds one walk and one contest ({captured})")
+    before = dict(hash_probe.LAUNCHES)
+    for replay in range(2):
+        graph_keys.copy_(keys0)
+        graph.replay()
+        torch.cuda.synchronize()
+        _probe_records((graph_keys, *out), want,
+                       f"{what}, graph replay {replay}")
+    check(hash_probe.LAUNCHES == before, f"{what}: a replay counts nothing")
+    rec.update({"n": int(ids.numel()), "ids": int((ids >= 0).sum()),
+                "capacity": int(keys0.numel()), "num_probes": num_probes,
+                "kernel_extra_bytes": int(extra),
+                "claim_buffer_bytes": int(keys0.numel()) * 4})
+    check(extra < ids.numel() * 32 + (8 << 20), f"{what}: the kernels "
+          f"allocate nothing of the table's size ({extra} bytes over the "
+          "keys' copy)")
+    if timed:
+        rec["ms"] = mb.device_ms(graph.replay,
+                                 before=lambda: graph_keys.copy_(keys0))
+        plain = keys0.clone()
+        rec["plain_ms"] = mb.device_ms(
+            lambda: hash_table.hash_find_or_insert_reference(plain, ids,
+                                                             num_probes),
+            before=lambda: plain.copy_(keys0))
+    del graph, out, graph_keys, want, plain_keys
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _walk_bound_ms(torch, keys, ids, slot) -> dict:
+    """The walk's least time on the card: every id and slot moved once and
+    each distinct 32-byte sector of keys from its base slot to its slot
+    read once (the ids here are all present), at 3.35 TB/s."""
+    from openembedding_tpu_torch.tables import hash_table
+    live = ids >= 0
+    cap = keys.numel()
+    base = hash_table._base_slot(ids[live], cap)
+    found = slot[live]
+    check(bool((found < cap).all()), "every steady-state id is present")
+    dist = torch.remainder(found - base, cap)
+    reads = [torch.remainder(base + d, cap)[dist >= d]
+             for d in range(int(dist.max()) + 1)]
+    sectors = int(torch.unique(torch.cat(reads) // 4).numel())
+    nbytes = sectors * 32 + ids.numel() * 8 * 2
+    return {"sectors": sectors, "bytes": nbytes,
+            "bound_ms": nbytes / 3.35e12 * 1e3,
+            "distance_max": int(dist.max()),
+            "distance_mean": float(dist.double().mean())}
+
+
+def _probe_entries(torch, ids: np.ndarray):
+    """A batch's ids -> its probe entries as the training pull makes them
+    (`hash_lookup_train`): the dedup's unique ids, sorted, -1 in its
+    padding slots; on the card."""
+    from openembedding_tpu_torch.ops.dedup import unique_with_counts
+    uniq = unique_with_counts(torch.as_tensor(ids.reshape(-1),
+                                              device="cuda"))
+    return torch.where(uniq.counts > 0, uniq.unique_ids,
+                       torch.full_like(uniq.unique_ids, -1))
+
+
+def phase_hash_probe(torch, mb, ops) -> dict:
+    """The probe's kernels (`csrc/hash_probe.cu`) against the plain rounds
+    on the card, eager and under graph replay, bit-equal in keys, slots,
+    overflow, inserted and pending: the benchmark's steady state (the
+    hashed cell's 2^28 slots filled by the pool of its traffic, batch by
+    batch in the pool's order as its first pass fills them, by the kernels
+    and by the plain rounds alike; then one pool batch's 106,496 probe
+    entries, all present), all-new ids into an empty 2^20 table, a crowded
+    2^12 table (contended slots, wrap-around, -1 pads, overflow at
+    num_probes 16), and a 2^16 table with holes punched in front of
+    present keys. Times the first pass's kernels, the steady probe and the
+    all-new one beside the plain rounds and the walk's sector bound."""
+    from benchmark import traffic
+    from openembedding_tpu_torch.ops import hash_probe
+    from openembedding_tpu_torch.tables import hash_table
+    t0 = time.perf_counter()
+    out = {"phase": "hash_probe"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs",
+                           f"{PROBE_CELL}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(here, "benchmark", "traffic",
+                           f"{PROBE_TRAFFIC}.json")) as f:
+        mix = json.load(f)
+    num = cfg["num_probes"]
+    pool = traffic.make_pool(mix, cfg, PROBE_POOL_SEED)
+    batches = [traffic.batch_of(pool, t)["sparse"]["categorical"]
+               for t in range(mix["pool_batches"])]
+    distinct = int(np.unique(np.concatenate(
+        [b.reshape(-1) for b in batches])).size)
+    del pool
+
+    # the first pass: each pool batch's probe entries in turn, into the
+    # kernels' table and into the plain rounds' table
+    keys = hash_table.fresh_keys(cfg["capacity"], device="cuda")
+    plain = hash_table.fresh_keys(cfg["capacity"], device="cuda")
+    kernel_ms, fills = [], {"inserted": 0, "pending": 0, "overflow": 0}
+    for ids in batches:
+        probe = _probe_entries(torch, ids)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = (keys, *hash_probe.find_or_insert(keys, probe, num))
+        end.record()
+        want = (plain, *hash_table.hash_find_or_insert_reference(
+            plain, probe, num))
+        torch.cuda.synchronize()
+        kernel_ms.append(start.elapsed_time(end))
+        for k, v in _probe_records(got, want, "the first pass").items():
+            fills[k] += v
+    del plain, got, want
+    torch.cuda.empty_cache()
+    check(fills["inserted"] == fills["pending"] == distinct
+          and fills["overflow"] == 0, f"the first pass claims one slot for "
+          f"each of the pool's {distinct} distinct ids ({fills})")
+    out["first_pass"] = {
+        "batches": len(batches), "distinct": distinct,
+        "load": int((keys >= 0).sum()) / cfg["capacity"],
+        "kernel_ms_mean": float(np.mean(kernel_ms)),
+        "kernel_ms_max": float(np.max(kernel_ms)),
+        "kernel_ms_first": kernel_ms[0],
+        "kernel_ms_last": kernel_ms[-1]}
+    probe = _probe_entries(torch, batches[0])
+    steady = _probe_case(torch, mb, hash_probe, keys, probe, num, "steady",
+                         timed=True)
+    check(steady["pending"] == steady["inserted"] == steady["overflow"] == 0,
+          f"the steady state: every id found by the walk ({steady})")
+    slot, _, _, _ = hash_probe.find_or_insert(keys, probe, num)
+    steady.update(_walk_bound_ms(torch, keys, probe, slot))
+    out["steady"] = steady
+    del keys, probe, slot, batches
+    torch.cuda.empty_cache()
+
+    # all-new ids into an empty 2^20 table: half of it in one call
+    rng = np.random.default_rng(SEED + 27)
+    ids = np.unique(rng.integers(0, HASH_ID_SPACE, 1 << 19))
+    ids = torch.as_tensor(np.concatenate([ids, np.full(4096, -1)]),
+                          device="cuda")
+    rec = _probe_case(torch, mb, hash_probe, hash_table.fresh_keys(
+        1 << 20, device="cuda"), ids, num, "all_new", timed=True)
+    check(rec["inserted"] == rec["pending"] == rec["ids"] and
+          rec["overflow"] == 0, f"all-new: every id claims ({rec})")
+    out["all_new"] = rec
+
+    # crowded: 2^12 slots at load 0.7, then new ids, some of them based in
+    # the last slots (their paths wrap), with -1 pads, at num_probes 16
+    cap = 1 << 12
+    rng = np.random.default_rng(SEED + 25)
+    held = rng.permutation(np.unique(rng.integers(0, HASH_ID_SPACE,
+                                                  int(cap * 0.75))))
+    keys = hash_table.fresh_keys(cap, device="cuda")
+    hash_table.hash_find_or_insert_reference(
+        keys, torch.as_tensor(held[:int(cap * 0.7)], device="cuda"), num)
+    # the last slots taken by ids of no probe and the first ones empty: a
+    # path from the last slots wraps into the first
+    keys[cap - 4:] = torch.as_tensor(held[-4:], device="cuda")
+    keys[:4] = -1
+    cand = np.unique(rng.integers(0, HASH_ID_SPACE, 1 << 20))
+    based = (hash_table.np_mix(cand) % np.uint64(cap)).astype(np.int64)
+    tail = cand[based >= cap - 4][:64]
+    new = np.setdiff1d(np.concatenate([cand[:1500], tail]), held)
+    ids = np.concatenate([np.full(50, -1), rng.permutation(new)])
+    ids = torch.as_tensor(ids, device="cuda")
+    rec = _probe_case(torch, mb, hash_probe, keys, ids, 16, "crowded")
+    check(rec["overflow"] > 0 and 0 < rec["inserted"] < rec["pending"],
+          f"crowded: contention and overflow ({rec})")
+    work = keys.clone()
+    slot, _, _, _ = hash_probe.find_or_insert(work, ids, 16)
+    live = (ids >= 0) & (slot < cap)
+    wrapped = int((slot[live] < hash_table._base_slot(ids[live], cap))
+                  .sum())
+    check(wrapped > 0, "crowded: some ids placed past the table's end")
+    rec["wrapped"] = wrapped
+    out["crowded"] = rec
+
+    # holes: 2^16 slots at load 0.75, an empty slot punched at the base
+    # slot of ids that sit further on, and a new id of that base for each
+    # (later in the batch, it takes the hole and the old id finds itself
+    # behind it; earlier, the old id claims the hole); others, new ones
+    cap = 1 << 16
+    rng = np.random.default_rng(SEED + 26)
+    held = np.unique(rng.integers(0, HASH_ID_SPACE, int(cap * 0.76)))
+    held = rng.permutation(held)[:int(cap * 0.75)]
+    keys = hash_table.fresh_keys(cap, device="cuda")
+    hslot, _, _, _ = hash_table.hash_find_or_insert_reference(
+        keys, torch.as_tensor(held, device="cuda"), num)
+    hslot = hslot.cpu().numpy()
+    hbase = (hash_table.np_mix(held) % np.uint64(cap)).astype(np.int64)
+    moved = np.flatnonzero(hslot != hbase)[:500]
+    keys[torch.as_tensor(hbase[moved], device="cuda")] = -1
+    cand = np.unique(rng.integers(0, HASH_ID_SPACE, 1 << 23))
+    cbase = (hash_table.np_mix(cand) % np.uint64(cap)).astype(np.int64)
+    first = np.unique(cbase, return_index=True)
+    rival_of = dict(zip(first[0].tolist(), cand[first[1]].tolist()))
+    rivals = np.array([rival_of[b] for b in hbase[moved].tolist()
+                       if b in rival_of], np.int64)
+    ids = np.unique(np.concatenate([held[moved], held[:3000], rivals,
+                                    np.unique(rng.integers(
+                                        0, HASH_ID_SPACE, 2000))]))
+    ids = np.concatenate([rng.permutation(ids), np.full(30, -1)])
+    rec = _probe_case(torch, mb, hash_probe, keys, torch.as_tensor(
+        ids, device="cuda"), num, "holes")
+    work = keys.clone()
+    slot, _, _, _ = hash_probe.find_or_insert(
+        work, torch.as_tensor(ids, device="cuda"), num)
+    slot = slot.cpu().numpy()
+    where = {k: i for i, k in enumerate(ids.tolist())}
+    got = slot[[where[k] for k in held[moved].tolist()]]
+    rec["found_behind_a_hole"] = int((got == hslot[moved]).sum())
+    rec["claimed_the_hole"] = int((got == hbase[moved]).sum())
+    check(rec["found_behind_a_hole"] > 0 and rec["claimed_the_hole"] > 0,
+          f"holes: ids found behind a hole, others claimed it ({rec})")
+    out["holes"] = rec
+    del keys, work
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
 def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
                array_graph: dict) -> dict:
     """The hashed flagship, `make_deepfm(1 << 24, 9, hashed=True, capacity=
@@ -2255,11 +2538,11 @@ def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
     ref, state, graph_state, many_state, first = (base.clone()
                                                   for _ in range(5))
     del base
-    total = {k: 0 for k in KERNELS}
+    total = {k: 0 for k in KERNELS + ("hash_walk",)}
 
     def counted():
         got = ops.launch_counts()
-        for k in KERNELS:
+        for k in total:
             total[k] += got[k]
         return got
 
@@ -2278,8 +2561,9 @@ def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
     eager_ms = (time.perf_counter() - t0) * 1e3 / HASH_STEPS
     launches = counted()
     check(launches["gather_rows"] == launches["fused_sparse_apply"]
-          == HASH_STEPS, f"one gather and one apply a hashed step "
-          f"({launches})")
+          == launches["hash_walk"] == launches["hash_contest"] == HASH_STEPS,
+          f"one gather, one probe (walk and contest) and one apply a hashed "
+          f"step ({launches})")
     rec = _compare(torch, mb, state, losses, ref, ref_losses, "vs_plain")
 
     step = trainer.jit_train_step()
@@ -2288,8 +2572,9 @@ def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
                                                        graph_state, batches)
     graph = {"step": graph_record(step)}
     ran = ran_launches(counted(), [graph["step"]])
-    check(ran["gather_rows"] == ran["fused_sparse_apply"] == HASH_STEPS,
-          f"the graph steps ran one gather and one apply a step ({ran})")
+    check(ran["gather_rows"] == ran["fused_sparse_apply"] == ran["hash_walk"]
+          == ran["hash_contest"] == HASH_STEPS, f"the graph steps ran one "
+          f"gather, one probe and one apply a step ({ran})")
     rec.update(_compare(torch, mb, graph_state, graph_losses, ref,
                         ref_losses, "graph_vs_plain"))
 
@@ -2308,8 +2593,12 @@ def phase_hash(torch, mb, ops, data, optimizers, tsv: str,
     many_ms = (time.perf_counter() - t0) * 1e3 / (HASH_STEPS - HASH_K)
     graph["many"] = graph_record(many)
     ran = ran_launches(counted(), [graph["many"]])
-    check(ran["gather_rows"] == ran["fused_sparse_apply"] == HASH_STEPS,
-          f"the windows ran one gather and one apply a step ({ran})")
+    check(ran["gather_rows"] == ran["fused_sparse_apply"] == ran["hash_walk"]
+          == ran["hash_contest"] == HASH_STEPS, f"the windows ran one "
+          f"gather, one probe and one apply a step ({ran})")
+    window = graph["many"]["graph_launches"][0]
+    check(window.get("hash_walk") == window.get("hash_contest") == HASH_K,
+          f"a window's graph holds {HASH_K} walks and contests ({window})")
     check(overflow == 0, f"no id overflows the flagship table ({overflow})")
     rec.update(_compare(torch, mb, many_state,
                         torch.cat(many_losses).cpu().numpy(), ref,
@@ -2555,7 +2844,7 @@ MESH_ENTRY_STEPS = 16     # then loads and runs 16 more
 def _mesh_launches(counted: dict) -> dict:
     check(counted["gather_rows_windows"] == 0,
           f"the mesh path launches no window gather ({counted})")
-    return {k: counted[k] for k in KERNELS}
+    return row_launches(counted)
 
 
 def mesh_one(torch, mb, ops, data, optimizers, array_graph) -> dict:
@@ -4652,8 +4941,9 @@ def offload_single(torch, mb, ops, optimizers, batches) -> dict:
     graph = graph_record(step)
     ran = ran_launches(ops.launch_counts(), [graph])
     want = _offload_launches(ot, OFFLOAD_STEPS)
-    check(ran == want, f"(o1) launches {ran} are one gather and one apply "
-          f"a step, four gathers an eviction, two a resident read ({want})")
+    check(row_launches(ran) == want, f"(o1) launches {ran} are one gather "
+          f"and one apply a step, four gathers an eviction, two a resident "
+          f"read ({want})")
     check(step.captures == 1, f"(o1) one capture across the evictions "
           f"({step.captures})")
     c = ot.counters
@@ -4707,7 +4997,7 @@ def offload_single(torch, mb, ops, optimizers, batches) -> dict:
         ot3 = t3.offload["categorical"]
         bits3 = _offload_bits(torch, mb, t3, state)
         ran = ran_launches(ops.launch_counts(), [graph_record(step)])
-        check(ran == _offload_launches(ot3, OFFLOAD_STEPS),
+        check(row_launches(ran) == _offload_launches(ot3, OFFLOAD_STEPS),
               f"(o3, {ahead} ahead) launches {ran}")
         for k in KERNELS:
             launches[k] += ran[k]
@@ -7425,7 +7715,8 @@ def phase_ingest(torch, mb, ops, data, optimizers, smi: str) -> dict:
                 times.append((time.perf_counter() - t0) * 1e3 / INGEST_K)
         del staged
         ceiling_ms = min(times)
-        check(many.captures == 1 and many.graph_launches == [
+        check(many.captures == 1 and [
+                row_launches(g) for g in many.graph_launches] == [
             {"gather_rows": INGEST_K, "gather_rows_windows": 0,
              "fused_sparse_apply": INGEST_K}],
             f"ingest: one capture, K gathers and K applies a window "
@@ -8071,8 +8362,9 @@ def main() -> int:
     from openembedding_tpu_torch import data, microbench as mb, optimizers
     from openembedding_tpu_torch import ops
     from openembedding_tpu_torch.ops import (_build, apply, gather,
-                                             gather_windows, sparse)
-    phase_build(torch, (gather, gather_windows, apply), _build)
+                                             gather_windows, hash_probe,
+                                             sparse)
+    phase_build(torch, (gather, gather_windows, apply, hash_probe), _build)
 
     main_gather = phase_kernel(torch, mb, gather)
     main_windows, profile_calls = phase_windows(
@@ -8106,6 +8398,8 @@ def main() -> int:
                 train["graph_step_profile"]["profile_device_ms_per_step"],
             "idle_share": train["graph_step_profile"][
                 "device_idle_share_unprofiled"]}
+        probe = phase_hash_probe(torch, mb, ops)
+        torch.cuda.empty_cache()
         hash_launches = phase_hash(torch, mb, ops, data, optimizers, tsv,
                                    array_graph)
         torch.cuda.empty_cache()
@@ -8185,7 +8479,17 @@ def main() -> int:
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": "bytes",
-        "library_ms": rec["library_ms"]} for k, src, line, rec in rows]})
+        "library_ms": rec["library_ms"]} for k, src, line, rec in rows] + [{
+        "name": "hash_probe", "route": "cuda",
+        "source": "openembedding_tpu_torch/csrc/hash_probe.cu",
+        "replaces": "none: jnp, openembedding_tpu/tables/hash_table.py"
+                    ":268-330",
+        "launches_hash": hash_launches["hash_walk"],
+        "ms": probe["steady"]["ms"], "plain_ms": probe["steady"]["plain_ms"],
+        "bound_ms": probe["steady"]["bound_ms"], "bound_by": "sectors",
+        "first_pass_ms_mean": probe["first_pass"]["kernel_ms_mean"],
+        "all_new_ms": probe["all_new"]["ms"],
+        "all_new_plain_ms": probe["all_new"]["plain_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1044,13 +1044,14 @@ class Trainer:
         """`run()`'s metrics; with `timed`, run inside a phase clock
         (`utils/phases.clocked`) and given its counters, each summed over
         the run's steps on the device: "distinct", the live unique rows of
-        every push's dedup, and "inserted", the slots the hash tables'
-        pulls claimed; and "phases", the `PhaseClock` whose `ms()` reads
-        the phases' device time."""
+        every push's dedup, "inserted", the slots the hash tables' pulls
+        claimed, and "pending", the pulls' ids that met an empty slot on
+        their walk (`tables/hash_table.py`); and "phases", the `PhaseClock`
+        whose `ms()` reads the phases' device time."""
         with _phases.clocked(self.device, timed) as clock:
             out = run()
             if clock is not None:
-                for name in ("distinct", "inserted"):
+                for name in ("distinct", "inserted", "pending"):
                     out[name] = clock.counters.get(name, torch.zeros(
                         (), dtype=torch.int64, device=self.device))
                 out["phases"] = clock
@@ -1250,10 +1251,10 @@ class CompiledStep:
     - `timed=True` (not for eval): each graph is captured inside a phase
       clock of its own (`utils/phases`), so its phases are event-record
       nodes that every replay stamps on the device, and its metrics add the
-      counters "distinct" and "inserted" (`Trainer._timed`). `phase_ms()`
-      reads the last call's phases. The clock is kept in the graph's static
-      outputs and dropped with the graph. Untimed, no event is made and the
-      graph holds what it always did.
+      counters "distinct", "inserted" and "pending" (`Trainer._timed`).
+      `phase_ms()` reads the last call's phases. The clock is kept in the
+      graph's static outputs and dropped with the graph. Untimed, no event
+      is made and the graph holds what it always did.
 
     On a Trainer made with device="cpu" a call runs the eager function."""
 

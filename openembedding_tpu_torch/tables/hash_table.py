@@ -7,27 +7,45 @@ empty slot, beside the (capacity, dim) weights and their optimizer slots.
 Every slot's row is drawn by the initializer when the table is made, so an
 id that claims a slot starts from that slot's row.
 
-Probing is linear from `_mix(id) % capacity`, with a static budget of
-`DEFAULT_NUM_PROBES` rounds and no early exit: every round runs whatever the
-data, so the probe reads nothing back to the host and a CUDA graph captures
-it. An id that finds no slot within the budget is an overflow: its pull is a
-zero row, its gradient is dropped, and the table's `overflow` counter grows.
+Probing is linear from `_mix(id) % capacity`, within a budget of
+`DEFAULT_NUM_PROBES` distances. An id that finds no slot within the budget
+is an overflow: its pull is a zero row, its gradient is dropped, and the
+table's `overflow` counter grows.
 
 Placement is exact, not just some valid layout, because an id's initial row
-depends on its slot. Where several ids claim one empty slot in the same
-round, the one at the highest index of the probe batch wins and the others
-probe on: the JAX package's rule on the CPU, where its reread after
-`keys.at[target].set(ids)` sees the last update in index order. Here the
+depends on its slot. It is defined by rounds, one a probe distance: in
+round d every id without a slot reads the key at distance d as the round
+starts; a key equal to the id is its slot, an empty key is claimed, and
+where several ids claim one empty slot the one at the highest index of the
+probe batch wins and the others probe on. That is the JAX package's rule
+on the CPU, where its reread after `keys.at[target].set(ids)` sees the last
+update in index order. The plain version, `hash_find_or_insert_reference`,
+runs the 64 rounds as torch ops (every round, whatever the data): the
 claim is a `scatter_reduce(..., "amax")` of the contenders' indices into a
 buffer of `capacity` entries, then a second `amax` scatter writes each
-winner's id over the empty key; `amax` does not depend on the order of the
-writes, so the card and the CPU place every id alike. Every id of the batch
-takes part in both scatters at its own probe position, the ones that claim
-nothing with -1, which `amax` never keeps; a negative id (the dedup's
-padding slots) probes from its own index rather than from the mix of -1.
-Either way no address takes many atomics on the card: one common target
-for the ids that claim nothing, or for the padding slots, cost 60-300 us a
-scatter there.
+winner's id over the empty key. `amax` does not depend on the order of the
+writes, so every device places every id alike.
+
+On the card, `hash_find_or_insert` launches `csrc/hash_probe.cu`
+(`ops/hash_probe.py`) instead: the same placement, with no claim buffer,
+touching only the entries that can change it.
+
+- The walk reads each id's path on the table as it stands, up to its own
+  key or the first empty key. An id already in the table is found there
+  (at the flagship's load, at distance 0 or 1), exactly where the rounds
+  find it: the slots it passed were occupied, and rounds only fill empty
+  slots. An id that meets an empty key at distance d0 is pending.
+- The contest (one block of threads, its rounds ended by block barriers)
+  runs the rounds from the least d0 for the pending ids alone, each
+  joining at its own d0. A contender writes the marker `-2 - index`
+  over the empty key with an atomic minimum, so the marker that stands is
+  the highest index's, the one the claim buffer's `amax` kept; the winner
+  then writes its id over its marker. With no pending id it returns at
+  once.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
+raises. A negative id (the dedup's padding slots) is skipped and gets the
+slot `capacity`. Keys hold -1 or an id, nothing else negative.
 
 The JAX package also keeps a split-pair uint32 key layout for JAX with 64-bit
 types off; the port never builds it, and `np_resident_ids`,
@@ -35,9 +53,10 @@ types off; the port never builds it, and `np_resident_ids`,
 
 The pull's probe is the phase `hash.probe_insert` (`utils/phases`: a
 profiler range and a trace span, timed on the device under a timed
-driver, which also counts the slots it claims as "inserted"). The train
-step's push takes the pull's slots; a push given ids alone probes again,
-in the phase `hash.probe_find`.
+driver, which also counts the slots it claims as "inserted" and the ids
+that met an empty slot on their walk as "pending"). The train step's push
+takes the pull's slots; a push given ids alone probes again, in the phase
+`hash.probe_find`.
 
 Ids must be non-negative; -1 is the empty-slot sentinel and the batch pad.
 Pulls go through the gather kernel (`ops/gather.gather_rows`), which returns
@@ -53,7 +72,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops import gather
+from ..ops import gather, hash_probe
 from ..ops.dedup import unique_with_counts
 from ..utils import phases
 
@@ -220,26 +239,54 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
     must be unique among the non-negative ones (dedup first), negative ids
     are skipped. Returns (slot (n,) int64, `capacity` for a skipped or
     overflowed id; overflow () int32, the non-negative ids left without a
-    slot). The placement rule is the module docstring's. Under a phase
-    clock (`utils/phases.active`) the slots claimed are counted as
-    "inserted"."""
+    slot). The placement is the module docstring's rounds: on a CPU tensor
+    as torch ops (`hash_find_or_insert_reference`), on a CUDA tensor by the
+    walk and the contest (`ops/hash_probe.py`), which read nothing back to
+    the host. Under a phase clock (`utils/phases.active`) the slots claimed
+    are counted as "inserted" and the ids that met an empty slot on their
+    walk as "pending"."""
+    probe = (hash_find_or_insert_reference if keys.device.type == "cpu"
+             else hash_probe.find_or_insert)
+    slot, overflow, inserted, pending = probe(keys, ids, num_probes)
+    clock = phases.active()
+    if clock is not None:
+        clock.count("inserted", inserted)
+        clock.count("pending", pending)
+    return slot, overflow
+
+
+def hash_find_or_insert_reference(keys: torch.Tensor, ids: torch.Tensor,
+                                  num_probes: int = DEFAULT_NUM_PROBES):
+    """The plain version of `hash_find_or_insert`, on any device, with the
+    kernels' contract (`ops/hash_probe.find_or_insert`): `num_probes`
+    rounds of torch ops, each over every id whatever the data -> (slot,
+    overflow, inserted, pending). `inserted` (slots claimed) and `pending`
+    (non-negative ids whose walk over the keys as the call found them met
+    an empty slot before their own key, within the budget: the ids the
+    kernels' contest takes) are () int64."""
     capacity = keys.shape[0]
     n = ids.shape[0]
     device = ids.device
     ids = ids.to(torch.int64)
     placed = ids < 0
+    walking = ~placed  # on its walk over the keys as the call found them
+    met = torch.zeros_like(placed)  # its walk met an empty key: pending
+    claimed = torch.zeros_like(placed)
     index = torch.arange(n, dtype=torch.int32, device=device)
     # a skipped id never claims, so where it probes only spreads its -1s
     base = torch.where(placed, torch.remainder(index.long(), capacity),
                        _base_slot(ids, capacity))
     slot = torch.full((n,), capacity, dtype=torch.int64, device=device)
-    # the contenders' highest index per slot, -1 where none
+    # each slot's highest contending index, -1 where none has contended: a
+    # contended slot always gets its winner, so the buffer needs no reset,
+    # and >= 0 marks a slot this call filled
     claim = torch.full((capacity,), -1, dtype=torch.int32, device=device)
-    clock = phases.active()
-    claimed = torch.zeros_like(placed) if clock is not None else None
     for d in range(num_probes):
         pos = torch.remainder(base + d, capacity)
         cur = keys[pos]
+        was_empty = (cur == EMPTY) | (claim[pos] >= 0)
+        met |= walking & was_empty
+        walking &= ~was_empty & (cur != ids)
         found = ~placed & (cur == ids)
         slot = torch.where(found, pos, slot)
         placed = placed | found
@@ -249,15 +296,11 @@ def hash_find_or_insert(keys: torch.Tensor, ids: torch.Tensor,
         # the winner's id over the empty key; everyone else writes -1, which
         # `amax` never keeps over a key
         keys.scatter_reduce_(0, pos, torch.where(got, ids, EMPTY), "amax")
-        claim.index_fill_(0, pos, -1)
         slot = torch.where(got, pos, slot)
         placed = placed | got
-        if claimed is not None:
-            claimed |= got
+        claimed |= got
     overflow = torch.sum(~placed).to(torch.int32)
-    if clock is not None:
-        clock.count("inserted", claimed.sum())
-    return slot, overflow
+    return slot, overflow, claimed.sum(), met.sum()
 
 
 def hash_find(keys: torch.Tensor, ids: torch.Tensor,

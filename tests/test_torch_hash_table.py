@@ -266,3 +266,240 @@ def test_lookup_and_apply_against_jax():
         np.asarray(jht.hash_lookup(
             jt.replace(weights=jnp.asarray(tt.weights.numpy())),
             jnp.asarray(query))))
+
+
+# -- the card's schedule: the walk, then the marker contest ------------------
+
+
+def _np_walk_contest(keys, ids, num_probes):
+    """Numpy emulation of `csrc/hash_probe.cu` on a copy of `keys`: each id
+    walks the table as it stands to its own key or the first empty key;
+    the ids that met an empty key at d0 run the rounds from the least d0,
+    each joining at its own, and claim by the marker rule (`-2 - index`,
+    the least marker stands). -> (keys, slot, overflow, inserted,
+    pending)."""
+    keys = keys.copy()
+    capacity, n = len(keys), len(ids)
+    valid = ids >= 0
+    base = np.zeros(n, np.int64)
+    base[valid] = (jht.np_mix(ids[valid]) % np.uint64(capacity)).astype(
+        np.int64)
+    slot = np.full(n, capacity, np.int64)
+    d0 = np.full(n, -1, np.int64)
+    walking = valid.copy()
+    for d in range(num_probes):
+        pos = (base + d) % capacity
+        cur = keys[pos]
+        hit = walking & (cur == ids)
+        slot[hit] = pos[hit]
+        met = walking & (cur == tht.EMPTY)
+        d0[met] = d
+        walking &= ~(hit | met)
+    overflow = int(walking.sum())
+    pend = np.flatnonzero(d0 >= 0)
+    inserted = 0
+    if pend.size:
+        left = np.ones(pend.size, bool)
+        for d in range(int(d0[pend].min()), num_probes):
+            act = left & (d0[pend] <= d)
+            idx = pend[act]
+            pos = (base[idx] + d) % capacity
+            cur = keys[pos]
+            found = cur == ids[idx]
+            slot[idx[found]] = pos[found]
+            contend = cur < 0
+            np.minimum.at(keys, pos[contend], -2 - idx[contend])
+            win = contend & (keys[pos] == -2 - idx)
+            keys[pos[win]] = ids[idx[win]]
+            slot[idx[win]] = pos[win]
+            inserted += int(win.sum())
+            left[np.flatnonzero(act)[found | win]] = False
+            assert (keys >= -1).all()          # no marker outlives a round
+            if not left.any():
+                break
+        overflow += int(left.sum())
+    return keys, slot, overflow, inserted, int(pend.size)
+
+
+def _filled(rng, capacity, load):
+    """A table filled to `load` through the plain rounds, and its ids."""
+    keys = tht.fresh_keys(capacity)
+    ids = _ids(rng, int(capacity * load))
+    tht.hash_find_or_insert_reference(keys, torch.from_numpy(ids))
+    return keys.numpy().copy(), ids
+
+
+def _case(name, rng):
+    """(keys before, probe ids, num_probes) of one schedule case."""
+    if name.startswith("crowded"):
+        capacity = 1 << 11 if name == "crowded" else 3001
+        b1, b2 = _crowded(rng, capacity, int(capacity * 0.45),
+                          int(capacity * 0.4))
+        keys = tht.fresh_keys(capacity)
+        tht.hash_find_or_insert_reference(keys, torch.from_numpy(b1))
+        return keys.numpy().copy(), b2, tht.DEFAULT_NUM_PROBES
+    if name == "overflow":
+        return (np.full(200, -1, np.int64),
+                np.concatenate([_ids(rng, 300), np.full(9, -1, np.int64)]), 8)
+    if name == "wrap":
+        # ids whose base slot lies in the table's last slots: their paths
+        # and contests run over the end into slot 0
+        capacity = 1 << 12
+        keys, _ = _filled(rng, capacity, 0.5)
+        c = _ids(rng, 200000)
+        b = (jht.np_mix(c) % np.uint64(capacity)).astype(np.int64)
+        tail = rng.permutation(c[b >= capacity - 6])[:40]
+        keys[capacity - 12:] = -1
+        keys[:3] = -1
+        ids = np.concatenate([tail, np.full(5, -1, np.int64),
+                              _ids(rng, 300)])
+        return keys, np.unique(ids)[::-1].copy(), 16
+    if name == "holes":
+        # an empty slot punched at the base slot of ids that sit further on,
+        # and a new id of the same base for some: where the new id comes
+        # later in the batch it takes the hole and the old id finds itself
+        # behind it; where not, the old id claims the hole (a second copy)
+        capacity = 1 << 12
+        keys, held = _filled(rng, capacity, 0.75)
+        base = (jht.np_mix(held) % np.uint64(capacity)).astype(np.int64)
+        at = {int(k): p for p, k in enumerate(keys) if k >= 0}
+        far = [i for i, k in enumerate(held) if at[int(k)] != base[i]][:150]
+        keys[base[far]] = -1
+        cand = _ids(rng, 1 << 19)
+        cbase = (jht.np_mix(cand) % np.uint64(capacity)).astype(np.int64)
+        rivals = {}
+        for c, b in zip(cand, cbase):
+            rivals.setdefault(int(b), int(c))
+        rival = np.array([rivals[int(b)] for b in base[far]
+                          if int(b) in rivals], np.int64)
+        ids = np.unique(np.concatenate([held[far], held[:200], rival,
+                                        _ids(rng, 300)]))
+        ids = np.concatenate([np.full(7, -1, np.int64), rng.permutation(ids)])
+        return keys, ids, tht.DEFAULT_NUM_PROBES
+    if name == "all_new":
+        return (np.full(1 << 12, -1, np.int64),
+                np.concatenate([_ids(rng, 2500), np.full(11, -1, np.int64)]),
+                tht.DEFAULT_NUM_PROBES)
+    assert name == "all_present"
+    keys, held = _filled(rng, 1 << 12, 0.6)
+    return keys, np.concatenate([rng.permutation(held),
+                                 np.full(13, -1, np.int64)]), \
+        tht.DEFAULT_NUM_PROBES
+
+
+@pytest.mark.parametrize("name", ["crowded", "crowded_3001", "overflow",
+                                  "wrap", "holes", "all_new", "all_present"])
+def test_walk_and_contest_schedule_equals_the_rounds(name):
+    """The kernels' schedule, emulated in numpy, places every id, claims
+    every slot and counts every overflow as the 64 torch-op rounds do, and
+    its pending list is what the plain version counts; the JAX package's
+    probe places the same ids alike."""
+    rng = np.random.default_rng(sum(name.encode()))
+    keys0, ids, num_probes = _case(name, rng)
+    keys, slot, overflow, inserted, pending = _np_walk_contest(keys0, ids,
+                                                               num_probes)
+    tkeys = torch.from_numpy(keys0.copy())
+    tslot, toflow, tinserted, tpending = tht.hash_find_or_insert_reference(
+        tkeys, torch.from_numpy(ids), num_probes)
+    np.testing.assert_array_equal(keys, tkeys.numpy())
+    np.testing.assert_array_equal(slot, tslot.numpy())
+    assert overflow == int(toflow)
+    assert inserted == int(tinserted)
+    assert pending == int(tpending)
+    jkeys, jslot, joflow = jax.jit(jht.hash_find_or_insert,
+                                   static_argnames="num_probes")(
+        jnp.asarray(keys0), jnp.asarray(ids), num_probes=num_probes)
+    np.testing.assert_array_equal(keys, np.asarray(jkeys))
+    np.testing.assert_array_equal(slot, np.asarray(jslot))
+    assert overflow == int(joflow)
+    valid = int((ids >= 0).sum())
+    if name == "all_present":
+        assert pending == inserted == overflow == 0
+    elif name == "all_new":
+        assert pending == valid and inserted == valid and overflow == 0
+    elif name == "overflow":
+        assert overflow > 0 and inserted + overflow == valid
+    else:
+        assert 0 < inserted < pending
+    if name == "wrap":
+        # some ids of the last slots claimed or found a slot past the end
+        live = (ids >= 0) & (slot < len(keys0))
+        base = (jht.np_mix(ids[live]) % np.uint64(len(keys0))).astype(
+            np.int64)
+        assert (slot[live] < base).any()
+    if name == "holes":
+        # ids of the table whose base slot is a hole: some found themselves
+        # behind it, others claimed it
+        cap = len(keys0)
+        at = {int(k): p for p, k in enumerate(keys0) if k >= 0}
+        held = np.array([i for i, k in enumerate(ids) if int(k) in at])
+        hbase = (jht.np_mix(ids[held]) % np.uint64(cap)).astype(np.int64)
+        holed = keys0[hbase] == tht.EMPTY
+        old = np.array([at[int(k)] for k in ids[held]])
+        assert (holed & (slot[held] == old)).any()
+        assert (holed & (slot[held] == hbase)).any()
+
+
+def test_cpu_tensors_take_the_plain_rounds(monkeypatch):
+    """A CPU tensor never reaches the kernel wrapper, and the plain version
+    counts "pending" and "inserted" under a phase clock: every new id on the
+    first pull, nothing on a second pull of the same ids."""
+    from openembedding_tpu_torch import ops
+    from openembedding_tpu_torch.ops import hash_probe
+    from openembedding_tpu_torch.utils import phases
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel wrapper was called")
+
+    monkeypatch.setattr(hash_probe, "find_or_insert", refuse)
+    before = dict(hash_probe.LAUNCHES)
+    rng = np.random.default_rng(21)
+    keys, held = _filled(rng, 1 << 12, 0.3)
+    new = np.setdiff1d(_ids(rng, 500), held)
+    ids = torch.from_numpy(np.concatenate(
+        [np.sort(np.concatenate([held[:300], new])),
+         np.full(9, -1, np.int64)]))
+    keys = torch.from_numpy(keys)
+    want_keys = keys.clone()
+    want_slot, want_over, _, _ = tht.hash_find_or_insert_reference(
+        want_keys, ids)
+    counted = []
+    for _ in range(2):
+        with phases.clocked("cpu", True) as clock:
+            slot, over = tht.hash_find_or_insert(keys, ids)
+        counted.append({k: int(v) for k, v in clock.counters.items()})
+        if len(counted) == 1:
+            assert torch.equal(slot, want_slot) and int(over) == int(
+                want_over) == 0
+            assert torch.equal(keys, want_keys)
+        else:
+            assert torch.equal(slot, want_slot)
+    assert counted == [{"inserted": len(new), "pending": len(new)},
+                       {"inserted": 0, "pending": 0}]
+    with phases.clocked("cpu", False) as clock:
+        tht.hash_find_or_insert(keys, ids)
+    assert clock is None
+    assert hash_probe.LAUNCHES == before
+    assert {"hash_walk", "hash_contest"} <= set(ops.launch_counts())
+
+
+def test_kernel_wrapper_refuses_what_it_cannot_launch():
+    """The kernel half raises for a CPU tensor (no fallback) and for keys it
+    cannot update in place; `plain_versions` swaps in the plain rounds and
+    puts the kernel wrapper back."""
+    from openembedding_tpu_torch import ops
+    from openembedding_tpu_torch.ops import hash_probe
+    keys = tht.fresh_keys(64)
+    ids = torch.arange(10, dtype=torch.int64)
+    with pytest.raises(ValueError, match="no kernel"):
+        hash_probe.find_or_insert(keys, ids, 8)
+    with pytest.raises(TypeError):
+        hash_probe.find_or_insert(keys.to(torch.int32), ids, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_probe.find_or_insert(tht.fresh_keys(128)[::2], ids, 8)
+    kernel = hash_probe.find_or_insert
+    with ops.plain_versions():
+        slot, over, inserted, pending = hash_probe.find_or_insert(keys, ids, 8)
+    assert hash_probe.find_or_insert is kernel
+    assert int(over) == 0 and int(inserted) == int(pending) == 10
+    assert torch.equal(keys[slot], ids)
